@@ -1,0 +1,36 @@
+"""Hand-written CUDA kernels for MoDeST's perf-critical layers.
+
+The paper's compute hot spot is the aggregator: averaging ``sf·s`` incoming
+models (a bandwidth-bound streaming reduction) every round.
+
+* :mod:`repro_torch.kernels.fused` — whole-model one-pass aggregation over
+  flat ``(P, N)`` buffers + fused aggregate→quantize (``csrc/fused_agg.cu``)
+* :mod:`repro_torch.kernels.ops`   — model-level wrappers (public API)
+* :mod:`repro_torch.kernels.ref`   — plain-torch oracles
+* :mod:`repro_torch.kernels.build` — nvcc + ctypes build at first use
+
+``KERNELS`` names every kernel of the package with its wrapper (whose
+``launches`` attribute counts kernel launches), its source and the
+reference kernel it replaces.
+"""
+
+from repro_torch.kernels.fused import (  # noqa: F401
+    aggregate_flat_onepass,
+    aggregate_quantize_flat,
+)
+from repro_torch.kernels.ops import aggregate_flatmodel  # noqa: F401
+
+KERNELS = {
+    "fused.agg": {
+        "wrapper": aggregate_flat_onepass,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
+        "replaces": "src/repro/kernels/fused.py:98",
+    },
+    "fused.agg_quant": {
+        "wrapper": aggregate_quantize_flat,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
+        "replaces": "src/repro/kernels/fused.py:117",
+    },
+}

@@ -1,0 +1,259 @@
+"""The PyTorch package's aggregation wrappers (on CPU tensors: the plain
+versions that the CUDA kernels are held against on the card) against the
+reference package's Pallas kernels run in interpret mode and its fused jnp
+paths.
+
+Tolerances: the mean ``rtol = atol = 1e-6`` (summation order differs
+between XLA and PyTorch). Quantisation is elementwise after the absmax, so
+the *reference's* mean fed to the port's quantiser must give
+``ref.quantize_ref``'s codes bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fused as jfused
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.engine.flat import FlatModel, FlatSpec
+from repro_torch.kernels import KERNELS, fused, ref
+from repro_torch.kernels.ops import aggregate_flatmodel
+from repro_torch.utils.pytree import tree_weighted_mean
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+SHAPES = [(1, 5000), (3, 16384), (3, 20000), (16, 40001)]   # ragged N too
+
+
+def _inputs(P, N, seed, n_int=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((P, N)).astype(np.float32)
+    w = (rng.random(P) + 0.5).astype(np.float32)
+    mask = np.zeros(N, np.bool_)
+    if n_int:
+        x[:, :n_int] = rng.integers(0, 50, (P, n_int)).astype(np.float32)
+        mask[:n_int] = True
+    return x, w, mask
+
+
+@pytest.mark.parametrize("P,N", SHAPES)
+@pytest.mark.parametrize("n_int", [0, 37])
+def test_onepass_matches_pallas_interpret_and_jnp(P, N, n_int):
+    x, w, mask = _inputs(P, N, seed=P * 1000 + N, n_int=n_int)
+    tmask = torch.from_numpy(mask) if n_int else None
+    got = fused.aggregate_flat_onepass(
+        torch.from_numpy(x), torch.from_numpy(w), tmask).numpy()
+    pallas = np.asarray(jfused.aggregate_flat_onepass(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask, jnp.float32),
+        interpret=True))
+    fusedjnp = np.asarray(jops._jnp_onepass(N, bool(n_int))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask)))
+    assert got.shape == (N,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, fusedjnp, **TOL)
+    if n_int:                     # integer lanes hold whole numbers
+        assert np.all(got[:n_int] == np.rint(got[:n_int]))
+
+
+@pytest.mark.parametrize("P,N", SHAPES)
+def test_quantize_matches_pallas_interpret_and_jnp(P, N):
+    x, w, mask = _inputs(P, N, seed=7 * P + N)
+    mean, codes, scales = fused.aggregate_quantize_flat(
+        torch.from_numpy(x), torch.from_numpy(w))
+    pm, pq, ps = jfused.aggregate_quantize_flat(
+        jnp.asarray(x), jnp.asarray(w), None, interpret=True)
+    jm, jq, js = jops._jnp_onepass_quant(N, False)(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask))
+    n_sub = -(-N // fused.SUBTILE)
+    assert codes.dtype == torch.int8 and codes.shape == (N,)
+    assert scales.shape == (n_sub,) == tuple(np.asarray(ps).shape)
+    assert torch.equal(mean, fused.aggregate_flat_onepass(
+        torch.from_numpy(x), torch.from_numpy(w)))
+    for m, q, s in ((pm, pq, ps), (jm, jq, js)):
+        np.testing.assert_allclose(mean.numpy(), np.asarray(m), **TOL)
+        # scales: one ulp apart at most (the reference's jitted paths
+        # multiply by a reciprocal where the oracle divides)
+        np.testing.assert_allclose(scales.numpy(), np.asarray(s), rtol=3e-7)
+        # a mean that differs in the last bits may move a code by one step
+        dq = np.abs(codes.numpy().astype(np.int32)
+                    - np.asarray(q).astype(np.int32))
+        assert dq.max() <= 1 and (dq != 0).mean() < 1e-3
+
+
+@pytest.mark.parametrize("N", [16384, 20000, 3 * 16384 + 5])
+def test_reference_mean_through_port_quantiser_is_bit_identical(N):
+    """Feed the reference's own mean to the port's quantiser: codes and
+    scales equal ``ref.quantize_ref`` (the reference's oracle) bit for bit."""
+    x, w, mask = _inputs(4, N, seed=N)
+    jmean = jops._jnp_onepass(N, False)(jnp.asarray(x), jnp.asarray(w),
+                                        jnp.asarray(mask))
+    pad = (-N) % fused.SUBTILE
+    want_q, want_s = jref.quantize_ref(jnp.pad(jmean, (0, pad)))
+    got_q, got_s = fused._plain_quantize(torch.from_numpy(np.array(jmean)))
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q)[:N])
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    # and the port's oracle equals the reference's on an aligned vector
+    v = np.array(jnp.pad(jmean, (0, pad)))
+    tq, ts = ref.quantize_ref(torch.from_numpy(v))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(
+        ref.dequantize_ref(tq, ts).numpy(),
+        np.asarray(jref.dequantize_ref(want_q, want_s)))
+
+
+def test_pad_lanes_are_exact_zeros():
+    """A ragged last subtile quantises as if padded with zeros: its scale
+    comes from the real lanes only."""
+    x, w, _ = _inputs(2, 16384 + 10, seed=3)
+    x[:, 16384:] *= 1e-3
+    _, codes, scales = fused.aggregate_quantize_flat(
+        torch.from_numpy(x), torch.from_numpy(w))
+    mean = fused.aggregate_flat_onepass(torch.from_numpy(x),
+                                        torch.from_numpy(w))
+    tail = mean[16384:]
+    want = torch.clamp_min(tail.abs().max(), 1e-12) / torch.full((), 127.0)
+    assert scales[1] == want
+    assert int(codes[16384:].abs().max()) == 127
+
+
+def test_aggregate_ref_matches_reference_oracle():
+    x, w, _ = _inputs(5, 4096, seed=1)
+    got = ref.aggregate_ref(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    want = np.asarray(jref.aggregate_ref(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert ref.TILE == jref.TILE == fused.SUBTILE == jfused.SUBTILE
+
+
+def _int_models():
+    mk = lambda w, s: {"w": torch.full((300,), w),           # noqa: E731
+                       "step": torch.tensor(s, dtype=torch.int32)}
+    return [mk(1.0, [7, 100]), mk(0.0, [8, 101])]
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_aggregate_flatmodel_integer_leaves(quantize):
+    out = aggregate_flatmodel(_int_models(), [1.0, 1.0], quantize=quantize,
+                              device="cpu")
+    got = (out[0] if quantize else out).tree
+    assert got["step"].dtype == torch.int32
+    assert got["step"].tolist() == [8, 100]       # round-half-even, not floor
+    np.testing.assert_allclose(got["w"].numpy(), 0.5)
+    jmodels = [{"w": jnp.asarray(m["w"].numpy()),
+                "step": jnp.asarray(m["step"].numpy())} for m in _int_models()]
+    jgot = jops.aggregate_flatmodel(jmodels, [1.0, 1.0], use_kernel=True,
+                                    interpret=True).tree
+    assert jgot["step"].tolist() == got["step"].tolist()
+
+
+def test_aggregate_flatmodel_contract_matches_reference():
+    """FlatModels and trees mixed, explicit spec, quantize tuple."""
+    rng = np.random.default_rng(5)
+    trees = [{"a": rng.standard_normal((33, 7)).astype(np.float32),
+              "b": rng.standard_normal((20000,)).astype(np.float32)}
+             for _ in range(3)]
+    w = [0.5, 1.0, 2.0]
+    tt = [{k: torch.from_numpy(v) for k, v in t.items()} for t in trees]
+    spec = FlatSpec.from_tree(tt[0])
+    mixed = [FlatModel.pack(tt[0], spec), tt[1], FlatModel.pack(tt[2], spec)]
+    fm, codes, scales = aggregate_flatmodel(mixed, w, spec=spec,
+                                            quantize=True, device="cpu")
+    plain = aggregate_flatmodel(mixed, w, device="cpu")
+    assert isinstance(fm, FlatModel) and fm.spec == spec
+    assert torch.equal(fm.buffer, plain.buffer)
+    assert codes.shape == (spec.n,) and codes.dtype == torch.int8
+    assert scales.shape == (-(-spec.n // fused.SUBTILE),)
+    jt = [{k: jnp.asarray(v) for k, v in t.items()} for t in trees]
+    jfm, jq, js = jops.aggregate_flatmodel(jt, w, quantize=True,
+                                           use_kernel=True, interpret=True)
+    np.testing.assert_allclose(fm.buffer.numpy(), np.asarray(jfm.buffer), **TOL)
+    want = tree_weighted_mean(tt, w)
+    for k in want:
+        np.testing.assert_allclose(fm.tree[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    # default weights are uniform
+    uni = aggregate_flatmodel(tt, device="cpu")
+    np.testing.assert_allclose(
+        uni.buffer.numpy(),
+        aggregate_flatmodel(tt, [1, 1, 1], device="cpu").buffer.numpy())
+
+
+def test_zero_weight_raises_on_every_path():
+    from repro_torch.models.tasks import cnn_task
+    task = cnn_task(device="cpu", cnn_image=(8, 8, 3))
+    params = task.init_params(0)
+    models = [params, params]
+    x = torch.ones((2, 8))
+    zero = torch.zeros((2,))
+    with pytest.raises(ValueError):
+        tree_weighted_mean(models, [0.0, 0.0])
+    with pytest.raises(ValueError):
+        aggregate_flatmodel(models, [0.0, 0.0], device="cpu")
+    with pytest.raises(ValueError):
+        aggregate_flatmodel(models, [0.0, 0.0], quantize=True, device="cpu")
+    with pytest.raises(ValueError):
+        task.aggregate(models, [0.0, -0.0])
+    with pytest.raises(ValueError):
+        task.aggregate_sequential(models, [0.0, 0.0])
+    with pytest.raises(ValueError):
+        fused.aggregate_flat_onepass(x, zero)
+    with pytest.raises(ValueError):
+        fused.aggregate_quantize_flat(x, zero)
+
+
+@pytest.mark.parametrize("wrapper", [fused.aggregate_flat_onepass,
+                                     fused.aggregate_quantize_flat])
+def test_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
+    x, w = torch.ones((3, 64)), torch.ones((3,))
+    with pytest.raises(TypeError):
+        wrapper(x.double(), w)
+    with pytest.raises(TypeError):
+        wrapper(x, w, torch.zeros(64))                 # float mask
+    with pytest.raises(ValueError):
+        wrapper(x, torch.ones((4,)))
+    with pytest.raises(ValueError):
+        wrapper(x.t().contiguous().t(), w)             # not contiguous
+    with pytest.raises(ValueError):
+        wrapper(x, w, torch.zeros(63, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        wrapper(torch.ones((64,)), w)
+    with pytest.raises(ValueError):
+        aggregate_flatmodel([{"w": torch.ones(4, device="meta")}], [1.0],
+                            device="cpu")              # model elsewhere
+
+
+def test_cpu_calls_launch_no_kernel_and_registry_is_complete():
+    """On CPU tensors the wrappers take the plain version: the launch
+    counts stay where they were. Every kernel is registered with its
+    source and the reference kernel it replaces."""
+    import os
+    before = {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    x, w, _ = _inputs(3, 1000, seed=0)
+    fused.aggregate_flat_onepass(torch.from_numpy(x), torch.from_numpy(w))
+    fused.aggregate_quantize_flat(torch.from_numpy(x), torch.from_numpy(w))
+    assert before == {n: k["wrapper"].launches for n, k in KERNELS.items()}
+    assert set(KERNELS) == {"fused.agg", "fused.agg_quant"}
+    repo = os.path.join(os.path.dirname(__file__), "..")
+    for meta in KERNELS.values():
+        assert meta["route"] == "cuda"
+        assert os.path.isfile(os.path.join(repo, meta["source"]))
+        path, line = meta["replaces"].split(":")
+        with open(os.path.join(repo, path)) as fh:
+            assert "pl.pallas_call(" in fh.readlines()[int(line) - 1]
+
+
+def test_cuda_source_keeps_its_exactness_contract():
+    """What the CPU can check of the CUDA source: IEEE division and
+    half-to-even rounding intrinsics, one shared mean, no fast-math."""
+    import os
+
+    from repro_torch.kernels import build
+    src = open(os.path.join(build.CSRC, "fused_agg.cu")).read()
+    for needle in ("__fdiv_rn", "rintf", "__fmaf_rn", "weighted_mean_lane",
+                   'extern "C"', "cudaGetLastError"):
+        assert needle in src, needle
+    assert "roundf" not in src.replace("never `roundf`", "")
+    assert "-use_fast_math" not in " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert build.library_path("fused_agg").name.startswith("libfused_agg_")
