@@ -272,6 +272,13 @@ def session_phase(sim_seconds: float):
     if eng.jobs_run <= 0 or eng.jobs_run <= eng.flushes:
         raise AssertionError(f"cohort not batched: {eng.jobs_run} jobs in "
                              f"{eng.flushes} flushes")
+    # every training was served by a job queued ahead of its demand: a
+    # parameter object re-made between submit and result would miss the
+    # identity-keyed cache and be trained alone, without any error
+    if eng.fallbacks != 0 or eng.jobs_run < result.trainings_completed:
+        raise AssertionError(
+            f"{eng.fallbacks} trainings fell back to training alone; "
+            f"{eng.jobs_run} jobs for {result.trainings_completed} trainings")
     models = last["models"]
     bufs = [as_buffer(m, spec) for m in models]
     evals = [as_buffer(m, spec) for m in session._eval_models.values()]
@@ -286,7 +293,7 @@ def session_phase(sim_seconds: float):
          sample_size=10, sim_seconds=sim_seconds,
          rounds=result.rounds_completed, wall_seconds=wall,
          accuracy=acc, flushes=eng.flushes, jobs=eng.jobs_run,
-         aggregations=n_agg,
+         fallbacks=eng.fallbacks, aggregations=n_agg,
          launches={n: k["wrapper"].launches for n, k in KERNELS.items()},
          trainings=result.trainings_completed,
          total_bytes=result.usage["total_bytes"])
@@ -361,6 +368,39 @@ def breakdown_phase(sim_seconds: float):
          flushes=eng.flushes, jobs=eng.jobs_run)
 
 
+def profile_phase(sim_seconds: float):
+    """The device's busy share of the session: a third run of the same
+    session under ``torch.profiler``. Device-side events only — operator
+    rows carry their kernels' time too, and counting both would double it.
+    Tracing slows the host, so the share without tracing is somewhat
+    higher. Where the profiler records no device time the share is
+    reported as null (not measured), never as zero."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    session = cnn_session(32, 10, "batched")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = session.run(sim_seconds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_s = sum(t for _, t, _ in rows) / 1e6
+    emit("profile", sim_seconds=sim_seconds, rounds=result.rounds_completed,
+         wall_seconds_traced=wall,
+         device_seconds=device_s if rows else None,
+         device_busy_share=device_s / wall if rows else None,
+         device_launches=sum(c for _, _, c in rows) if rows else None,
+         top_kernels=[{"name": k[:80], "device_ms": t / 1e3, "count": c}
+                      for k, t, c in rows[:10]])
+
+
 def engines_phase():
     from repro_torch.models.tasks import cnn_task
 
@@ -423,6 +463,7 @@ def main() -> int:
             raise AssertionError(f"the main path never launched {name}")
     agg_quant_check(session, models, out, codes, scales)
     breakdown_phase(sim_seconds=40.0)
+    profile_phase(sim_seconds=20.0)
     engines_phase()
 
     kernels = []

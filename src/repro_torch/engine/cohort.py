@@ -127,6 +127,7 @@ class BatchedEngine:
         self._opt, self._step = _cohort_ops(task)
         self.flushes = 0            # introspection for tests/benchmarks
         self.jobs_run = 0
+        self.fallbacks = 0          # demands no queued job could serve
 
     # ------------------------------------------------------------------ api
 
@@ -190,6 +191,7 @@ class BatchedEngine:
         if hit is None:
             # never planned (θ or hyperparameter mismatch, or unknown
             # node): train it alone, same math
+            self.fallbacks += 1
             self.submit(node_id, tag, params, client, batch_size=batch_size,
                         epochs=epochs, seed=seed)
             self._flush()

@@ -12,15 +12,15 @@ Two forms are offered for each task:
   :func:`stacked_metrics_for`, which take a parameter tree whose every leaf
   has a leading S axis.
 
-The generic stacked form maps the per-model function over the stack with
-``torch.func.vmap(torch.func.grad(...))``. The CNN family instead writes
-the stack axis out by hand: the S models become the ``groups`` of one
-grouped convolution (channels laid out model-major) and the dense layers
-one batched matrix product, and since the S losses are independent, one
-backward pass of their sum yields every model's own gradient. The math per
-model is that of ``models/cnn.py`` (conv SAME → relu → 2×2 max pool, twice,
-then three dense layers); only the batching differs. It avoids per-op
-batching rules on the hot path and costs one autograd graph per step.
+The stacked form is written for the CNN family, the only one the package
+builds: the stack axis is written out by hand. The S models become the
+``groups`` of one grouped convolution (channels laid out model-major) and
+the dense layers one batched matrix product, and since the S losses are
+independent, one backward pass of their sum yields every model's own
+gradient. The math per model is that of ``models/cnn.py`` (conv SAME →
+relu → 2×2 max pool, twice, then three dense layers); only the batching
+differs. It avoids per-op batching rules on the hot path and costs one
+autograd graph per step. Other families raise ``NotImplementedError``.
 
 Pooling ties: ``F.max_pool2d`` routes the gradient of a window to one of
 its tied maxima, where the reference's reshape-max splits it evenly. The
@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-
 
 
 def _conv_stacked(h, w, b, S):
@@ -98,22 +97,18 @@ def eval_metrics_for(task):
     return metrics
 
 
-def _stacked_grads_generic(task):
-    loss = masked_loss_for(task)
-
-    def grad_one(p, x, y, m):
-        return torch.func.grad(loss)(p, {"x": x, "y": y, "mask": m})
-
-    return torch.func.vmap(grad_one)
+def _require_cnn(task) -> None:
+    if task.cfg.family != "cnn":
+        raise NotImplementedError(
+            f"no stacked lowering for the {task.cfg.family!r} family")
 
 
-def stacked_grads_for(task, *, generic: bool = False):
+def stacked_grads_for(task):
     """``f(ptree, xb, yb, mb) -> gtree``: per-model gradients of the masked
     loss over a cohort. Every leaf of ``ptree``/``gtree`` and ``xb``
     ``(S, B, ...)``, ``yb`` ``(S, B)``, ``mb`` ``(S, B)`` carry the stack
-    axis. ``generic=True`` forces the vmap form (tests compare the two)."""
-    if generic or task.cfg.family != "cnn":
-        return _stacked_grads_generic(task)
+    axis."""
+    _require_cnn(task)
 
     def grads(ptree, xb, yb, mb):
         keys = sorted(ptree)
@@ -126,11 +121,10 @@ def stacked_grads_for(task, *, generic: bool = False):
     return grads
 
 
-def stacked_metrics_for(task, *, generic: bool = False):
+def stacked_metrics_for(task):
     """``f(ptree, batch) -> {metric: (M,)}``: the metrics of M stacked
     models on one shared, unmasked batch (the evaluation sweep)."""
-    if generic or task.cfg.family != "cnn":
-        return torch.func.vmap(eval_metrics_for(task), in_dims=(0, None))
+    _require_cnn(task)
 
     def metrics(ptree, batch):
         M = ptree["b1"].shape[0]

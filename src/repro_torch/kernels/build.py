@@ -4,7 +4,7 @@ Sources live in ``kernels/csrc/*.cu``. Each is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes`` — seconds per file, where a build through PyTorch's extension
 headers takes minutes. Libraries are built at first use into ``build/`` at
-the root of the checkout (override with ``REPRO_TORCH_BUILD_DIR``), keyed
+the root of the checkout, keyed
 by a hash of the source and the flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing is built or looked for at import time.
 """
@@ -28,9 +28,6 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     return Path(__file__).resolve().parents[3] / "build"
 
 

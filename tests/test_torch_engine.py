@@ -202,6 +202,7 @@ def test_cohort_result_falls_back_on_unknown_params(task, small_clients):
     want = task.local_train(other, small_clients[0], batch_size=20,
                             epochs=1, seed=2)
     assert _max_err(want, FlatModel.pack(got, task.flat_spec).tree) < 5e-4
+    assert engine.fallbacks == 1
 
 
 def test_lookup_identity_then_value(task, small_clients):
