@@ -5,9 +5,19 @@
 
 Builds the CUDA kernels from the sources in this checkout (into ``build/``),
 holds each against its plain PyTorch version on the card, then drives the
-main path — one MoDeST session with the paper CNN at full width through the
-batched engine, and a fused aggregate→quantize over the session's last
-cohort — and checks that the path really went through the kernels.
+two main paths and checks that each really went through its kernels:
+
+* plain: one MoDeST session with the paper CNN at full width through the
+  batched engine (``fused.agg``), and a fused aggregate→quantize over the
+  session's last cohort (``fused.agg_quant``);
+* masked (``secure_agg="masked"``): the same session with secure
+  aggregation, where every trainer seals its model (``fused.mask``) and
+  every aggregator unmasks and aggregates the sealed rows in one launch
+  (``fused.unmask_agg``), and a fused unmask→aggregate→quantize over its
+  last sealed cohort (``fused.unmask_agg_quant``).
+
+Each path is driven with every launch count set to 0 just before it and
+read just after.
 
 It needs a CUDA device and fails without one (non-zero exit, nothing is
 caught). Each phase prints one JSON line. The last three lines are: the
@@ -18,7 +28,9 @@ every kernel's numbers from this run, and
 Tolerances: kernel mean against the plain version ``rtol = atol = 1e-6``
 (summation order and fused multiply-add differ); int8 codes and scales are
 compared bit for bit against the plain quantiser applied to the kernel's
-own mean; the two kernels' means are compared bit for bit.
+own mean; the two kernels' means are compared bit for bit. The seal is
+compared with its plain version bit for bit; the masked kernels' mean,
+codes and scales with the plain kernels' on the unsealed rows bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +50,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
+# H100 SXM, INT32 outside the tensor cores: 64 INT32 lanes an SM x 132 SMs
+# x 1.98 GHz boost x 2 (a multiply-add counted as two), as the "Peak INT32
+# TOPS" row of NVIDIA's H100 Tensor Core GPU Architecture white paper
+INT32_OPS_PER_S = 33.5e12
+# integer operations of one mask term at one lane: the PRG word (counter
+# xor, two mixes of 8, one add; the seed's product is per row, hoisted),
+# then the sign's product and the running sum
+TERM_OPS = 18 + 2
 TOL = 1e-6
 
 
@@ -91,15 +111,27 @@ def eager_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(P: int, N: int, masked: bool, quant: bool):
-    """Least time the card could take: each input read once, each output
-    written once, against the multiply-adds at the fp32 rate."""
-    nbytes = 4 * (P * N + P + N) + (N if masked else 0)
-    if quant:
-        nbytes += N + 4 * (-(-N // 16384))
-    flops = 2 * P * N + N
+def bound_ms(kind: str, P: int, N: int, R: int, int_lanes: bool):
+    """Least time the card could take for kernel ``kind`` at one shape:
+    the larger of the bytes that must move (each input read once, each
+    output written once) over the HBM rate, and the operations over the
+    peak rate of their type. Integer and float operations run on separate
+    pipes, so the operations' time is the larger of the two."""
+    quant = kind.endswith("quant")
+    if kind == "fused.mask":                     # one row in, one out
+        nbytes, flops = 8 * N + 16 * R, 0
+        int_ops = N * (TERM_OPS * R + 1)
+    else:
+        nbytes = 4 * (P * N + P + N) + (N if int_lanes else 0)
+        if quant:
+            nbytes += N + 4 * (-(-N // 16384))
+        flops = 2 * P * N + N
+        int_ops = 0
+        if kind.startswith("fused.unmask"):      # regenerate and subtract
+            nbytes += 16 * P * R
+            int_ops = P * N * (TERM_OPS * R + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -187,7 +219,7 @@ def kernel_phase(dev):
                 None),                            # no single library call
         }
         for kname, (kernel, plain_fn, library) in calls.items():
-            b, by = bound_ms(P, N, mask is not None, kname.endswith("quant"))
+            b, by = bound_ms(kname, P, N, 0, mask is not None)
             rows[kname].append({
                 "shape": name, "P": P, "N": N, "int_lanes": n_int,
                 "max_abs_err": err, "ms": time_ms(kernel, iters),
@@ -196,13 +228,96 @@ def kernel_phase(dev):
                 "library_ms": time_ms(library, iters) if library else None,
                 "eager_ms": eager_ms(kernel, iters),
                 "eager_plain_ms": eager_ms(plain_fn, iters)})
+        masked_rows(rows, name, x, w, mask, n_int, iters, seed=200 + i,
+                    fused=fused)
         del x, w, mask, mean, mean_q, codes, scales, plain
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     emit("kernels", tolerance={"mean_rtol_atol": TOL, "codes": "bit-identical",
                                "scales": "bit-identical",
-                               "agg_vs_agg_quant_mean": "bit-identical"},
+                               "agg_vs_agg_quant_mean": "bit-identical",
+                               "mask_vs_plain": "bit-identical",
+                               "unmask_vs_plain_kernels_on_unsealed_rows":
+                                   "bit-identical"},
          kernels=rows)
     return rows
+
+
+def bits(t):
+    """A bit view for comparing arbitrary fp32 bit patterns (NaN != NaN)."""
+    return t.view(torch.int32)
+
+
+def mask_terms(P: int, seed: int, dev):
+    """(P, P) seeds and signs as the protocol makes them: uint32 seeds held
+    in int64, signs of +1 and -1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    seeds = torch.randint(0, 1 << 32, (P, P), generator=g, device=dev,
+                          dtype=torch.int64)
+    signs = torch.where(torch.rand((P, P), generator=g, device=dev) < 0.5,
+                        -1, 1).to(torch.int64)
+    return seeds, signs
+
+
+def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused):
+    """The seal and the two masked kernels at one shape, R = P terms a row:
+    the seal against its plain version bit for bit, row by row; the masked
+    kernels against the plain kernels on the unsealed rows bit for bit, and
+    against their own plain versions within the tolerance."""
+    P, N = x.shape
+    seeds, signs = mask_terms(P, seed, x.device)
+    y = torch.stack([fused.apply_mask_flat(x[p], seeds[p], signs[p])
+                     for p in range(P)])
+    torch.cuda.synchronize()
+    for p in range(P):
+        if not torch.equal(bits(y[p]), bits(fused._plain_mask(
+                x[p], seeds[p], signs[p]))):
+            raise AssertionError(f"{name}: fused.mask differs from its plain "
+                                 f"version on row {p}")
+    kw = dict(seeds=seeds, signs=signs)
+    mean = fused.unmask_aggregate_flat(y, w, mask, **kw)
+    qmean, codes, scales = fused.unmask_aggregate_quantize_flat(y, w, mask,
+                                                                **kw)
+    pmean, pcodes, pscales = fused.aggregate_quantize_flat(x, w, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(mean, fused.aggregate_flat_onepass(x, w, mask)):
+        raise AssertionError(f"{name}: fused.unmask_agg != fused.agg on the "
+                             "unsealed rows")
+    if not (torch.equal(qmean, pmean) and torch.equal(codes, pcodes)
+            and torch.equal(scales, pscales)):
+        raise AssertionError(f"{name}: fused.unmask_agg_quant != "
+                             "fused.agg_quant on the unsealed rows")
+    plain = fused._plain_unmask_onepass(y, w, mask, seeds, signs)
+    err = float((mean - plain).abs().max())
+    if not torch.allclose(mean, plain, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{name}: masked mean off by {err}")
+    del plain
+    # the plain masked versions move (P, N) int64 temporaries through ~30
+    # passes a term: at the streaming shape one call takes most of a second
+    slow = N > 1_000_000
+    pi = 1 if slow else iters
+    calls = {
+        "fused.mask": (lambda: fused.apply_mask_flat(x[0], seeds[0], signs[0]),
+                       lambda: fused._plain_mask(x[0], seeds[0], signs[0])),
+        "fused.unmask_agg": (
+            lambda: fused.unmask_aggregate_flat(y, w, mask, **kw),
+            lambda: fused._plain_unmask_onepass(y, w, mask, seeds, signs)),
+        "fused.unmask_agg_quant": (
+            lambda: fused.unmask_aggregate_quantize_flat(y, w, mask, **kw),
+            lambda: fused._plain_unmask_onepass_quant(y, w, mask, seeds,
+                                                      signs)),
+    }
+    for kname, (kernel, plain_fn) in calls.items():
+        b, by = bound_ms(kname, P, N, P, mask is not None)
+        rows.setdefault(kname, []).append({
+            "shape": name, "P": P, "R": P, "N": N, "int_lanes": n_int,
+            "max_abs_err": 0.0 if kname == "fused.mask" else err,
+            "ms": time_ms(kernel, iters),
+            "plain_ms": time_ms(plain_fn, pi, warmup=1,
+                                replays=2 if slow else 3),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "eager_ms": eager_ms(kernel, iters),
+            "eager_plain_ms": eager_ms(plain_fn, pi, warmup=1)})
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +325,8 @@ def kernel_phase(dev):
 # ---------------------------------------------------------------------------
 
 
-def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None):
+def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
+                secure_agg=None):
     from repro_torch.config import ModestConfig, TrainConfig
     from repro_torch.data.synthetic import make_classification_task
     from repro_torch.models.tasks import cnn_task
@@ -220,7 +336,7 @@ def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None):
         n_nodes=n_nodes,
         mcfg=ModestConfig(n_nodes=n_nodes, sample_size=sample_size,
                           n_aggregators=2, success_fraction=1.0,
-                          ping_timeout=1.0),
+                          ping_timeout=1.0, secure_agg=secure_agg),
         tcfg=TrainConfig(batch_size=20),
         task=task or cnn_task(),
         data=make_classification_task(n_nodes, samples_per_node=100,
@@ -242,33 +358,36 @@ def record_aggregate_inputs(session):
     return last
 
 
-def session_phase(sim_seconds: float):
-    from repro_torch.engine.flat import as_buffer
-    from repro_torch.kernels import KERNELS, fused
-
-    session = cnn_session(32, 10, "batched")
-    spec = session.task.flat_spec
-    if spec.n != 136672 or len(spec.shapes) != 7:
-        raise AssertionError(f"paper-cnn layout changed: {spec}")
-    last = record_aggregate_inputs(session)
+def reset_counts():
+    from repro_torch.kernels import KERNELS
     for k in KERNELS.values():
-        k["wrapper"].launches = 0          # counts of the main path only
+        k["wrapper"].launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels import KERNELS
+    return {n: k["wrapper"].launches for n, k in KERNELS.items()}
+
+
+def run_session(session, sim_seconds: float):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = session.run(sim_seconds)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return result, time.perf_counter() - t0
 
-    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+
+def check_session(session, result):
+    """What both sessions must show: enough rounds, batched cohorts served
+    by queued jobs, finite parameters and accuracy."""
+    from repro_torch.engine.flat import as_buffer
+
+    spec = session.task.flat_spec
     eng = session.engine
     acc = [(h["round"], h["accuracy"]) for h in result.history
            if "accuracy" in h]
     if result.rounds_completed < 10:
         raise AssertionError(f"only {result.rounds_completed} rounds")
-    if fused.aggregate_flat_onepass.launches != n_agg or n_agg == 0:
-        raise AssertionError(
-            f"{fused.aggregate_flat_onepass.launches} fused.agg launches "
-            f"for {n_agg} aggregations")
     if eng.jobs_run <= 0 or eng.jobs_run <= eng.flushes:
         raise AssertionError(f"cohort not batched: {eng.jobs_run} jobs in "
                              f"{eng.flushes} flushes")
@@ -279,25 +398,190 @@ def session_phase(sim_seconds: float):
         raise AssertionError(
             f"{eng.fallbacks} trainings fell back to training alone; "
             f"{eng.jobs_run} jobs for {result.trainings_completed} trainings")
-    models = last["models"]
-    bufs = [as_buffer(m, spec) for m in models]
-    evals = [as_buffer(m, spec) for m in session._eval_models.values()]
-    for b in bufs + evals:
+    for b in [as_buffer(m, spec) for m in session._eval_models.values()]:
         if b.device.type != "cuda" or b.shape != (spec.n,):
             raise AssertionError(f"buffer {tuple(b.shape)} on {b.device}")
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite parameters after training")
     if not acc or not all(np.isfinite(a) for _, a in acc):
         raise AssertionError(f"no finite accuracy history: {acc}")
+    return acc
+
+
+def session_phase(sim_seconds: float):
+    from repro_torch.engine.flat import as_buffer
+    from repro_torch.kernels import fused
+
+    session = cnn_session(32, 10, "batched")
+    spec = session.task.flat_spec
+    if spec.n != 136672 or len(spec.shapes) != 7:
+        raise AssertionError(f"paper-cnn layout changed: {spec}")
+    last = record_aggregate_inputs(session)
+    reset_counts()                         # counts of this path only
+    result, wall = run_session(session, sim_seconds)
+
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    eng = session.engine
+    if fused.aggregate_flat_onepass.launches != n_agg or n_agg == 0:
+        raise AssertionError(
+            f"{fused.aggregate_flat_onepass.launches} fused.agg launches "
+            f"for {n_agg} aggregations")
+    acc = check_session(session, result)
+    models = last["models"]
+    for b in [as_buffer(m, spec) for m in models]:
+        if b.device.type != "cuda" or b.shape != (spec.n,):
+            raise AssertionError(f"buffer {tuple(b.shape)} on {b.device}")
+        if not torch.isfinite(b).all():
+            raise AssertionError("non-finite parameters after training")
     emit("session", model="paper-cnn", n_params=spec.n, n_nodes=32,
          sample_size=10, sim_seconds=sim_seconds,
          rounds=result.rounds_completed, wall_seconds=wall,
          accuracy=acc, flushes=eng.flushes, jobs=eng.jobs_run,
          fallbacks=eng.fallbacks, aggregations=n_agg,
-         launches={n: k["wrapper"].launches for n, k in KERNELS.items()},
-         trainings=result.trainings_completed,
+         launches=read_counts(), trainings=result.trainings_completed,
          total_bytes=result.usage["total_bytes"])
     return session, models
+
+
+def arm_sniffer(session):
+    """Send-time wire tap: every model push that is not a sealed model."""
+    from repro_torch.secureagg import SealedModel
+
+    leaks = []
+    orig = session.net.send
+
+    def send(src, dst, msg):
+        name = type(msg).__name__
+        model = getattr(msg, "model", None)
+        if model is not None and (name == "AggregateMsg" or (
+                name == "MaskedModelMsg"
+                and not isinstance(model.params, SealedModel))):
+            leaks.append((src, dst, name))
+        orig(src, dst, msg)
+
+    session.net.send = send
+    return leaks
+
+
+def masked_session_phase(sim_seconds: float):
+    """The session of ``session_phase`` with ``secure_agg="masked"``: every
+    trained model is sealed on the card before it is pushed, and every
+    aggregation unmasks and aggregates its sealed rows in one launch."""
+    from repro_torch.kernels import fused
+
+    session = cnn_session(32, 10, "batched", secure_agg="masked")
+    leaks = arm_sniffer(session)
+    calls = []
+    inner = session.engine.aggregate_masked
+
+    def aggregate_masked(models, seeds, signs, weights=None):
+        out = inner(models, seeds, signs, weights)
+        calls.append((list(models), seeds, signs, weights, out))
+        return out
+
+    session.engine.aggregate_masked = aggregate_masked
+    reset_counts()                         # counts of this path only
+    result, wall = run_session(session, sim_seconds)
+    launches = read_counts()
+
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    logs = [e for node in session.nodes.values() for e in node.secagg_log]
+    if not (launches["fused.unmask_agg"] == len(calls) == len(logs) == n_agg
+            > 0):
+        raise AssertionError(
+            f"{launches['fused.unmask_agg']} fused.unmask_agg launches, "
+            f"{len(calls)} masked aggregations, {len(logs)} unmasks, "
+            f"{n_agg} aggregations")
+    if launches["fused.mask"] != result.trainings_completed:
+        raise AssertionError(f"{launches['fused.mask']} fused.mask launches "
+                             f"for {result.trainings_completed} trainings")
+    if launches["fused.agg"] or launches["fused.agg_quant"]:
+        raise AssertionError(f"plain aggregation in a masked session: "
+                             f"{launches}")
+    if leaks:
+        raise AssertionError(f"plaintext models on the wire: {leaks[:5]}")
+    if any(margin < 0 for _, _, _, margin in logs):
+        raise AssertionError(f"unmasked below threshold: {logs}")
+    acc = check_session(session, result)
+    spec = session.task.flat_spec
+    emit("masked_session", model="paper-cnn", n_params=spec.n, n_nodes=32,
+         sample_size=10, sim_seconds=sim_seconds,
+         rounds=result.rounds_completed, wall_seconds=wall, accuracy=acc,
+         aggregations=n_agg, unmasks=len(logs),
+         trainings=result.trainings_completed, launches=launches,
+         flushes=session.engine.flushes, jobs=session.engine.jobs_run,
+         min_share_margin=min(m for _, _, _, m in logs),
+         secagg_aborts=sum(n.secagg_aborts for n in session.nodes.values()),
+         total_bytes=result.usage["total_bytes"])
+    return session, calls
+
+
+def unseal_plain(models, seeds, signs, weights):
+    """The sealed rows of one masked aggregation unsealed by the plain
+    path, and their weights."""
+    from repro_torch.kernels import fused
+
+    y = torch.stack([bits(m.buffer) for m in models]).view(torch.float32)
+    x = fused._plain_unmask_stack(
+        y, torch.as_tensor(np.asarray(seeds, np.int64), device=y.device),
+        torch.as_tensor(np.asarray(signs, np.int64), device=y.device))
+    w = torch.tensor([1.0] * len(models) if weights is None else weights,
+                     dtype=torch.float32, device=y.device)
+    return x, w
+
+
+def masked_means_check(session, calls):
+    """Every masked mean of the session equals ``fused.agg`` on the same
+    rows unsealed by the plain path, bit for bit (run after the counted
+    path: these launches are comparisons)."""
+    from repro_torch.kernels import fused
+
+    mask = session.task.flat_spec.int_mask_on(torch.device("cuda", 0))
+    for models, seeds, signs, weights, out in calls:
+        x, w = unseal_plain(models, seeds, signs, weights)
+        if not torch.equal(out.buffer,
+                           fused.aggregate_flat_onepass(x, w, mask)):
+            raise AssertionError("a masked mean differs from fused.agg on "
+                                 "the unsealed rows")
+    emit("masked_means", aggregations=len(calls),
+         vs_agg_on_unsealed_rows="bit-identical")
+
+
+def masked_agg_quant_phase(session, last):
+    """Fused unmask→aggregate→quantize over the last sealed cohort through
+    the public entry point; part of the counted masked path."""
+    from repro_torch.kernels import fused
+    from repro_torch.kernels.ops import masked_aggregate_flatmodel
+
+    models, seeds, signs, weights, _ = last
+    spec = session.task.flat_spec
+    before = fused.unmask_aggregate_quantize_flat.launches
+    out = masked_aggregate_flatmodel(models, weights, seeds=seeds,
+                                     signs=signs, spec=spec, quantize=True)
+    torch.cuda.synchronize()
+    launched = fused.unmask_aggregate_quantize_flat.launches - before
+    if launched != 1:
+        raise AssertionError(f"{launched} fused.unmask_agg_quant launches")
+    return out
+
+
+def masked_agg_quant_check(session, last, out):
+    """Mean, codes and scales bit for bit those of ``fused.agg_quant`` on
+    the rows unsealed by the plain path."""
+    from repro_torch.kernels import fused
+
+    models, seeds, signs, weights, _ = last
+    spec = session.task.flat_spec
+    x, w = unseal_plain(models, seeds, signs, weights)
+    want = fused.aggregate_quantize_flat(x, w, spec.int_mask_on(x.device))
+    got = (out[0].buffer, out[1], out[2])
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("fused.unmask_agg_quant differs from "
+                             "fused.agg_quant on the unsealed rows")
+    check_quant(out[0].buffer, out[1], out[2], fused)
+    emit("masked_agg_quant", models=len(models), n=spec.n,
+         subtiles=int(out[2].shape[0]),
+         vs_agg_quant_on_unsealed_rows="bit-identical")
 
 
 def agg_quant_phase(session, models):
@@ -335,13 +619,14 @@ def agg_quant_check(session, models, out, codes, scales):
          codes="bit-identical", scales="bit-identical")
 
 
-def breakdown_phase(sim_seconds: float):
+def breakdown_phase(sim_seconds: float, secure_agg=None):
     """Where the session's wall time goes. A second, instrumented run of
-    the same session (synchronising around each engine call), kept apart
-    from the counted run so that run stays as a user would run it."""
-    session = cnn_session(32, 10, "batched")
+    the same session (synchronising around each engine call and, masked,
+    around each seal), kept apart from the counted run so that run stays as
+    a user would run it."""
+    session = cnn_session(32, 10, "batched", secure_agg=secure_agg)
     eng = session.engine
-    spent = {"train": 0.0, "aggregate": 0.0, "evaluate": 0.0}
+    spent = {"train": 0.0, "aggregate": 0.0, "evaluate": 0.0, "seal": 0.0}
 
     def timed(name, inner):
         def call(*a, **kw):
@@ -355,15 +640,16 @@ def breakdown_phase(sim_seconds: float):
 
     eng._run_group = timed("train", eng._run_group)
     eng.aggregate = timed("aggregate", eng.aggregate)
+    eng.aggregate_masked = timed("aggregate", eng.aggregate_masked)
     eng.evaluate_models = timed("evaluate", eng.evaluate_models)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result = session.run(sim_seconds)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    emit("breakdown", rounds=result.rounds_completed, wall_seconds=wall,
+    for node in session.nodes.values():
+        if node._masker is not None:
+            node._masker.seal = timed("seal", node._masker.seal)
+    result, wall = run_session(session, sim_seconds)
+    emit("breakdown", secure_agg=secure_agg,
+         rounds=result.rounds_completed, wall_seconds=wall,
          train_seconds=spent["train"], aggregate_seconds=spent["aggregate"],
-         evaluate_seconds=spent["evaluate"],
+         evaluate_seconds=spent["evaluate"], seal_seconds=spent["seal"],
          host_seconds=wall - sum(spent.values()),
          flushes=eng.flushes, jobs=eng.jobs_run)
 
@@ -455,14 +741,30 @@ def main() -> int:
                 if "registers" in ln or "Compiling" in ln])
 
     rows = kernel_phase(dev)
+    # each main path with the counts set to 0 just before it, read after
     session, models = session_phase(sim_seconds=40.0)
     out, codes, scales = agg_quant_phase(session, models)
-    launches = {n: k["wrapper"].launches for n, k in KERNELS.items()}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    plain_launches = read_counts()
+    msession, calls = masked_session_phase(sim_seconds=40.0)
+    last = calls[-1]
+    mout = masked_agg_quant_phase(msession, last)
+    masked_launches = read_counts()
+    launches = {}
+    for names, counted in (({"fused.agg", "fused.agg_quant"}, plain_launches),
+                           ({"fused.mask", "fused.unmask_agg",
+                             "fused.unmask_agg_quant"}, masked_launches)):
+        for name in names:
+            if counted[name] <= 0:
+                raise AssertionError(f"the main path never launched {name}")
+            launches[name] = counted[name]
+    if set(launches) != set(KERNELS):
+        raise AssertionError(f"kernels outside both paths: {set(KERNELS)}")
     agg_quant_check(session, models, out, codes, scales)
+    masked_means_check(msession, calls)
+    masked_agg_quant_check(msession, last, mout)
+    del session, models, msession, calls, last, out, codes, scales, mout
     breakdown_phase(sim_seconds=40.0)
+    breakdown_phase(sim_seconds=40.0, secure_agg="masked")
     profile_phase(sim_seconds=20.0)
     engines_phase()
 

@@ -27,6 +27,7 @@ from repro_torch.core.registry import JOINED, LEFT, Registry
 from repro_torch.core.sampling import Sampler
 from repro_torch.core.tasks import AbstractTask, LearningTask
 from repro_torch.core.views import View
+from repro_torch.secureagg.masking import PairwiseMasker, SealedModel, threshold
 
 
 class ModestNode:
@@ -84,11 +85,20 @@ class ModestNode:
         self._train_round_pending = None
         self._train_started_at = 0.0
         self.sample_durations: List[tuple] = []   # (t, seconds) for Fig. 6
-        # Secure aggregation arrives with a later slice of this package;
-        # until then a session that asks for it is refused at construction
-        # rather than silently run in the clear.
-        if getattr(mcfg, "secure_agg", None):
-            raise NotImplementedError("secure aggregation: later slice")
+        # Secure aggregation (repro_torch.secureagg, docs/SECUREAGG.md). All
+        # state below is inert when mcfg.secure_agg is None: no masker is
+        # built, no branches fire, golden trajectories are byte-identical.
+        self.secure_agg = getattr(mcfg, "secure_agg", None)
+        self._masker = PairwiseMasker(mcfg.seed) if self.secure_agg else None
+        self._sa_train_roster: dict = {}   # train round k -> cohort S^k
+        self._sa_shares_sent: set = set()  # train rounds whose shares went out
+        self._sa_held: dict = {}           # train round -> {owner: (x, y)}
+        self._sa_collected: dict = {}      # agg round -> {responder: {owner: share}}
+        self._sa_pending: set = set()      # agg rounds with an unmask in flight
+        self._sa_handle: dict = {}         # agg round -> abort timer handle
+        self._sa_tries: dict = {}          # agg round -> unmask retry count
+        self.secagg_log: List[tuple] = []  # (k, max_t, n_sealed, min_margin)
+        self.secagg_aborts = 0             # unmask attempts below threshold
         # Training-resource accounting (paper §4.5: resource usage = time
         # spent training). Completed trainings count in full; cancelled or
         # crash-interrupted ones count the compute burned up to the cut.
@@ -251,8 +261,14 @@ class ModestNode:
                 self.activity.update(msg.node, self.activity.round_estimate())
         elif isinstance(msg, M.Left):
             self.registry.update(msg.node, msg.counter, LEFT)
+        elif isinstance(msg, M.ShareMsg):
+            self._on_share_msg(msg)
+        elif isinstance(msg, M.UnmaskReq):
+            self._on_unmask_req(msg)
+        elif isinstance(msg, M.UnmaskShareMsg):
+            self._on_unmask_share(msg)
         elif isinstance(msg, M.AggregateMsg):
-            self._on_aggregate_msg(msg)
+            self._on_aggregate_msg(msg)          # incl. MaskedModelMsg
         elif isinstance(msg, M.TrainMsg):
             self._on_train_msg(msg)
 
@@ -308,10 +324,15 @@ class ModestNode:
             self._maybe_aggregate(k)
 
     def _maybe_aggregate(self, k: int) -> None:
-        """Threshold/stall satisfied: aggregate."""
-        self._do_aggregate(k)
+        """Threshold/stall satisfied: aggregate — but sealed rows must
+        clear the share-recovery gate first (docs/SECUREAGG.md)."""
+        if self.secure_agg and any(isinstance(m.params, SealedModel)
+                                   for m in self._theta_list):
+            self._begin_unmask(k)
+        else:
+            self._do_aggregate(k)
 
-    def _do_aggregate(self, k: int) -> None:
+    def _do_aggregate(self, k: int, secrets=None) -> None:
         self._agg_models_done.add(k)
         if self._stall_handle is not None:
             self._stall_handle.cancel()
@@ -323,12 +344,16 @@ class ModestNode:
         self.agg_log.append((k, tuple(self._theta_from)))
         self._theta_list = []
         self._theta_from = []
-        if models and models[0].params is not None:
-            agg = self.engine.aggregate([m.params for m in models])
-            payload = M.ModelPayload(params=agg)
-        else:
-            nbytes = models[0].nbytes if models else self.task.model_bytes()
-            payload = M.ModelPayload(params=None, nbytes=nbytes)
+        payload = self._sa_aggregate(models, secrets) if self.secure_agg else None
+        if payload is None:
+            if models and models[0].params is not None:
+                agg = self.engine.aggregate([m.params for m in models])
+                payload = M.ModelPayload(params=agg)
+            else:
+                nbytes = models[0].nbytes if models else self.task.model_bytes()
+                payload = M.ModelPayload(params=None, nbytes=nbytes)
+        if self.secure_agg:
+            self._sa_gc(k)
         if self.on_aggregate is not None:
             self.on_aggregate(k, payload.params, self)
 
@@ -363,15 +388,220 @@ class ModestNode:
                     epochs=self.mcfg.local_steps,
                     seed=self.tcfg.seed + k)
             v = self.view()
+            # Secure mode: the cohort roster rides the TrainMsg — each
+            # trainer derives its pairwise mask row and addresses its
+            # Shamir shares from it (docs/SECUREAGG.md).
+            roster = tuple(sample) if self.secure_agg else ()
             for j in sample:
                 m = M.TrainMsg(sender=self.node_id, round_k=k,
                                model=M.ModelPayload(params=payload.params,
                                                     nbytes=payload.nbytes),
-                               view=v, roster=())
+                               view=v, roster=roster)
                 self.net.account_payload(m.model.size_bytes())
                 self.net.send(self.node_id, j, m)
 
         self.sampler.sample(k, self.mcfg.sample_size, send_train)
+
+    # ------------------------------------------------------ secure aggregation
+    # (repro_torch.secureagg, docs/SECUREAGG.md). Trainer half: distribute Shamir
+    # shares of the per-round mask secret over the cohort, seal the update
+    # before pushing. Aggregator half: adopt one mask roster per round,
+    # collect >= t shares per *arrived* sender from the survivors, then run
+    # the fused unmask-aggregate kernel. Every message goes through
+    # Network.send like the rest of the protocol, so fault schedules apply.
+
+    SA_UNMASK_TIMEOUT_MULT = 10     # x ping_timeout per share-collection poll
+    SA_MAX_TRIES = 3                # polls before declaring the round lost
+
+    def _on_share_msg(self, msg: M.ShareMsg) -> None:
+        if not self.secure_agg:
+            return
+        self._sa_held.setdefault(msg.round_k, {})[msg.owner] = tuple(msg.share)
+
+    def _sa_distribute_shares(self, k: int, roster: tuple) -> None:
+        """Split this node's round-k mask secret over the cohort (one
+        share per member; own share is held locally, never on the wire)."""
+        self._sa_shares_sent.add(k)
+        self._sa_train_roster[k] = roster
+        for member, share in self._masker.make_shares(
+                self.node_id, k, roster).items():
+            if member == self.node_id:
+                self._sa_held.setdefault(k, {})[self.node_id] = share
+            else:
+                self.net.send(self.node_id, member, M.ShareMsg(
+                    sender=self.node_id, round_k=k, owner=self.node_id,
+                    share=share))
+
+    def _sa_seal(self, k: int, payload: M.ModelPayload) -> M.ModelPayload:
+        roster = self._sa_train_roster.get(k)
+        if not roster:
+            # No roster rode the TrainMsg (round-1 bootstrap without one):
+            # degrade to a singleton roster so the update still never
+            # travels in the clear — the threshold gate then needs only
+            # this node's own share.
+            roster = (self.node_id,)
+            if k not in self._sa_shares_sent:
+                self._sa_distribute_shares(k, roster)
+        nbytes = payload.size_bytes()
+        sealed = self._masker.seal(payload.params, self.node_id, k,
+                                   roster, nbytes)
+        return M.ModelPayload(params=sealed, nbytes=nbytes)
+
+    def _on_unmask_req(self, msg: M.UnmaskReq) -> None:
+        """Survivor half of recovery: reveal the shares held for the
+        *arrived* senders only — dropped senders' secrets stay split."""
+        if not self.secure_agg:
+            return
+        held = self._sa_held.get(msg.round_k)
+        if not held:
+            return
+        revealable = set(msg.survivors)
+        shares = tuple((owner, x, y)
+                       for owner, (x, y) in sorted(held.items())
+                       if owner in revealable)
+        if shares:
+            self.net.send(self.node_id, msg.sender, M.UnmaskShareMsg(
+                sender=self.node_id, round_k=msg.round_k, shares=shares))
+
+    def _on_unmask_share(self, msg: M.UnmaskShareMsg) -> None:
+        if not self.secure_agg:
+            return
+        k = msg.round_k + 1            # share round = train round = k_agg - 1
+        if k != self.k_agg or k in self._agg_models_done:
+            return
+        held = self._sa_collected.setdefault(k, {}).setdefault(msg.sender, {})
+        held.update({owner: (x, y) for owner, x, y in msg.shares})
+        if k in self._sa_pending:
+            self._sa_check(k)
+
+    def _begin_unmask(self, k: int) -> None:
+        if k in self._sa_pending or k in self._agg_models_done:
+            return
+        self._sa_pending.add(k)
+        col = self._sa_collected.setdefault(k, {})
+        held = self._sa_held.get(k - 1)
+        if held:                       # aggregator may hold shares itself
+            col[self.node_id] = dict(held)
+        # Arrived sealed senders: the only secrets recovery may reveal.
+        # Their shares live with their *roster* members (co-aggregators
+        # sample different cohorts, so rosters differ per row — each row
+        # unmasks independently against its own roster).
+        arrived, holders = [], set()
+        for sender, m in zip(self._theta_from, self._theta_list):
+            if isinstance(m.params, SealedModel):
+                arrived.append(sender)
+                holders.update(m.params.roster)
+        survivors = tuple(arrived)
+        roster = tuple(sorted(holders))
+        for j in roster:
+            if j != self.node_id:
+                self.net.send(self.node_id, j, M.UnmaskReq(
+                    sender=self.node_id, round_k=k - 1, roster=roster,
+                    survivors=survivors))
+        self._sa_handle[k] = self.sim.schedule(
+            self.SA_UNMASK_TIMEOUT_MULT * self.timeout,
+            lambda: self._sa_timeout(k))
+        self._sa_check(k)
+
+    def _sa_satisfied(self, k: int):
+        """{sealed sender: (t, >= t distinct shares)} once every arrived
+        sealed row can be recovered; None while any is short. Thresholds
+        are per sender — each row was split over its own roster."""
+        col = self._sa_collected.get(k, {})
+        out = {}
+        for sender, m in zip(self._theta_from, self._theta_list):
+            if not isinstance(m.params, SealedModel):
+                continue
+            t = threshold(len(m.params.roster))
+            xs = {}
+            for held in col.values():
+                sh = held.get(sender)
+                if sh is not None:
+                    xs[sh[0]] = sh     # distinct share indices only
+            if len(xs) < t:
+                return None
+            out[sender] = (t, sorted(xs.values()))
+        return out or None
+
+    def _sa_check(self, k: int) -> None:
+        per_sender = self._sa_satisfied(k)
+        if per_sender is None:
+            return
+        h = self._sa_handle.pop(k, None)
+        if h is not None:
+            h.cancel()
+        self._sa_pending.discard(k)
+        if k != self.k_agg or k in self._agg_models_done:
+            return
+        secrets = {s: self._masker.reconstruct(xs, t)
+                   for s, (t, xs) in per_sender.items()}
+        self.secagg_log.append(
+            (k, max(t for t, _ in per_sender.values()), len(per_sender),
+             min(len(xs) - t for t, xs in per_sender.values())))
+        self._do_aggregate(k, secrets)
+
+    def _sa_timeout(self, k: int) -> None:
+        self._sa_handle.pop(k, None)
+        if k not in self._sa_pending:
+            return
+        if not self.online or k != self.k_agg or k in self._agg_models_done:
+            self._sa_pending.discard(k)
+            return
+        self._sa_check(k)              # a late share may have raced the timer
+        if k not in self._sa_pending:
+            return
+        # Below threshold: NEVER unmask. Abort this attempt; re-poll the
+        # survivors a bounded number of times (late models widen the share
+        # pool), then leave the round to the co-aggregator / failover.
+        self.secagg_aborts += 1
+        self._sa_pending.discard(k)
+        tries = self._sa_tries.get(k, 0) + 1
+        self._sa_tries[k] = tries
+        if tries < self.SA_MAX_TRIES:
+            self._begin_unmask(k)
+
+    def _sa_aggregate(self, models: List, secrets) -> Optional[M.ModelPayload]:
+        """Aggregate a round containing sealed rows; None means "plain
+        round, use the ordinary path" (e.g. the FL bootstrap push)."""
+        sealed = [m.params for m in models
+                  if isinstance(m.params, SealedModel)]
+        if not sealed:
+            return None
+        secrets = secrets or {}
+        kinds = {sm.kind for sm in sealed}
+        if kinds == {"bytes"}:
+            return M.ModelPayload(params=None, nbytes=sealed[0].nbytes)
+        if kinds == {"flat"} and len(sealed) == len(models):
+            seeds, signs = self._masker.unmask_matrices(sealed, secrets)
+            agg = self.engine.aggregate_masked(
+                [sm.payload for sm in sealed], seeds, signs)
+            return M.ModelPayload(params=agg)
+        # Mixed sealed/plain or scalar rows: exact per-row unseal, then
+        # the ordinary aggregate (cold path — unit/protocol tests only).
+        plain = []
+        for m in models:
+            p = m.params
+            if isinstance(p, SealedModel):
+                sk = secrets[p.sender]
+                p = (self._masker.unseal_scalar(p, sk) if p.kind == "scalar"
+                     else self._masker.unseal_flat(p, sk))
+            plain.append(p)
+        return M.ModelPayload(params=self.engine.aggregate(plain))
+
+    def _sa_gc(self, k: int) -> None:
+        """Bound per-round secure-agg state (old rounds can no longer be
+        aggregated here; a trailing window survives for slow co-aggregators
+        still polling shares for recent rounds)."""
+        horizon = k - 8
+        for d in (self._sa_train_roster, self._sa_held,
+                  self._sa_collected, self._sa_tries):
+            for kk in [kk for kk in d if kk < horizon]:
+                del d[kk]
+        for kk in [kk for kk in self._sa_handle if kk < horizon]:
+            self._sa_handle.pop(kk).cancel()
+        self._sa_shares_sent = {kk for kk in self._sa_shares_sent
+                                if kk >= horizon}
+        self._sa_pending = {kk for kk in self._sa_pending if kk >= horizon}
 
     # ---------------------------------------------------------------- training
 
@@ -386,6 +616,12 @@ class ModestNode:
         k = msg.round_k
         if k < self.k_train or k in self._train_done:
             return                                         # stale
+        if (self.secure_agg and msg.roster
+                and k not in self._sa_shares_sent):
+            # Shares go out as soon as the cohort is known — training and
+            # WAN share delivery overlap, so recovery shares are usually
+            # in place before any model arrives at an aggregator.
+            self._sa_distribute_shares(k, tuple(msg.roster))
         if k > self.k_train:
             self.k_train = k
             self._cancel_training()                        # CANCEL(θ̄)
@@ -425,6 +661,8 @@ class ModestNode:
                 payload = M.ModelPayload(params=updated)
             else:
                 payload = M.ModelPayload(params=None, nbytes=incoming.nbytes)
+            if self.secure_agg:
+                payload = self._sa_seal(k, payload)        # masked bits only
 
             if self.fixed_aggregator is not None:          # FL emulation
                 self._push_model(k, payload, [self.fixed_aggregator])
@@ -475,10 +713,17 @@ class ModestNode:
             return
         v = self.view()
         for j in aggs:
-            m = M.AggregateMsg(sender=self.node_id, round_k=k + 1,
-                               model=M.ModelPayload(params=payload.params,
-                                                    nbytes=payload.nbytes),
-                               view=v)
+            if isinstance(payload.params, SealedModel):
+                m = M.MaskedModelMsg(sender=self.node_id, round_k=k + 1,
+                                     model=M.ModelPayload(
+                                         params=payload.params,
+                                         nbytes=payload.nbytes),
+                                     view=v, roster=payload.params.roster)
+            else:
+                m = M.AggregateMsg(sender=self.node_id, round_k=k + 1,
+                                   model=M.ModelPayload(params=payload.params,
+                                                        nbytes=payload.nbytes),
+                                   view=v)
             self.net.account_payload(m.model.size_bytes())
             self.net.send(self.node_id, j, m)
         if (self.failover_enabled() and tries <= self.FAILOVER_MAX_RETRIES

@@ -79,6 +79,12 @@ class SequentialEngine:
     def aggregate(self, models, weights=None):
         return self.task.aggregate_sequential(models, weights)
 
+    def aggregate_masked(self, models, seeds, signs, weights=None):
+        """Secure-agg path (repro_torch.secureagg): unmask+aggregate sealed
+        FlatModels in one fused pass. The sequential engine delegates to
+        the task like :meth:`aggregate` does."""
+        return self.task.aggregate_masked(models, seeds, signs, weights)
+
     def evaluate_models(self, models, test):
         return [self.task.evaluate(p, test) for p in models]
 
@@ -275,6 +281,10 @@ class BatchedEngine:
     def aggregate(self, models, weights=None):
         """Whole-model one-pass aggregation (stays flat: FlatModel out)."""
         return self.task.aggregate(models, weights)
+
+    def aggregate_masked(self, models, seeds, signs, weights=None):
+        """Fused unmask→aggregate over sealed FlatModels (secure agg)."""
+        return self.task.aggregate_masked(models, seeds, signs, weights)
 
     def evaluate_models(self, models, test):
         return self.task.evaluate_many(models, test)

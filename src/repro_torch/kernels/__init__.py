@@ -4,7 +4,9 @@ The paper's compute hot spot is the aggregator: averaging ``sf·s`` incoming
 models (a bandwidth-bound streaming reduction) every round.
 
 * :mod:`repro_torch.kernels.fused` — whole-model one-pass aggregation over
-  flat ``(P, N)`` buffers + fused aggregate→quantize (``csrc/fused_agg.cu``)
+  flat ``(P, N)`` buffers + fused aggregate→quantize, the seal of secure
+  aggregation and the fused unmask→aggregate(→quantize) over sealed rows
+  (``csrc/fused_agg.cu``)
 * :mod:`repro_torch.kernels.ops`   — model-level wrappers (public API)
 * :mod:`repro_torch.kernels.ref`   — plain-torch oracles
 * :mod:`repro_torch.kernels.build` — nvcc + ctypes build at first use
@@ -17,8 +19,14 @@ reference kernel it replaces.
 from repro_torch.kernels.fused import (  # noqa: F401
     aggregate_flat_onepass,
     aggregate_quantize_flat,
+    apply_mask_flat,
+    unmask_aggregate_flat,
+    unmask_aggregate_quantize_flat,
 )
-from repro_torch.kernels.ops import aggregate_flatmodel  # noqa: F401
+from repro_torch.kernels.ops import (  # noqa: F401
+    aggregate_flatmodel,
+    masked_aggregate_flatmodel,
+)
 
 KERNELS = {
     "fused.agg": {
@@ -32,5 +40,23 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
         "replaces": "src/repro/kernels/fused.py:117",
+    },
+    "fused.mask": {
+        "wrapper": apply_mask_flat,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
+        "replaces": "src/repro/kernels/fused.py:311",
+    },
+    "fused.unmask_agg": {
+        "wrapper": unmask_aggregate_flat,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
+        "replaces": "src/repro/kernels/fused.py:381",
+    },
+    "fused.unmask_agg_quant": {
+        "wrapper": unmask_aggregate_quantize_flat,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
+        "replaces": "src/repro/kernels/fused.py:405",
     },
 }

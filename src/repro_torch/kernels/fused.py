@@ -12,20 +12,45 @@ aggregation is ONE kernel launch:
   registers, saving the extra device-memory round trip of a separate
   quantize call.
 
-These replace the reference package's Pallas kernels ``_agg_kernel`` and
-``_agg_quant_kernel`` (``kernels/fused.py``) with hand-written CUDA C++ for
-Hopper, ``csrc/fused_agg.cu``. Both are bounded by bytes on the card: a
-stream of ``(P+1)·N`` words in and ``N`` out; at the session's shape the
-stack sits in L2 and the launch dominates. The design (a grid over lanes
-with 16-byte loads; for the quantised form one block per subtile with the
-means held in registers across the absmax reduction) is described at the
-top of the source.
+Secure aggregation (``repro_torch.secureagg``) adds three more, over
+*sealed* rows whose fp32 bit patterns were shifted in the uint32 ring by a
+counter-based PRG mask (lane index = counter):
+
+* :func:`apply_mask_flat` — seal: ``bits(buf) + Σ_j sign_j·PRG(seed_j, l)``
+  mod 2^32; the same call with ``-signs`` unseals.
+* :func:`unmask_aggregate_flat` — per row, regenerate the mask from its
+  ``(P, R)`` seeds/signs, subtract it in the ring, then
+  :func:`aggregate_flat_onepass`'s math: the mean equals the plain mean of
+  the unsealed rows bit for bit.
+* :func:`unmask_aggregate_quantize_flat` — the same, then the quantise tail
+  of :func:`aggregate_quantize_flat`.
+
+These replace the reference package's Pallas kernels ``_agg_kernel``,
+``_agg_quant_kernel``, ``_unmask_agg_kernel``, ``_unmask_agg_quant_kernel``
+and its jitted ``apply_mask_flat`` (``kernels/fused.py``) with hand-written
+CUDA C++ for Hopper, ``csrc/fused_agg.cu``. The plain forms are bounded by
+bytes on the card: a stream of ``(P+1)·N`` words in and ``N`` out; at the
+session's shape the stack sits in L2 and the launch dominates. The masked
+forms are bounded by the PRG's integer operations (P·R words a lane). The
+design (a grid over lanes with 16-byte loads; for the quantised form one
+block per subtile with the means held in registers across the absmax
+reduction; for the masked forms the same kernels reading rows through an
+unsealing reader) is described at the top of the source.
 
 Dispatch is by where the tensors live: a CUDA tensor launches the kernel or
 raises — there is no fallback — and a CPU tensor takes the plain PyTorch
 version beside it (``_plain_onepass`` / ``_plain_onepass_quant``), which is
-also what the kernels are compared against on the card. Each wrapper counts
-its launches in a plain integer attribute ``launches``.
+also what the kernels are compared against on the card. The masked plain
+versions (``_plain_mask_words``, ``_plain_unmask_stack``) hold each uint32
+in an int64 and multiply in 16-bit halves, so no product passes 2^63; the
+plain unmask is followed by the very ``_plain_onepass`` /
+``_plain_onepass_quant`` of the plain path, so masked and plain agree bit for
+bit by construction. Each wrapper counts its launches in a plain integer
+attribute ``launches``.
+
+A sealed buffer is arbitrary bits held as fp32 (NaNs with payloads,
+subnormals): between seal and unmask only bit copies may touch it, and the
+kernels and plain versions read it as integers.
 
 ``SUBTILE`` (16384 lanes) is the quantization granularity and part of the
 wire format. Codes and scales equal ``ref.quantize_ref`` of the
@@ -59,6 +84,13 @@ def _lib():
         lib.fused_agg_launch.restype = ctypes.c_int
         lib.fused_agg_quant_launch.argtypes = [p, p, p, p, p, p, i, ll, p]
         lib.fused_agg_quant_launch.restype = ctypes.c_int
+        lib.fused_mask_launch.argtypes = [p, p, p, i, p, ll, p]
+        lib.fused_mask_launch.restype = ctypes.c_int
+        lib.fused_unmask_agg_launch.argtypes = [p, p, p, p, p, i, p, i, ll, p]
+        lib.fused_unmask_agg_launch.restype = ctypes.c_int
+        lib.fused_unmask_agg_quant_launch.argtypes = [p, p, p, p, p, i, p, p,
+                                                      p, i, ll, p]
+        lib.fused_unmask_agg_quant_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -91,6 +123,80 @@ def _plain_onepass_quant(x, w, int_mask=None):
     mean = _plain_onepass(x, w, int_mask)
     codes, scales = _plain_quantize(mean)
     return mean, codes, scales
+
+
+# The mask PRG (``repro_torch.secureagg.prg.prg_word``), elementwise over
+# int64 tensors that hold uint32 values. Torch's ``>>`` on int64 is
+# arithmetic, so every value is kept in [0, 2^32) before it is shifted.
+
+MASK32 = 0xFFFFFFFF
+_PRG_MIX1 = 0x7FEB352D
+_PRG_MIX2 = 0x846CA68B
+
+
+def _mul32(a, b):
+    """``a * b mod 2^32`` for ``a`` and ``b`` in [0, 2^32) (tensors or
+    ints): ``b`` is split into 16-bit halves, so no product reaches 2^49."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
+def _mix32(x):
+    x = _mul32(x ^ (x >> 16), _PRG_MIX1)
+    x = _mul32(x ^ (x >> 15), _PRG_MIX2)
+    return x ^ (x >> 16)
+
+
+def _plain_prg(seeds, lanes):
+    """PRG word at counter ``lanes`` under ``seeds`` (broadcast int64)."""
+    x = lanes ^ _mul32(seeds, _PRG_MIX1)
+    return _mix32((_mix32(x) + seeds) & MASK32)
+
+
+def _plain_mask_words(seeds, signs, lanes):
+    """``Σ_j signs[..., j] · PRG(seeds[..., j], lane)`` mod 2^32: seeds and
+    signs ``(..., R)`` int64, lanes ``(L,)`` -> ``(..., L)`` int64. A -1
+    sign is 2^32 - 1, ring negation."""
+    seeds, signs = seeds & MASK32, signs & MASK32
+    out = torch.zeros(seeds.shape[:-1] + lanes.shape, dtype=torch.int64,
+                      device=lanes.device)
+    for j in range(seeds.shape[-1]):              # R is small
+        words = _plain_prg(seeds[..., j:j + 1], lanes)
+        out = (out + _mul32(words, signs[..., j:j + 1])) & MASK32
+    return out
+
+
+def _bits(x):
+    """fp32 -> its bit pattern as an int64 in [0, 2^32) (no float op)."""
+    return x.view(torch.int32).to(torch.int64) & MASK32
+
+
+def _from_bits(b):
+    """int64 in [0, 2^32) -> the fp32 with that bit pattern."""
+    return torch.where(b > 0x7FFFFFFF, b - (1 << 32), b).to(
+        torch.int32).view(torch.float32)
+
+
+def _plain_mask(buf, seeds, signs):
+    lanes = torch.arange(buf.shape[0], dtype=torch.int64, device=buf.device)
+    return _from_bits((_bits(buf) + _plain_mask_words(seeds, signs, lanes))
+                      & MASK32)
+
+
+def _plain_unmask_stack(y, seeds, signs):
+    """Sealed rows ``y (P, N)`` and their ``(P, R)`` seeds/signs -> the
+    unsealed rows, exactly (ring subtraction)."""
+    lanes = torch.arange(y.shape[1], dtype=torch.int64, device=y.device)
+    return _from_bits((_bits(y) - _plain_mask_words(seeds, signs, lanes))
+                      & MASK32)
+
+
+def _plain_unmask_onepass(y, w, int_mask, seeds, signs):
+    return _plain_onepass(_plain_unmask_stack(y, seeds, signs), w, int_mask)
+
+
+def _plain_unmask_onepass_quant(y, w, int_mask, seeds, signs):
+    return _plain_onepass_quant(_plain_unmask_stack(y, seeds, signs), w,
+                                int_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +233,33 @@ def _check_args(x, w, int_mask):
         if not int_mask.is_contiguous():
             raise ValueError("int_mask must be contiguous")
     return x, w, int_mask
+
+
+# Seeds and signs are staged in the kernels' shared memory as two uint32
+# words each: P·R of them must fit the 48 KB a block gets without opt-in.
+MAX_MASK_TERMS = 6144
+
+
+def _check_mask_args(seeds, signs, rows, device):
+    """``seeds``/``signs``: int64 ``(rows, R)`` (``(R,)`` when ``rows`` is
+    None) on ``device``; raises on anything the kernels do not take."""
+    for name, t in (("seeds", seeds), ("signs", signs)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int64:
+            raise TypeError(f"{name} must be an int64 tensor, got "
+                            f"{getattr(t, 'dtype', type(t))}")
+    R = seeds.shape[-1] if seeds.dim() else 0
+    want = (R,) if rows is None else (rows, R)
+    for name, t in (("seeds", seeds), ("signs", signs)):
+        if tuple(t.shape) != want or R < 1:
+            raise ValueError(f"{name} must be {want} with R >= 1, got "
+                             f"{tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, rows on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (rows or 1) * R > MAX_MASK_TERMS:
+        raise ValueError(f"{rows or 1} x {R} mask terms exceed "
+                         f"{MAX_MASK_TERMS}")
 
 
 def _stream(x) -> int:
@@ -192,5 +325,88 @@ def aggregate_quantize_flat(x, w, int_mask=None):
     return mean, codes, scales
 
 
+def apply_mask_flat(buf, seeds, signs):
+    """Seal a flat fp32 buffer: ``bits(buf) + Σ_j signs[j]·PRG(seeds[j], l)``
+    mod 2^32 at every lane ``l``; one kernel launch -> (N,) fp32 bits.
+
+    ``seeds``/``signs``: int64 ``(R,)`` on the buffer's device. Exact
+    inverse: the same call with ``-signs``.
+    """
+    if buf.dim() != 1 or buf.shape[0] < 1 or buf.dtype != torch.float32:
+        raise ValueError(f"expected a non-empty (N,) fp32 buffer, got "
+                         f"{tuple(buf.shape)} {buf.dtype}")
+    if not buf.is_contiguous():
+        raise ValueError("buf must be contiguous")
+    _check_mask_args(seeds, signs, None, buf.device)
+    if buf.device.type == "cpu":
+        return _plain_mask(buf, seeds, signs)
+    if buf.device.type != "cuda":
+        raise ValueError(f"unsupported device {buf.device}")
+    lib = _lib()
+    out = torch.empty_like(buf)
+    with torch.cuda.device(buf.device):
+        rc = lib.fused_mask_launch(buf.data_ptr(), seeds.data_ptr(),
+                                   signs.data_ptr(), seeds.shape[0],
+                                   out.data_ptr(), buf.shape[0], _stream(buf))
+    _raise_on(rc, "fused.mask")
+    apply_mask_flat.launches += 1
+    return out
+
+
+def unmask_aggregate_flat(y, w, int_mask=None, *, seeds, signs):
+    """Fused unmask→aggregate: ``y (P, N)`` sealed rows, ``seeds``/``signs``
+    int64 ``(P, R)`` -> mean (N,) in one kernel launch, bit for bit
+    :func:`aggregate_flat_onepass` on the unsealed rows."""
+    y, w, m = _check_args(y, w, int_mask)
+    _check_mask_args(seeds, signs, y.shape[0], y.device)
+    if y.device.type == "cpu":
+        check_aggregation_weights(w)
+        return _plain_unmask_onepass(y, w, m, seeds, signs)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    P, N = y.shape
+    lib = _lib()
+    out = torch.empty((N,), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        rc = lib.fused_unmask_agg_launch(
+            y.data_ptr(), w.data_ptr(), None if m is None else m.data_ptr(),
+            seeds.data_ptr(), signs.data_ptr(), seeds.shape[1],
+            out.data_ptr(), P, N, _stream(y))
+    _raise_on(rc, "fused.unmask_agg")
+    unmask_aggregate_flat.launches += 1
+    return out
+
+
+def unmask_aggregate_quantize_flat(y, w, int_mask=None, *, seeds, signs):
+    """Fused unmask→aggregate→quantize: one kernel launch -> (mean, int8
+    codes, scales), bit for bit :func:`aggregate_quantize_flat` on the
+    unsealed rows."""
+    y, w, m = _check_args(y, w, int_mask)
+    _check_mask_args(seeds, signs, y.shape[0], y.device)
+    if y.device.type == "cpu":
+        check_aggregation_weights(w)
+        return _plain_unmask_onepass_quant(y, w, m, seeds, signs)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    P, N = y.shape
+    lib = _lib()
+    mean = torch.empty((N,), dtype=torch.float32, device=y.device)
+    codes = torch.empty((N,), dtype=torch.int8, device=y.device)
+    scales = torch.empty((-(-N // SUBTILE),), dtype=torch.float32,
+                         device=y.device)
+    with torch.cuda.device(y.device):
+        rc = lib.fused_unmask_agg_quant_launch(
+            y.data_ptr(), w.data_ptr(), None if m is None else m.data_ptr(),
+            seeds.data_ptr(), signs.data_ptr(), seeds.shape[1],
+            mean.data_ptr(), codes.data_ptr(), scales.data_ptr(), P, N,
+            _stream(y))
+    _raise_on(rc, "fused.unmask_agg_quant")
+    unmask_aggregate_quantize_flat.launches += 1
+    return mean, codes, scales
+
+
 aggregate_flat_onepass.launches = 0
 aggregate_quantize_flat.launches = 0
+apply_mask_flat.launches = 0
+unmask_aggregate_flat.launches = 0
+unmask_aggregate_quantize_flat.launches = 0

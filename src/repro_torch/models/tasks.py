@@ -173,6 +173,17 @@ class TorchTask(LearningTask):
         return aggregate_flatmodel(list(models), weights,
                                    spec=self.flat_spec, device=self.device)
 
+    def aggregate_masked(self, models: Sequence, seeds, signs,
+                         weights: Optional[Sequence[float]] = None):
+        """Secure-agg AVG over *sealed* FlatModels (repro_torch.secureagg):
+        the fused kernel regenerates each row's mask from ``seeds``/``signs``
+        ``(P, R)`` matrices, removes it exactly and aggregates — bit-
+        identical to :meth:`aggregate` on the unsealed rows."""
+        from repro_torch.kernels.ops import masked_aggregate_flatmodel
+        return masked_aggregate_flatmodel(list(models), weights, seeds=seeds,
+                                          signs=signs, spec=self.flat_spec,
+                                          device=self.device)
+
     def aggregate_sequential(self, models: Sequence,
                              weights: Optional[Sequence[float]] = None):
         """Legacy per-leaf reference aggregation over pytrees."""

@@ -151,7 +151,11 @@ class ModestSession:
 
     ``serve`` would attach a serving deployment; that subsystem is not
     part of this package yet, so anything but ``None`` raises
-    ``NotImplementedError``. ``secure_agg="masked"`` in ``mcfg`` likewise.
+    ``NotImplementedError``.
+
+    ``mcfg.secure_agg="masked"`` turns on pairwise-mask secure aggregation
+    (``repro_torch.secureagg``): trainers seal their models before pushing
+    and aggregators unmask and aggregate in one fused kernel.
     """
 
     def __init__(self, *, n_nodes: Optional[int] = None,
@@ -168,8 +172,6 @@ class ModestSession:
                  fault=None, serve=None, device=None):
         n_nodes, task = _profile_defaults(profile, n_nodes, task,
                                           extra_required=(("mcfg", mcfg),))
-        if mcfg is not None and mcfg.secure_agg:
-            raise NotImplementedError("secure aggregation: later slice")
         # Churny regimes need sf < 1 to keep rounds moving when sampled
         # trainers drop mid-round (paper Table 2 explores exactly this).
         mcfg = mcfg or ModestConfig(n_nodes=n_nodes, success_fraction=0.8,
@@ -282,10 +284,12 @@ class ModestSession:
             server._do_aggregate(1)
         else:
             cohort = online[:self.mcfg.sample_size]
+            # Secure mode: S^1 is the mask roster of the bootstrap round.
+            roster = tuple(cohort) if self.mcfg.secure_agg else ()
             for nid in cohort:
                 node = self.nodes[nid]
                 node.recover()              # deferred case: trace says online
-                node.self_activate(1, init)
+                node.self_activate(1, init, roster=roster)
 
     # ------------------------------------------------------------------ hooks
 

@@ -226,21 +226,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
 def test_cpu_calls_launch_no_kernel_and_registry_is_complete():
     """On CPU tensors the wrappers take the plain version: the launch
     counts stay where they were. Every kernel is registered with its
-    source and the reference kernel it replaces."""
+    source and the reference kernel it replaces (a ``pl.pallas_call``, or
+    for the seal the reference's jitted ``apply_mask_flat``)."""
     import os
     before = {n: k["wrapper"].launches for n, k in KERNELS.items()}
     x, w, _ = _inputs(3, 1000, seed=0)
-    fused.aggregate_flat_onepass(torch.from_numpy(x), torch.from_numpy(w))
-    fused.aggregate_quantize_flat(torch.from_numpy(x), torch.from_numpy(w))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    terms = torch.ones((3, 2), dtype=torch.int64)
+    fused.aggregate_flat_onepass(tx, tw)
+    fused.aggregate_quantize_flat(tx, tw)
+    fused.apply_mask_flat(tx[0], terms[0], terms[0])
+    fused.unmask_aggregate_flat(tx, tw, seeds=terms, signs=terms)
+    fused.unmask_aggregate_quantize_flat(tx, tw, seeds=terms, signs=terms)
     assert before == {n: k["wrapper"].launches for n, k in KERNELS.items()}
-    assert set(KERNELS) == {"fused.agg", "fused.agg_quant"}
+    assert set(KERNELS) == {"fused.agg", "fused.agg_quant", "fused.mask",
+                            "fused.unmask_agg", "fused.unmask_agg_quant"}
     repo = os.path.join(os.path.dirname(__file__), "..")
-    for meta in KERNELS.values():
+    for name, meta in KERNELS.items():
         assert meta["route"] == "cuda"
         assert os.path.isfile(os.path.join(repo, meta["source"]))
         path, line = meta["replaces"].split(":")
         with open(os.path.join(repo, path)) as fh:
-            assert "pl.pallas_call(" in fh.readlines()[int(line) - 1]
+            text = fh.readlines()[int(line) - 1]
+        want = ("def apply_mask_flat(" if name == "fused.mask"
+                else "pl.pallas_call(")
+        assert want in text, (name, text)
 
 
 def test_cuda_source_keeps_its_exactness_contract():
@@ -251,8 +261,16 @@ def test_cuda_source_keeps_its_exactness_contract():
     from repro_torch.kernels import build
     src = open(os.path.join(build.CSRC, "fused_agg.cu")).read()
     for needle in ("__fdiv_rn", "rintf", "__fmaf_rn", "weighted_mean_lane",
-                   'extern "C"', "cudaGetLastError"):
+                   'extern "C"', "cudaGetLastError",
+                   # the masked kernels: uint32 ring arithmetic, the PRG's
+                   # constants, and B1's mean reached through SealedRows
+                   "uint32_t", "0x7FEB352Du", "0x846CA68Bu", "SealedRows",
+                   "__uint_as_float", "fused_mask_launch",
+                   "fused_unmask_agg_launch",
+                   "fused_unmask_agg_quant_launch"):
         assert needle in src, needle
+    # one definition of the mean, shared by all four aggregation kernels
+    assert src.count("float weighted_mean_lane(") == 1
     assert "roundf" not in src.replace("never `roundf`", "")
     assert "-use_fast_math" not in " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

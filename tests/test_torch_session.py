@@ -1,7 +1,8 @@
 """Sessions of the PyTorch package: the host-side copies of the simulator
 and the protocol core reproduce the reference's pinned golden trajectories
 byte for byte, the CNN session agrees with the reference's, and the seams
-into subsystems that the package does not hold yet are closed loudly."""
+into subsystems that the package does not hold yet are closed loudly.
+Secure aggregation is held in ``test_torch_secureagg.py``."""
 
 import hashlib
 import json
@@ -16,7 +17,6 @@ from repro.data import make_classification_task as j_make_classification_task
 from repro.models.tasks import cnn_task as jax_cnn_task
 from repro.sim.runner import ModestSession as JModestSession
 from repro_torch.config import ModestConfig, TrainConfig
-from repro_torch.core.tasks import AbstractTask
 from repro_torch.data import make_classification_task
 from repro_torch.engine.flat import params_from_numpy
 from repro_torch.models.tasks import cnn_task
@@ -163,16 +163,6 @@ def test_cnn_session_matches_reference_and_engines_agree():
     assert abs(rb.final_metrics["loss"] - ref.final_metrics["loss"]) < 0.02
 
 
-def test_secure_aggregation_is_refused_at_construction():
-    mcfg = ModestConfig(n_nodes=8, secure_agg="masked")
-    with pytest.raises(NotImplementedError, match="secure aggregation"):
-        ModestSession(n_nodes=8, mcfg=mcfg, task=AbstractTask(1000),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="secure aggregation"):
-        fedavg_session(n_nodes=8, mcfg=mcfg, task=AbstractTask(1000),
-                       device="cpu")
-
-
 @pytest.mark.parametrize("name", sorted(SESSIONS))
 def test_serve_and_sharded_are_refused(name):
     cls = SESSIONS[name]
@@ -182,15 +172,3 @@ def test_serve_and_sharded_are_refused(name):
     with pytest.raises(NotImplementedError, match="sharded"):
         cls(engine="sharded", **kw)
     assert cls(serve=None, **kw).serving is None
-
-
-def test_node_refuses_secure_aggregation_directly():
-    from repro_torch.core.node import ModestNode
-    from repro_torch.sim.clock import Simulator
-    from repro_torch.sim.network import Network
-
-    sim = Simulator()
-    net = Network(sim, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="secure aggregation"):
-        ModestNode("0", sim, net, ModestConfig(n_nodes=4, secure_agg="masked"),
-                   TrainConfig(), AbstractTask(1000))
