@@ -14,7 +14,13 @@ two main paths and checks that each really went through its kernels:
   aggregation, where every trainer seals its model (``fused.mask``) and
   every aggregator unmasks and aggregates the sealed rows in one launch
   (``fused.unmask_agg``), and a fused unmask→aggregate→quantize over its
-  last sealed cohort (``fused.unmask_agg_quant``).
+  last sealed cohort (``fused.unmask_agg_quant``);
+* serve: TinyLlama-1.1B at full width and depth (22 layers, bf16, weights
+  from a seeded generator) through ``Server`` with ``use_flash=True``: a
+  prefill of 4 x 1024 tokens, 32 greedy decode steps and a second prefill,
+  each prefill launching the flash-attention kernel once a layer
+  (``flash_attention``), then the serving launcher at full size once
+  (its config leaves ``use_flash`` off: plain attention, no launch).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -31,6 +37,23 @@ compared bit for bit against the plain quantiser applied to the kernel's
 own mean; the two kernels' means are compared bit for bit. The seal is
 compared with its plain version bit for bit; the masked kernels' mean,
 codes and scales with the plain kernels' on the unsealed rows bit for bit.
+Flash attention against its plain version (the full softmax in fp32):
+``rtol = atol = 3e-5`` in fp32, the reference's own kernel-test tolerance;
+in bf16 ``rtol = 1e-2, atol = 1e-4``. Both versions round an fp32 result
+to bf16, so where their fp32 sums straddle a rounding point they differ by
+one bf16 step, at most 2^-7 = 0.0078 of the value: ``rtol`` passes that
+and no more, and ``atol`` is far above the fp32 sums' own difference and
+far below the outputs' typical size (about 0.02 at the serving shape), so
+a kernel that keeps its sums in bf16 (several per cent off) fails.
+
+The serve phase's flash prefill against the same prefill with
+``use_flash=False``, for three draws of weights and prompts: with the
+weights widened to fp32, the relative L2 error of the last position's
+logits at most ``1e-4`` (the kernel's own error is about 1e-7 of a value;
+the bound leaves room for its spread); in bf16, whose roundings spread
+through the 22 layers to a gap of about 1e-2 between any two orders of
+summation, the flash path's relative L2 distance from the fp32 plain
+logits at most twice the plain bf16 path's own distance from them.
 """
 
 from __future__ import annotations
@@ -50,6 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM, bf16 dense on the tensor cores
 # H100 SXM, INT32 outside the tensor cores: 64 INT32 lanes an SM x 132 SMs
 # x 1.98 GHz boost x 2 (a multiply-add counted as two), as the "Peak INT32
 # TOPS" row of NVIDIA's H100 Tensor Core GPU Architecture white paper
@@ -59,6 +83,12 @@ INT32_OPS_PER_S = 33.5e12
 # then the sign's product and the running sum
 TERM_OPS = 18 + 2
 TOL = 1e-6
+FLASH_TOL = {torch.float32: {"rtol": 3e-5, "atol": 3e-5},
+             torch.bfloat16: {"rtol": 1e-2, "atol": 1e-4}}
+LOGIT_REL_TOL_FP32 = 1e-4
+BF16_ERR_RATIO = 2.0            # flash bf16 error / plain bf16 error, at most
+SERVE_SEEDS = (0, 1, 2)         # weights and prompts of the logits check
+SERVE_B, SERVE_S, SERVE_NEW = 4, 1024, 32     # the serve phase's shape
 
 
 def emit(phase: str, **kw) -> None:
@@ -232,7 +262,10 @@ def kernel_phase(dev):
                     fused=fused)
         del x, w, mask, mean, mean_q, codes, scales, plain
         torch.cuda.empty_cache()
+    flash_rows(rows, dev)
     emit("kernels", tolerance={"mean_rtol_atol": TOL, "codes": "bit-identical",
+                               "flash": {str(t)[6:]: v
+                                         for t, v in FLASH_TOL.items()},
                                "scales": "bit-identical",
                                "agg_vs_agg_quant_mean": "bit-identical",
                                "mask_vs_plain": "bit-identical",
@@ -318,6 +351,116 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused):
             "eager_ms": eager_ms(kernel, iters),
             "eager_plain_ms": eager_ms(plain_fn, pi, warmup=1)})
         torch.cuda.empty_cache()
+
+
+def flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal):
+    """Least time for one attention call: q, k, v read once and the output
+    written once over the HBM rate, against the 4·hd operations a (query,
+    key) pair that is not masked needs (two multiply-adds a dim, for q·k and
+    p·v) over the peak of the inputs' type: bf16 on the tensor cores, fp32
+    outside them. Also the fp32-core time of the same operations, the peak
+    of the pipe the kernel uses."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * B * S * hd * (2 * Hq + 2 * Hkv)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * B * Hq * hd * pairs
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound + (max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3),)
+
+
+def flash_qkv(B, Hq, Hkv, S, hd, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(shape, generator=g, device=dev) * 0.5).to(dtype)
+            for shape in ((B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))]
+
+
+def flash_check(q, k, v, causal, name):
+    """Kernel against its plain version: shape, type, finite, tolerance;
+    returns the largest absolute error, the largest error over its
+    allowance ``atol + rtol |plain|`` (at most 1) and the relative L2
+    error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    plain = flash_attention_ref(q, k, v, causal)
+    if got.shape != q.shape or got.dtype != q.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite output")
+    a, b = got.to(torch.float32), plain.to(torch.float32)
+    tol = FLASH_TOL[q.dtype]
+    err = float((a - b).abs().max())
+    share = float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max())
+    rel = float((a - b).norm() / b.norm())
+    if not torch.allclose(a, b, **tol):
+        raise AssertionError(f"{name}: off its plain version by {err} "
+                             f"({share} of its tolerance)")
+    return err, share, rel
+
+
+def flash_rows(rows, dev):
+    """B9 against its plain version at the serving shape and at S = 640
+    (where the reference's tiling raises, ROADMAP C3), causal and not, fp32
+    and bf16, timed beside its plain version and PyTorch's
+    ``scaled_dot_product_attention`` (a yardstick; the package never calls
+    it). The serving shape in bf16, causal, is the main path's and comes
+    first. Then every head dim and a ragged length, checked only."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    out = rows.setdefault("flash_attention", [])
+    B, Hq, Hkv, hd = SERVE_B, 32, 4, 64
+    cases = [(S, dtype, causal) for S in (SERVE_S, 640)
+             for dtype in (torch.bfloat16, torch.float32)
+             for causal in (True, False)]
+    for i, (S, dtype, causal) in enumerate(cases):
+        name = f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+        q, k, v = flash_qkv(B, Hq, Hkv, S, hd, dtype, 300 + i, dev)
+        err, share, rel = flash_check(q, k, v, causal, name)
+        b, by, fp32_core = flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+        try:
+            library = time_ms(sdpa, 20)
+        except RuntimeError as e:        # a yardstick only: note and go on
+            library, library_error = None, str(e)[:200]
+        else:
+            library_error = None
+        out.append({
+            "shape": name, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "hd": hd,
+            "dtype": str(dtype)[6:], "causal": causal, "max_abs_err": err,
+            "err_share_of_tol": share, "rel_l2_err": rel,
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                          20),
+            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal), 5),
+            "bound_ms": b, "bound_by": by, "bound_fp32_core_ms": fp32_core,
+            "library_ms": library, "library": "scaled_dot_product_attention",
+            "library_error": library_error,
+            "eager_ms": eager_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal), 20)})
+        del q, k, v
+        torch.cuda.empty_cache()
+    # every template, GQA with B > 1, ragged tails, a length of one
+    for j, (B_, Hq_, Hkv_, S, hd_) in enumerate([
+            (2, 4, 2, 77, 32), (2, 4, 1, 200, 128), (3, 6, 3, 1, 64),
+            (1, 8, 8, 1000, 64)]):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = flash_qkv(B_, Hq_, Hkv_, S, hd_, dtype, 400 + j, dev)
+                flash_check(q, k, v, causal,
+                            f"B{B_} Hq{Hq_} Hkv{Hkv_} S{S} hd{hd_} {dtype}")
+    # the model's layout: (B,S,H,hd) read and written through strides
+    q, k, v = flash_qkv(2, 8, 2, 300, 64, torch.bfloat16, 500, dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    got = fa.flash_attention_bshd(qt, kt, vt).transpose(1, 2)
+    if not torch.equal(got, fa.flash_attention(q, k, v)):
+        raise AssertionError("flash_attention_bshd differs from the "
+                             "(B,H,S,hd) call")
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +830,190 @@ def profile_phase(sim_seconds: float):
                       for k, t, c in rows[:10]])
 
 
+def serve_phase(dev):
+    """The serving path: TinyLlama-1.1B at full width and depth through
+    ``Server`` with ``use_flash=True`` (prefill, 32 greedy decode steps, a
+    second prefill for a warm time), then ``launch.serve.main`` at full size
+    once. Counted: the caller sets the counts to 0 just before and reads them
+    just after."""
+    from repro_torch import configs
+    from repro_torch.core.distributed import Server
+    from repro_torch.launch import serve
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = configs.get_config("tinyllama-1.1b").with_(use_flash=True)
+    B, S, new = SERVE_B, SERVE_S, SERVE_NEW
+    server = Server(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = server.shard_params(server.model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (B, S)), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed_prefill():
+        cache = server.model.init_cache(B, S + new + 8, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = server.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        return logits, cache, time.perf_counter() - t0
+
+    logits, cache, cold_s = timed_prefill()
+    first = torch.argmax(logits[:, -1:], dim=-1)
+    tok, generated = first, [first]
+    t0 = time.perf_counter()
+    for _ in range(new):
+        logits, cache = server.decode(params, tok, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    flash_logits, _, warm_s = timed_prefill()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launcher = serve.main(["--full-size", "--batch", str(B), "--prompt-len",
+                           "128", "--new-tokens", "8", "--seed", "0"])
+
+    gen = torch.cat(generated, dim=1)
+    if flash_logits.shape != (B, 1, cfg.vocab) or not torch.isfinite(
+            flash_logits).all():
+        raise AssertionError(f"prefill logits {tuple(flash_logits.shape)}, "
+                             "or not finite")
+    if cache["pos"] != S + new or not torch.isfinite(
+            cache["k"][:, :, :S + new].float()).all():
+        raise AssertionError(f"cache at {cache['pos']}, or not finite")
+    if not ((0 <= gen) & (gen < cfg.vocab)).all():
+        raise AssertionError("generated ids out of the vocabulary")
+    if launcher["tokens"].shape != (B, 8):
+        raise AssertionError(f"launcher tokens {launcher['tokens'].shape}")
+    return {"cfg": cfg, "server": server, "params": params, "toks": toks,
+            "flash_logits": flash_logits, "first_tokens": first,
+            "prefills": 2, "line": dict(
+                model=cfg.name, n_params=sum(t.numel()
+                                             for t in tree_leaves(params)),
+                n_layers=cfg.n_layers, dtype=cfg.param_dtype, batch=B,
+                prompt_len=S, new_tokens=new, init_seconds=init_s,
+                prefill_seconds_cold=cold_s, prefill_seconds=warm_s,
+                prefill_tokens_per_s=B * S / warm_s, decode_seconds=decode_s,
+                decode_tokens_per_s=B * new / decode_s,
+                peak_memory_bytes=peak,
+                sample_ids=gen[0, :12].tolist(),
+                launcher={k: launcher[k] for k in (
+                    "prefill_seconds", "decode_seconds",
+                    "decode_tokens_per_s")})}
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def logits_gaps(cfg, params, toks, dev, flash_bf16=None):
+    """Last-position prefill logits of the flash and plain paths, in bf16 and
+    with the weights widened exactly to fp32; returns their gaps. The fp32
+    plain logits stand for the exact ones."""
+    from repro_torch.core.distributed import Server
+    from repro_torch.utils.pytree import tree_map
+
+    B, S = toks.shape
+    got = {}
+    for dtype in ("bfloat16", "float32"):
+        p = params if dtype == "bfloat16" else tree_map(
+            lambda t: t.to(torch.float32), params)
+        for flash in (True, False):
+            if dtype == "bfloat16" and flash and flash_bf16 is not None:
+                got[dtype, flash] = flash_bf16
+                continue
+            srv = Server(cfg.with_(param_dtype=dtype, use_flash=flash),
+                         device=dev)
+            got[dtype, flash], _ = srv.prefill(
+                p, {"tokens": toks}, srv.model.init_cache(B, S + 8, dev))
+        del p
+    exact = got["float32", False]
+    flash16, plain16 = got["bfloat16", True], got["bfloat16", False]
+    gaps = {"bf16_flash_vs_plain": rel_l2(flash16, plain16),
+            "bf16_flash_err": rel_l2(flash16, exact),
+            "bf16_plain_err": rel_l2(plain16, exact),
+            "fp32_flash_vs_plain": rel_l2(got["float32", True], exact),
+            "bf16_max_abs_gap": float((flash16 - plain16).abs().max()),
+            "max_abs_logit": float(plain16.abs().max()),
+            "first_token_agreement": float(
+                (flash16.argmax(-1) == plain16.argmax(-1)).float().mean())}
+    gaps["bf16_err_ratio"] = gaps["bf16_flash_err"] / gaps["bf16_plain_err"]
+    if not gaps["fp32_flash_vs_plain"] <= LOGIT_REL_TOL_FP32:
+        raise AssertionError(f"fp32 flash prefill logits off the plain "
+                             f"prefill's: {gaps}")
+    if not gaps["bf16_err_ratio"] <= BF16_ERR_RATIO:
+        raise AssertionError(f"bf16 flash prefill logits further from the "
+                             f"fp32 ones than {BF16_ERR_RATIO}x the plain "
+                             f"path's: {gaps}")
+    return gaps
+
+
+def serve_check(out, flash_ms):
+    """After the counted run: the flash prefill's logits against the same
+    prefill with ``use_flash=False`` for each of ``SERVE_SEEDS`` (the first
+    is the counted run's), the plain path's prefill time, a profile of one
+    flash prefill, and the kernel's share of prefill time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.distributed import Server
+
+    cfg, params, toks, dev = (out["cfg"], out["params"], out["toks"],
+                              out["server"].device)
+    B, S = toks.shape
+    plain = Server(cfg.with_(use_flash=False), device=dev)
+    times = []
+    for _ in range(2):                     # the second call is warm
+        cache = plain.model.init_cache(B, S + 8, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    gaps = [dict(seed=SERVE_SEEDS[0], **logits_gaps(
+        cfg, params, toks, dev, flash_bf16=out["flash_logits"]))]
+    for seed in SERVE_SEEDS[1:]:
+        p = out["server"].model.init(
+            torch.Generator(device=dev).manual_seed(seed), dev)
+        t = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (B, S)), device=dev)
+        gaps.append(dict(seed=seed, **logits_gaps(cfg, p, t, dev)))
+        del p
+    torch.cuda.empty_cache()
+
+    cache = out["server"].model.init_cache(B, S + 8, dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out["server"].prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda r: -r[1])
+    device_s = sum(t for _, t, _ in kern) / 1e6
+    flash_s = cfg.n_layers * flash_ms / 1e3
+    line = out["line"]
+    emit("serve", **line, flash_launches_per_prefill=cfg.n_layers,
+         plain_prefill_seconds=times[-1],
+         plain_prefill_seconds_cold=times[0],
+         logits_gaps=gaps, fp32_logits_rel_l2_tol=LOGIT_REL_TOL_FP32,
+         bf16_err_ratio_tol=BF16_ERR_RATIO,
+         flash_share_of_prefill=flash_s / line["prefill_seconds"],
+         profile={"wall_seconds_traced": wall,
+                  "device_seconds": device_s if kern else None,
+                  "device_busy_share": device_s / wall if kern else None,
+                  "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
+                                   "count": c} for k, t, c in kern[:8]]})
+
+
 def engines_phase():
     from repro_torch.models.tasks import cnn_task
 
@@ -735,10 +1062,12 @@ def main() -> int:
                      "cudnn": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    build.build(["fused_agg"])                       # fails loudly
+    sources = ["fused_agg", "flash_attention"]
+    build.build(sources)                             # fails loudly
     emit("build", seconds=time.perf_counter() - t0,
-         ptxas=[ln for ln in build.build_log("fused_agg").splitlines()
-                if "registers" in ln or "Compiling" in ln])
+         ptxas={n: [ln for ln in build.build_log(n).splitlines()
+                    if "registers" in ln or "Compiling" in ln]
+                for n in sources})
 
     rows = kernel_phase(dev)
     # each main path with the counts set to 0 just before it, read after
@@ -749,20 +1078,32 @@ def main() -> int:
     last = calls[-1]
     mout = masked_agg_quant_phase(msession, last)
     masked_launches = read_counts()
+    reset_counts()
+    served = serve_phase(dev)
+    serve_launches = read_counts()
     launches = {}
     for names, counted in (({"fused.agg", "fused.agg_quant"}, plain_launches),
                            ({"fused.mask", "fused.unmask_agg",
-                             "fused.unmask_agg_quant"}, masked_launches)):
+                             "fused.unmask_agg_quant"}, masked_launches),
+                           ({"flash_attention"}, serve_launches)):
         for name in names:
             if counted[name] <= 0:
                 raise AssertionError(f"the main path never launched {name}")
             launches[name] = counted[name]
     if set(launches) != set(KERNELS):
-        raise AssertionError(f"kernels outside both paths: {set(KERNELS)}")
+        raise AssertionError(f"kernels outside the paths: {set(KERNELS)}")
+    want = served["cfg"].n_layers * served["prefills"]
+    if serve_launches["flash_attention"] != want or sum(
+            serve_launches.values()) != want:
+        raise AssertionError(f"serve path launches {serve_launches}, want "
+                             f"{want} of flash_attention only")
     agg_quant_check(session, models, out, codes, scales)
     masked_means_check(msession, calls)
     masked_agg_quant_check(msession, last, mout)
     del session, models, msession, calls, last, out, codes, scales, mout
+    serve_check(served, rows["flash_attention"][0]["ms"])
+    del served
+    torch.cuda.empty_cache()
     breakdown_phase(sim_seconds=40.0)
     breakdown_phase(sim_seconds=40.0, secure_agg="masked")
     profile_phase(sim_seconds=20.0)

@@ -6,10 +6,12 @@ Two families of dataclasses:
   architecture lives in ``repro_torch.configs``).
 * :class:`ModestConfig` / :class:`TrainConfig` — the paper's protocol
   parameters (Table 2) and learning hyperparameters.
+* :class:`MeshConfig` — the device mesh; the package runs on one device,
+  and :class:`repro_torch.core.distributed.Server` refuses a larger mesh.
 
-The benchmark input shapes, the mesh description and the device constants
-of the reference's ``config.py`` belong to its mesh form and roofline and
-are not part of this package yet.
+The benchmark input shapes and the device constants of the reference's
+``config.py`` belong to its mesh form and roofline and are not part of this
+package yet.
 
 Configs are plain frozen dataclasses so they hash, print, and round-trip
 through the CLI (`--arch`, `--shape`, `--set key=value`).
@@ -178,3 +180,15 @@ class TrainConfig:
     # all-reduce; float32 is the paper-faithful baseline)
     agg_dtype: str = "float32"
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh: ``data`` x ``model`` devices (one until ROADMAP A12)."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def n_devices(self):
+        return self.data * self.model

@@ -7,6 +7,7 @@
 * :mod:`repro_torch.core.sampling`  — mostly-consistent decentralized sampling (Alg. 1)
 * :mod:`repro_torch.core.node`      — the full train/aggregate node (Alg. 4)
 * :mod:`repro_torch.core.tasks`     — the learning-task interface and the byte-only task
+* :mod:`repro_torch.core.distributed` — batched serving of the LMs (``Server``)
 """
 
 from repro_torch.core.activity import ActivityTracker  # noqa: F401

@@ -1,12 +1,15 @@
 """Hand-written CUDA kernels for MoDeST's perf-critical layers.
 
 The paper's compute hot spot is the aggregator: averaging ``sf·s`` incoming
-models (a bandwidth-bound streaming reduction) every round.
+models (a bandwidth-bound streaming reduction) every round. Serving the
+dense LMs adds attention.
 
 * :mod:`repro_torch.kernels.fused` — whole-model one-pass aggregation over
   flat ``(P, N)`` buffers + fused aggregate→quantize, the seal of secure
   aggregation and the fused unmask→aggregate(→quantize) over sealed rows
   (``csrc/fused_agg.cu``)
+* :mod:`repro_torch.kernels.flash_attention` — causal / full GQA
+  attention by online softmax, forward (``csrc/flash_attention.cu``)
 * :mod:`repro_torch.kernels.ops`   — model-level wrappers (public API)
 * :mod:`repro_torch.kernels.ref`   — plain-torch oracles
 * :mod:`repro_torch.kernels.build` — nvcc + ctypes build at first use
@@ -26,6 +29,12 @@ from repro_torch.kernels.fused import (  # noqa: F401
 from repro_torch.kernels.ops import (  # noqa: F401
     aggregate_flatmodel,
     masked_aggregate_flatmodel,
+)
+
+# bound under another name, so that ``repro_torch.kernels.flash_attention``
+# stays the module
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as _flash_attention,
 )
 
 KERNELS = {
@@ -58,5 +67,11 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
         "replaces": "src/repro/kernels/fused.py:405",
+    },
+    "flash_attention": {
+        "wrapper": _flash_attention,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:92",
     },
 }

@@ -37,3 +37,21 @@ def dequantize_ref(q, s, dtype=torch.float32):
     N = q.shape[0]
     t = q.to(torch.float32).reshape(N // TILE, TILE) * s[:, None]
     return t.reshape(N).to(dtype)
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """Full-softmax GQA attention oracle. q: (B,Hq,S,hd); k/v: (B,Hkv,S,hd)."""
+    B, Hq, S, hd = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, S, hd).to(torch.float32)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    s = torch.einsum("bkgsh,bkth->bkgst", qg, kf) * hd ** -0.5
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        s = torch.where(mask[None, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,bkth->bkgsh", p, vf)
+    return out.reshape(B, Hq, S, hd).to(q.dtype)

@@ -3,15 +3,19 @@
 ``build(cfg)`` dispatches on ``cfg.family`` and returns a :class:`Model`
 bundle with a uniform interface:
 
-    init(generator, device=None)       -> params
-    loss_fn(params, batch)             -> (loss, metrics)
+    init(generator, device=None)                -> params
+    loss_fn(params, batch)                      -> (loss, metrics)
+    init_cache(batch, max_len, device=None)     -> cache   # decode shapes
+    prefill(params, batch, cache)               -> (logits, cache)
+    decode_step(params, token, cache)           -> (logits, cache)
 
-Only the ``cnn`` family is part of this package so far.
+The ``cnn`` and ``dense`` families are part of this package so far; the
+others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from repro_torch.config import ModelConfig
 
@@ -20,12 +24,17 @@ class Model(NamedTuple):
     cfg: ModelConfig
     init: Callable
     loss_fn: Callable
+    init_cache: Callable
+    prefill: Optional[Callable]
+    decode_step: Optional[Callable]
 
 
 def build(cfg: ModelConfig) -> Model:
     if cfg.family == "cnn":
         from repro_torch.models import cnn as m
-    elif cfg.family in ("dense", "moe", "ssm", "hybrid", "audio", "vlm", "mf"):
+    elif cfg.family == "dense":
+        from repro_torch.models import transformer as m
+    elif cfg.family in ("moe", "ssm", "hybrid", "audio", "vlm", "mf"):
         raise NotImplementedError(f"family {cfg.family!r}: later slice")
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
@@ -33,4 +42,17 @@ def build(cfg: ModelConfig) -> Model:
         cfg=cfg,
         init=lambda generator, device=None: m.init(generator, cfg, device),
         loss_fn=lambda params, batch: m.loss_fn(params, cfg, batch),
+        init_cache=(lambda batch, max_len, device=None:
+                    m.init_cache(cfg, batch, max_len, device))
+        if hasattr(m, "init_cache") else _no_cache,
+        prefill=(lambda params, batch, cache:
+                 m.prefill(params, cfg, batch, cache))
+        if hasattr(m, "prefill") else None,
+        decode_step=(lambda params, token, cache:
+                     m.decode_step(params, cfg, token, cache))
+        if hasattr(m, "decode_step") else None,
     )
+
+
+def _no_cache(*_a, **_k):
+    raise NotImplementedError("this family has no decode cache")

@@ -1,0 +1,219 @@
+"""Dense GQA decoder LM (llama3 / starcoder2 / tinyllama / gemma2).
+
+One block definition covers the dense variants:
+* RoPE GQA attention, SwiGLU MLP, RMSNorm (pre-norm; gemma2 adds post-norms)
+* optional sliding ``window``; gemma2's ``local_global_alt`` alternates
+  local/global by layer parity (even = local)
+* optional attention/final logit soft-capping (gemma2)
+* layers are stacked along a leading axis, dict keys in sorted order: the
+  reference's parameter tree, so ``engine.flat.params_from_numpy`` carries
+  a reference tree across unchanged. The reference scans over the stack;
+  here a Python loop indexes it (views, no copies).
+
+Exports the uniform model interface (init / loss_fn / init_cache / prefill /
+decode_step). ``cfg.remat`` (checkpoint each block in the reference) has no
+effect on a forward pass and is not read. The cache is
+``{"k", "v": (L,B,T,KV,hd), "pos": int}``; prefill and decode write the new
+keys and values into its tensors in place (the reference's serving loop
+donates its cache) and ``pos`` is a host integer, so no step synchronises
+with the device to index the cache.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_map
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.param_dtype)
+
+
+def _layer(params, i):
+    return tree_map(lambda t: t[i], params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def block_init(generator, cfg, device=None):
+    dt = _dtype(cfg)
+    p = {
+        "attn": L.attention_init(generator, cfg, dt, device=device),
+        "ln1": L.rms_norm_init(cfg.d_model, dt, device),
+        "ln2": L.rms_norm_init(cfg.d_model, dt, device),
+        "mlp": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt, device),
+    }
+    if cfg.local_global_alt:                     # gemma2 post-norms
+        p["post_ln1"] = L.rms_norm_init(cfg.d_model, dt, device)
+        p["post_ln2"] = L.rms_norm_init(cfg.d_model, dt, device)
+    return dict(sorted(p.items()))
+
+
+def init(generator, cfg, device=None):
+    """Random parameters from ``generator`` (drawn on its device), placed on
+    ``device`` (None = cuda)."""
+    device = resolve_device(device)
+    dt = _dtype(cfg)
+    embed = L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device)
+    blocks = [block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
+    params = {
+        "embed": embed,
+        "final_norm": L.rms_norm_init(cfg.d_model, dt, device),
+        "layers": tree_map(lambda *ls: torch.stack(ls), *blocks),
+    }
+    del blocks
+    if not cfg.local_global_alt:                 # gemma2 ties the LM head
+        params["lm_head"] = L.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                         dt, device=device)
+    return dict(sorted(params.items()))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _masks(cfg, S, T, offset=0, device=None):
+    full = L.causal_mask(S, T, offset=offset, device=device)
+    if cfg.local_global_alt:
+        local = L.causal_mask(S, T, offset=offset, window=cfg.window,
+                              device=device)
+        return full, local
+    if cfg.window:
+        return L.causal_mask(S, T, offset=offset, window=cfg.window,
+                             device=device), None
+    return full, None
+
+
+def _layer_mask(cfg, i, full, local):
+    """Even layers are local under ``local_global_alt``."""
+    return local if cfg.local_global_alt and i % 2 == 0 else full
+
+
+def _block_apply(p, cfg, x, positions, mask):
+    """One block; returns (x, (k, v)) with the layer's rotated keys and its
+    values for a prefill's cache."""
+    h, kv = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                        cfg, positions=positions, mask=mask)
+    if "post_ln1" in p:
+        h = L.rms_norm(p["post_ln1"], h, cfg.norm_eps)
+    x = x + h
+    h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    if "post_ln2" in p:
+        h = L.rms_norm(p["post_ln2"], h, cfg.norm_eps)
+    return x + h, kv
+
+
+def stack_forward(params, cfg, x, positions, cache=None):
+    """Run the layer stack on embeddings x (B,S,d). With a ``cache``, each
+    layer's keys and values are written into its first S positions."""
+    S = x.shape[1]
+    full, local = _masks(cfg, S, S, device=x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _block_apply(_layer(params, i), cfg, x, positions,
+                                 _layer_mask(cfg, i, full, local))
+        if cache is not None:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        x = L.shard_activations(x, cfg.act_shard)
+    return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+
+def logits_fn(params, cfg, h):
+    if "lm_head" in params:
+        logits = h @ params["lm_head"]
+    else:
+        logits = h @ params["embed"].T
+    return L.softcap(logits.to(torch.float32), cfg.final_softcap)
+
+
+def embed_tokens(params, cfg, tokens):
+    x = params["embed"][tokens]
+    if cfg.local_global_alt:                     # gemma scales embeddings
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def loss_fn(params, cfg, batch):
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = embed_tokens(params, cfg, tokens)
+    h = stack_forward(params, cfg, x,
+                      torch.arange(tokens.shape[1], device=x.device))
+    if cfg.xent_chunk:
+        tied = "lm_head" not in params
+        head = params["embed"] if tied else params["lm_head"]
+        loss = L.chunked_softmax_xent(h, head, labels, cfg.xent_chunk,
+                                      softcap_v=cfg.final_softcap,
+                                      mask=batch.get("mask"),
+                                      head_transposed=tied)
+    else:
+        logits = logits_fn(params, cfg, h)
+        loss = L.softmax_xent(logits, labels, batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch_size, max_len, device=None):
+    device = resolve_device(device)
+    hd = cfg.resolved_head_dim()
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, hd)
+    dt = _dtype(cfg)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "pos": 0,
+    }
+
+
+def prefill(params, cfg, batch, cache):
+    """Run the prompt through the stack, filling the cache."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    return prefill_embeds(params, cfg, x, cache)
+
+
+def prefill_embeds(params, cfg, x, cache):
+    """Prefill from raw embeddings (B,S,d) -> (logits of the last position
+    (B,1,V), cache)."""
+    S = x.shape[1]
+    h = stack_forward(params, cfg, x, torch.arange(S, device=x.device), cache)
+    return logits_fn(params, cfg, h[:, -1:]), dict(cache, pos=S)
+
+
+def decode_step(params, cfg, token, cache):
+    """One new token (B,1) against the cache; returns (logits, cache)."""
+    pos = cache["pos"]
+    x = embed_tokens(params, cfg, token)
+    kpos = torch.arange(cache["k"].shape[2], device=x.device)
+    valid_full = kpos <= pos
+    valid_local = (valid_full & ((pos - kpos) < cfg.window) if cfg.window
+                   else valid_full)
+    for i in range(cfg.n_layers):
+        p = _layer(params, i)
+        if cfg.local_global_alt:
+            valid = valid_local if i % 2 == 0 else valid_full
+        else:
+            valid = valid_local
+        xn = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+        out, _, _ = L.attention_decode_masked(
+            p["attn"], xn, cache["k"][i], cache["v"][i], pos, cfg, valid)
+        if "post_ln1" in p:
+            out = L.rms_norm(p["post_ln1"], out, cfg.norm_eps)
+        x = x + out
+        h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+        if "post_ln2" in p:
+            h = L.rms_norm(p["post_ln2"], h, cfg.norm_eps)
+        x = x + h
+    cache = dict(cache, pos=pos + 1)
+    h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, h), cache

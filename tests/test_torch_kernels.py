@@ -238,9 +238,12 @@ def test_cpu_calls_launch_no_kernel_and_registry_is_complete():
     fused.apply_mask_flat(tx[0], terms[0], terms[0])
     fused.unmask_aggregate_flat(tx, tw, seeds=terms, signs=terms)
     fused.unmask_aggregate_quantize_flat(tx, tw, seeds=terms, signs=terms)
+    q = torch.ones((1, 2, 8, 32))
+    KERNELS["flash_attention"]["wrapper"](q, q, q)
     assert before == {n: k["wrapper"].launches for n, k in KERNELS.items()}
     assert set(KERNELS) == {"fused.agg", "fused.agg_quant", "fused.mask",
-                            "fused.unmask_agg", "fused.unmask_agg_quant"}
+                            "fused.unmask_agg", "fused.unmask_agg_quant",
+                            "flash_attention"}
     repo = os.path.join(os.path.dirname(__file__), "..")
     for name, meta in KERNELS.items():
         assert meta["route"] == "cuda"
