@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA package on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mf-gap-readings   # what MF_GAP_TOL is set from
 
 Builds the CUDA kernels from the sources in this checkout (into ``build/``),
 holds each against its plain PyTorch version on the card, then drives the
@@ -20,7 +21,21 @@ two main paths and checks that each really went through its kernels:
   prefill of 4 x 1024 tokens, 32 greedy decode steps and a second prefill,
   each prefill launching the flash-attention kernel once a layer
   (``flash_attention``), then the serving launcher at full size once
-  (its config leaves ``use_flash`` off: plain attention, no launch).
+  (its config leaves ``use_flash`` off: plain attention, no launch);
+* trees: the per-leaf wrappers on real model trees. ``aggregate_pytree``
+  over ten paper-CNN trees (7 fp32 leaves, N = 136,672, plus an int32 leaf
+  whose mean lands on .5) and over four TinyLlama-1.1B trees at full width
+  and depth (bf16, 1,100,048,384 parameters in 12 leaves), one launch of
+  the per-leaf kernel a leaf (``aggregate.agg``); then
+  ``quantized_delta_push`` and ``quantized_delta_pull`` of one tree against
+  a second, one quantise (``quantize.quant``) and one dequantise
+  (``quantize.dequant``) launch a leaf;
+* MF: the paper's matrix-factorization task through the training launcher
+  (``launch.train.main(["--task", "mf", ...])``: 32 nodes, cohorts of 10,
+  aggregating through ``fused.agg``, then ``fused.agg_quant`` over its last
+  cohort), and the same session with ``secure_agg="masked"`` built
+  directly (``fused.mask``, ``fused.unmask_agg``, then
+  ``fused.unmask_agg_quant`` over its last sealed cohort).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -46,6 +61,23 @@ and no more, and ``atol`` is far above the fp32 sums' own difference and
 far below the outputs' typical size (about 0.02 at the serving shape), so
 a kernel that keeps its sums in bf16 (several per cent off) fails.
 
+The per-leaf kernels: fp32 means against ``ref.aggregate_ref``
+``rtol = atol = 1e-6``; bf16 means equal or one bf16 step apart (both
+round an fp32 sum whose last bits may differ; the share of such lanes is
+printed); integer leaves exact; quantised codes and scales and
+dequantised values bit for bit the plain versions'; a push-pull round trip
+within half a quantisation step of each lane's tile, plus half a step of
+the result's own type (fp32 or bf16).
+
+The MF sessions: rounds and total bytes equal between the batched and the
+sequential engine; the held-out MSE at every evaluated round, and the MSE
+on the clients' own training ratings at the end, within ``MF_GAP_TOL`` of
+each other (set from the readings of ``--mf-gap-readings``: between the
+largest gap of sound runs and the smallest a fault planted in the stacked
+gradients shows); the training-ratings MSE lower at the end than at round
+0. The held-out MSE's direction is reported, not gated: on this synthetic
+task it rises with training in the reference as in the port (ROADMAP C6).
+
 The serve phase's flash prefill against the same prefill with
 ``use_flash=False``, for three draws of weights and prompts: with the
 weights widened to fp32, the relative L2 error of the last position's
@@ -58,10 +90,14 @@ logits at most twice the plain bf16 path's own distance from them.
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -89,6 +125,14 @@ LOGIT_REL_TOL_FP32 = 1e-4
 BF16_ERR_RATIO = 2.0            # flash bf16 error / plain bf16 error, at most
 SERVE_SEEDS = (0, 1, 2)         # weights and prompts of the logits check
 SERVE_B, SERVE_S, SERVE_NEW = 4, 1024, 32     # the serve phase's shape
+TREE_WEIGHTS = (0.5, 1.0, 2.0, 0.25)    # the TinyLlama trees' aggregation
+# MF, batched engine against sequential: the largest held-out MSE gap over
+# the evaluated rounds, and the training-ratings MSE gap at the end. Set
+# from ``--mf-gap-readings`` on one H100: sound runs (seeds 0-3) reach
+# 2.4e-7 and 1.2e-8; the planted faults 7.0e-3 and 3.3e-3 or more, but
+# the dropped L2 term only 1.0e-6 held out and 2.8e-6 on the training
+# ratings, which is the gap that catches it.
+MF_GAP_TOL = {"heldout_gap": 1e-5, "train_end_gap": 2e-7}
 
 
 def emit(phase: str, **kw) -> None:
@@ -263,6 +307,7 @@ def kernel_phase(dev):
         del x, w, mask, mean, mean_q, codes, scales, plain
         torch.cuda.empty_cache()
     flash_rows(rows, dev)
+    tile_rows(rows, dev)
     emit("kernels", tolerance={"mean_rtol_atol": TOL, "codes": "bit-identical",
                                "flash": {str(t)[6:]: v
                                          for t, v in FLASH_TOL.items()},
@@ -270,7 +315,9 @@ def kernel_phase(dev):
                                "agg_vs_agg_quant_mean": "bit-identical",
                                "mask_vs_plain": "bit-identical",
                                "unmask_vs_plain_kernels_on_unsealed_rows":
-                                   "bit-identical"},
+                                   "bit-identical",
+                               "per_leaf_mean_bf16": "at most one bf16 step",
+                               "quantize_and_dequantize": "bit-identical"},
          kernels=rows)
     return rows
 
@@ -350,6 +397,122 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused):
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "eager_ms": eager_ms(kernel, iters),
             "eager_plain_ms": eager_ms(plain_fn, pi, warmup=1)})
+        torch.cuda.empty_cache()
+
+
+def tile_bound_ms(kind: str, P: int, N: int, in_size: int, out_size: int):
+    """Least time for one call of a per-leaf kernel: its inputs read once
+    and its outputs written once over the HBM rate, against its fp32
+    operations over the fp32 peak (a multiply-add a row and one division
+    a lane to aggregate; absolute value, maximum, division, rounding and
+    two clamps a lane to quantise; one product a lane to dequantise)."""
+    tiles = -(-N // 16384)
+    if kind == "aggregate.agg":
+        nbytes, flops = in_size * P * N + 4 * P + out_size * N, 2 * P * N + N
+    elif kind == "quantize.quant":
+        nbytes, flops = in_size * N + N + 4 * tiles, 6 * N
+    else:
+        nbytes, flops = N + 4 * tiles + out_size * N, N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_steps(a, b):
+    """How many bf16 steps apart two bf16 tensors lie, lane by lane (the
+    bit patterns put in one order, -0 beside +0)."""
+    def ordered(t):
+        v = t.view(torch.int16).to(torch.int32)
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_mean(got, plain, what):
+    """A kernel mean against its plain version: fp32 within TOL, bf16 at
+    most one step apart, integers exact. Returns (max abs error, share of
+    lanes one bf16 step apart)."""
+    if got.shape != plain.shape or got.dtype != plain.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype}, want "
+                             f"{tuple(plain.shape)} {plain.dtype}")
+    err = float((got.float() - plain.float()).abs().max())
+    if got.dtype == torch.bfloat16:
+        steps = bf16_steps(got, plain)
+        if int(steps.max()) > 1:
+            raise AssertionError(f"{what}: {int(steps.max())} bf16 steps off")
+        return err, float((steps != 0).float().mean())
+    if not got.dtype.is_floating_point:
+        if not torch.equal(got, plain):
+            raise AssertionError(f"{what}: integer leaf differs")
+    elif not torch.isfinite(got).all() or not torch.allclose(
+            got, plain, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{what}: off by {err}")
+    return err, 0.0
+
+
+def tile_rows(rows, dev):
+    """B6-B8 against their plain versions at the TinyLlama embedding leaf
+    (the largest leaf of the trees phase; B6 at P = 4 in bf16, B7 on its
+    fp32 delta, B8 back to fp32), the paper CNN's largest leaf (P = 10,
+    fp32) and B1's streaming shape (P = 16, N = 2^24, fp32), timed beside
+    the plain versions; for B6 ``torch.matmul`` of the normalised weights
+    with the stack as a yardstick (the package never calls it)."""
+    from repro_torch.kernels import aggregate as agg
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.ref import aggregate_ref
+
+    shapes = [
+        # name, P, N, B6 dtype, timing iterations
+        ("tinyllama_embed", 4, 65536000, torch.bfloat16, 10),
+        ("cnn_fc1", 10, 122880, torch.float32, 200),
+        ("stream", 16, 1 << 24, torch.float32, 10),
+    ]
+    for i, (name, P, N, dtype, iters) in enumerate(shapes):
+        g = torch.Generator(device=dev).manual_seed(600 + i)
+        x = torch.randn((P, N), generator=g, device=dev).to(dtype)
+        w = torch.rand((P,), generator=g, device=dev) + 0.5
+        got = agg.aggregate_tiles(x, w)
+        torch.cuda.synchronize()
+        err, share = check_mean(got, aggregate_ref(x, w), f"{name} B6")
+        wn = (w / w.sum()).to(dtype)
+        esize = x.element_size()
+        b, by = tile_bound_ms("aggregate.agg", P, N, esize, esize)
+        rows.setdefault("aggregate.agg", []).append({
+            "shape": name, "P": P, "N": N, "dtype": str(dtype)[6:],
+            "max_abs_err": err, "bf16_one_step_share": share,
+            "ms": time_ms(lambda: agg.aggregate_tiles(x, w), iters),
+            "plain_ms": time_ms(lambda: aggregate_ref(x, w), iters),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.matmul(wn, x), iters),
+            "library": "torch.matmul",
+            "eager_ms": eager_ms(lambda: agg.aggregate_tiles(x, w), iters)})
+        # the quantisers on an fp32 delta of the same length
+        d = (x[0].float() - x[1 % P].float()) if P > 1 else x[0].float()
+        del x, got
+        torch.cuda.empty_cache()
+        codes, scales = qz.quantize_tiles(d)
+        back = qz.dequantize_tiles(codes, scales)
+        torch.cuda.synchronize()
+        pc, ps = qz._plain_quantize(d)
+        if not (torch.equal(codes, pc) and torch.equal(scales, ps)):
+            raise AssertionError(f"{name}: B7 codes or scales differ from the "
+                                 f"plain version's ({int((codes != pc).sum())} "
+                                 "codes)")
+        plain_back = qz._plain_dequantize(codes, scales, torch.float32)
+        if not torch.equal(back, plain_back):
+            raise AssertionError(f"{name}: B8 differs from its plain version")
+        for kname, kernel, plain_fn, b_args in (
+                ("quantize.quant", lambda: qz.quantize_tiles(d),
+                 lambda: qz._plain_quantize(d), (4, 1)),
+                ("quantize.dequant", lambda: qz.dequantize_tiles(codes, scales),
+                 lambda: qz._plain_dequantize(codes, scales, torch.float32),
+                 (1, 4))):
+            b, by = tile_bound_ms(kname, 1, N, *b_args)
+            rows.setdefault(kname, []).append({
+                "shape": name, "N": N, "dtype": "float32", "max_abs_err": 0.0,
+                "ms": time_ms(kernel, iters), "plain_ms": time_ms(plain_fn, iters),
+                "bound_ms": b, "bound_by": by, "library_ms": None,
+                "eager_ms": eager_ms(kernel, iters)})
+        del d, codes, scales, back, plain_back, pc, ps
         torch.cuda.empty_cache()
 
 
@@ -520,15 +683,14 @@ def run_session(session, sim_seconds: float):
     return result, time.perf_counter() - t0
 
 
-def check_session(session, result):
-    """What both sessions must show: enough rounds, batched cohorts served
-    by queued jobs, finite parameters and accuracy."""
+def check_session(session, result, metric="accuracy"):
+    """What every session must show: enough rounds, batched cohorts served
+    by queued jobs, finite parameters and a finite ``metric`` history."""
     from repro_torch.engine.flat import as_buffer
 
     spec = session.task.flat_spec
     eng = session.engine
-    acc = [(h["round"], h["accuracy"]) for h in result.history
-           if "accuracy" in h]
+    acc = [(h["round"], h[metric]) for h in result.history if metric in h]
     if result.rounds_completed < 10:
         raise AssertionError(f"only {result.rounds_completed} rounds")
     if eng.jobs_run <= 0 or eng.jobs_run <= eng.flushes:
@@ -547,7 +709,7 @@ def check_session(session, result):
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite parameters after training")
     if not acc or not all(np.isfinite(a) for _, a in acc):
-        raise AssertionError(f"no finite accuracy history: {acc}")
+        raise AssertionError(f"no finite {metric} history: {acc}")
     return acc
 
 
@@ -673,7 +835,7 @@ def unseal_plain(models, seeds, signs, weights):
     return x, w
 
 
-def masked_means_check(session, calls):
+def masked_means_check(session, calls, phase="masked_means"):
     """Every masked mean of the session equals ``fused.agg`` on the same
     rows unsealed by the plain path, bit for bit (run after the counted
     path: these launches are comparisons)."""
@@ -686,7 +848,7 @@ def masked_means_check(session, calls):
                            fused.aggregate_flat_onepass(x, w, mask)):
             raise AssertionError("a masked mean differs from fused.agg on "
                                  "the unsealed rows")
-    emit("masked_means", aggregations=len(calls),
+    emit(phase, aggregations=len(calls),
          vs_agg_on_unsealed_rows="bit-identical")
 
 
@@ -708,7 +870,7 @@ def masked_agg_quant_phase(session, last):
     return out
 
 
-def masked_agg_quant_check(session, last, out):
+def masked_agg_quant_check(session, last, out, phase="masked_agg_quant"):
     """Mean, codes and scales bit for bit those of ``fused.agg_quant`` on
     the rows unsealed by the plain path."""
     from repro_torch.kernels import fused
@@ -722,7 +884,7 @@ def masked_agg_quant_check(session, last, out):
         raise AssertionError("fused.unmask_agg_quant differs from "
                              "fused.agg_quant on the unsealed rows")
     check_quant(out[0].buffer, out[1], out[2], fused)
-    emit("masked_agg_quant", models=len(models), n=spec.n,
+    emit(phase, models=len(models), n=spec.n,
          subtiles=int(out[2].shape[0]),
          vs_agg_quant_on_unsealed_rows="bit-identical")
 
@@ -743,7 +905,7 @@ def agg_quant_phase(session, models):
     return out, codes, scales
 
 
-def agg_quant_check(session, models, out, codes, scales):
+def agg_quant_check(session, models, out, codes, scales, phase="agg_quant"):
     from repro_torch.engine.flat import as_buffer
     from repro_torch.kernels import fused
 
@@ -757,7 +919,7 @@ def agg_quant_check(session, models, out, codes, scales):
     if scales.shape != (-(-spec.n // fused.SUBTILE),):
         raise AssertionError(f"scales {tuple(scales.shape)}")
     check_quant(out.buffer, codes, scales, fused)
-    emit("agg_quant", models=len(models), n=spec.n,
+    emit(phase, models=len(models), n=spec.n,
          subtiles=int(scales.shape[0]), max_abs_err=err,
          codes="bit-identical", scales="bit-identical")
 
@@ -1014,6 +1176,388 @@ def serve_check(out, flash_ms):
                                    "count": c} for k, t, c in kern[:8]]})
 
 
+def trees_phase(dev):
+    """The per-leaf wrappers on real model trees, counted (the caller sets
+    the counts to 0 just before and reads them just after): aggregation of
+    ten paper-CNN trees and four TinyLlama-1.1B trees, then a push and a
+    pull of one tree against a second, on each model."""
+    from repro_torch import configs
+    from repro_torch.kernels.ops import (aggregate_pytree,
+                                         quantized_delta_pull,
+                                         quantized_delta_push)
+    from repro_torch.models import build
+
+    cnn = build(configs.get_config("paper-cnn"))
+    cnn_trees = [cnn.init(torch.Generator().manual_seed(s), dev)
+                 for s in range(10)]
+    # an integer leaf: equal weights put the means of [p] and [100 + p]
+    # over p = 0..9 on 4.5 and 104.5, which round half to even to 4, 104
+    with_step = [dict(t, step=torch.tensor([p, 100 + p], dtype=torch.int32,
+                                           device=dev))
+                 for p, t in enumerate(cnn_trees)]
+    tl_cfg = configs.get_config("tinyllama-1.1b")
+    tl = build(tl_cfg)
+    tl_trees = [tl.init(torch.Generator(device=dev).manual_seed(s), dev)
+                for s in range(len(TREE_WEIGHTS))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cnn_mean = aggregate_pytree(with_step, [1.0] * len(with_step))
+    tl_mean = aggregate_pytree(tl_trees, list(TREE_WEIGHTS))
+    pushed = {}
+    for name, (theta, ref_tree) in (("paper-cnn", cnn_trees[:2]),
+                                    ("tinyllama-1.1b", tl_trees[:2])):
+        codes, scales = quantized_delta_push(theta, ref_tree)
+        pushed[name] = (theta, ref_tree, codes, scales,
+                        quantized_delta_pull(codes, scales, ref_tree))
+    torch.cuda.synchronize()
+    return {"cnn_trees": with_step, "tl_trees": tl_trees,
+            "cnn_mean": cnn_mean, "tl_mean": tl_mean, "pushed": pushed,
+            "wall_seconds": time.perf_counter() - t0}
+
+
+def trees_check(out, launches):
+    """Launch counts exactly one a leaf, then every output against the
+    plain versions (after the counted run: the dequantise launches made
+    here are comparisons)."""
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.kernels.ref import aggregate_ref
+    from repro_torch.utils.pytree import tree_flatten, tree_leaves
+
+    n_cnn = len(tree_leaves(out["cnn_trees"][0]))
+    n_tl = len(tree_leaves(out["tl_trees"][0]))
+    n_push = len(tree_leaves(out["pushed"]["paper-cnn"][0])) + n_tl
+    want = {"aggregate.agg": n_cnn + n_tl, "quantize.quant": n_push,
+            "quantize.dequant": n_push}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"trees launches {launches}, want {want} and "
+                             "no other kernel")
+    report = {}
+    for name, trees, mean, weights in (
+            ("paper-cnn", out["cnn_trees"], out["cnn_mean"],
+             [1.0] * len(out["cnn_trees"])),
+            ("tinyllama-1.1b", out["tl_trees"], out["tl_mean"],
+             list(TREE_WEIGHTS))):
+        leaves, treedef = tree_flatten(trees[0])
+        rest = [treedef.flatten_up_to(t) for t in trees[1:]]
+        got = treedef.flatten_up_to(mean)
+        w = torch.tensor(weights, dtype=torch.float32, device=leaves[0].device)
+        errs, shares, lanes = [], [], 0
+        for g, xs in zip(got, zip(leaves, *rest)):
+            stack = torch.stack([x.reshape(-1) for x in xs])
+            if xs[0].dtype.is_floating_point:
+                plain = aggregate_ref(stack, w)
+            else:
+                plain = torch.round(aggregate_ref(stack.float(), w)).to(
+                    xs[0].dtype)
+            err, share = check_mean(g.reshape(-1), plain, f"{name} mean")
+            errs.append(err)
+            shares.append(share * plain.numel())
+            lanes += plain.numel()
+            del stack, plain
+        report[name] = {"leaves": len(leaves), "params": lanes,
+                        "max_abs_err": max(errs),
+                        "bf16_one_step_share": sum(shares) / lanes}
+    step = out["cnn_mean"]["step"].tolist()
+    if step != [4, 104]:
+        raise AssertionError(f"integer leaf means {step}, want [4, 104]")
+    for name, (theta, ref_tree, codes, scales, back) in out["pushed"].items():
+        worst = 0.0
+        for t, r, q, sc, b in zip(*(tree_leaves(x) for x in (
+                theta, ref_tree, codes, scales, back))):
+            d = (t.float() - r.float()).reshape(-1)
+            pq, ps = qz._plain_quantize(d)
+            if not (torch.equal(q, pq) and torch.equal(sc, ps)):
+                raise AssertionError(f"{name}: pushed codes or scales differ "
+                                     "from the plain quantiser's")
+            plain_d = qz._plain_dequantize(q, sc, torch.float32)
+            if not torch.equal(qz.dequantize_tiles(q, sc), plain_d):
+                raise AssertionError(f"{name}: dequantised delta differs "
+                                     "from the plain version's")
+            plain_b = (r.float() + plain_d.reshape(r.shape)).to(r.dtype)
+            if b.dtype != r.dtype or not torch.equal(b, plain_b):
+                raise AssertionError(f"{name}: pulled tree differs from the "
+                                     "plain pull")
+            # half a step of the tile's scale (x 1.001 for the fp32
+            # rounding of the delta), plus half a step of b's own type
+            half = torch.repeat_interleave(sc * 0.5 * 1.001, 16384)[:d.numel()]
+            ulp = b.float().abs().reshape(-1) * torch.finfo(b.dtype).eps * 0.5
+            gap = (b.float() - t.float()).reshape(-1).abs()
+            if not bool((gap <= half + ulp).all()):
+                raise AssertionError(f"{name}: round trip beyond half a step")
+            worst = max(worst, float((gap / (half + ulp)).max()))
+        report[name].update(push_pull_worst_share_of_bound=worst,
+                            code_bytes=sum(q.numel()
+                                           for q in tree_leaves(codes)))
+    emit("trees", launches=launches, wall_seconds=out["wall_seconds"],
+         tinyllama_weights=TREE_WEIGHTS, trees=report,
+         codes_and_scales="bit-identical", dequantised="bit-identical")
+
+
+def mf_train_mse(task, data, params):
+    """MSE of ``params`` on every client's own training ratings."""
+    from repro_torch.data.loader import ClientDataset
+
+    train = ClientDataset(np.concatenate([c.x for c in data.clients]),
+                          np.concatenate([c.y for c in data.clients]))
+    return task.evaluate(params, train)["mse"]
+
+
+def mf_learning(session, gate: bool = True):
+    """Round-0 and last-snapshot MSE, held out and on the training ratings;
+    with ``gate``, the training MSE must fall."""
+    task, data = session.task, session.data
+    init = task.init_params(session.tcfg.seed)
+    last = session._eval_models[max(session._eval_models)]
+    out = {"heldout_mse_round0": task.evaluate(init, data.test)["mse"],
+           "heldout_mse_end": task.evaluate(last, data.test)["mse"],
+           "train_mse_round0": mf_train_mse(task, data, init),
+           "train_mse_end": mf_train_mse(task, data, last)}
+    if not gate:
+        return out
+    if not all(np.isfinite(v) for v in out.values()):
+        raise AssertionError(f"non-finite MSE: {out}")
+    if not out["train_mse_end"] < out["train_mse_round0"]:
+        raise AssertionError(f"MF did not fit its training ratings: {out}")
+    return out
+
+
+def mf_args(sim_seconds: float):
+    return ["--task", "mf", "--nodes", "32", "--sample-size", "10",
+            "--duration", str(sim_seconds), "--eval-every", "5",
+            "--seed", "0"]
+
+
+def mf_direct_session(engine: str, seed: int = 0, device=None, **mcfg):
+    """The session that ``launch.train.main(mf_args(...))`` builds, built
+    directly, on ``engine``; ``mcfg`` adds to its ``ModestConfig``."""
+    from repro_torch.config import ModestConfig, TrainConfig
+    from repro_torch.data import make_mf_task
+    from repro_torch.models.tasks import mf_task
+    from repro_torch.sim.runner import ModestSession
+
+    return ModestSession(
+        n_nodes=32, mcfg=ModestConfig(n_nodes=32, sample_size=10,
+                                      n_aggregators=2, success_fraction=1.0,
+                                      ping_timeout=1.0, **mcfg),
+        tcfg=TrainConfig(batch_size=20, seed=seed),
+        task=mf_task(device=device, mf_users=32, mf_items=500),
+        data=make_mf_task(32, n_items=500, seed=seed), seed=seed,
+        eval_every_rounds=5, engine=engine, device=device)
+
+
+def mf_session_phase(sim_seconds: float):
+    """The MF session through the training launcher, as a user starts it,
+    then a fused aggregate→quantize over its last cohort; counted (the
+    caller sets the counts to 0 just before). The launcher's session is
+    taken from its ``run`` to read its nodes and snapshots."""
+    from repro_torch.kernels import fused
+    from repro_torch.launch import train
+    from repro_torch.sim import runner
+
+    seen = {}
+    run = runner.ModestSession.run
+
+    def keep(self, duration):
+        seen["session"] = self
+        seen["last"] = record_aggregate_inputs(self)
+        return run(self, duration)
+
+    runner.ModestSession.run = keep
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "mf.csv")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = train.main(mf_args(sim_seconds) + ["--out", csv_path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(csv_path) as fh:
+            rows = list(csv.DictReader(fh))
+    runner.ModestSession.run = run
+    session = seen["session"]
+    models = seen["last"]["models"]
+    quantized = agg_quant_phase(session, models)
+    launches = read_counts()
+
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    if {k: v for k, v in launches.items() if v} != {
+            "fused.agg": n_agg, "fused.agg_quant": 1} or n_agg == 0:
+        raise AssertionError(f"MF launches {launches} for {n_agg} "
+                             "aggregations")
+    mse = check_session(session, result, metric="mse")
+    if len(rows) != len(result.history) or [
+            (int(r["round"]), float(r["mse"])) for r in rows] != mse:
+        raise AssertionError("the launcher's CSV differs from its history")
+    return session, result, (models, quantized), {
+        "wall_seconds": wall, "launches": launches, "aggregations": n_agg,
+        "mse": mse, "csv_rows": len(rows)}
+
+
+def mf_check(session, result, last, line, sim_seconds: float):
+    """After the counted run: the last cohort's fused aggregate→quantize
+    against the plain version, the same session on the sequential engine
+    (rounds and bytes equal, the gaps of ``mf_engine_gap`` below
+    ``MF_GAP_TOL``), and learning."""
+    models, (out, codes, scales) = last
+    agg_quant_check(session, models, out, codes, scales, phase="mf_agg_quant")
+    seq = mf_direct_session("sequential")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = seq.run(sim_seconds)
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    if rs.rounds_completed != result.rounds_completed:
+        raise AssertionError("MF engines disagree on rounds completed")
+    if rs.usage["total_bytes"] != result.usage["total_bytes"]:
+        raise AssertionError("MF engines disagree on total bytes")
+    gaps = mf_engine_gap(session, seq, result, rs)
+    if not result.history or not gaps["same_trajectory"]:
+        raise AssertionError(f"MF evaluated rounds differ: {result.history}"
+                             f" {rs.history}")
+    for key, tol in MF_GAP_TOL.items():
+        if not gaps[key] < tol:
+            raise AssertionError(f"MF engines' {key} {gaps[key]} is not "
+                                 f"below {tol}")
+    emit("mf_session", model="paper-mf", n_params=session.task.flat_spec.n,
+         n_nodes=32, sample_size=10, sim_seconds=sim_seconds,
+         rounds=result.rounds_completed, trainings=result.trainings_completed,
+         total_bytes=result.usage["total_bytes"],
+         flushes=session.engine.flushes, jobs=session.engine.jobs_run,
+         sequential_wall_seconds=seq_wall, engine_gaps=gaps,
+         **line, **mf_learning(session))
+
+
+def mf_masked_session_phase(sim_seconds: float):
+    """The MF session of the launcher with ``secure_agg="masked"``, built
+    directly (the launcher has no such option), then a fused
+    unmask→aggregate→quantize over its last sealed cohort; counted."""
+    session = mf_direct_session("batched", secure_agg="masked")
+    leaks = arm_sniffer(session)
+    calls = []
+    inner = session.engine.aggregate_masked
+
+    def aggregate_masked(models, seeds, signs, weights=None):
+        out = inner(models, seeds, signs, weights)
+        calls.append((list(models), seeds, signs, weights, out))
+        return out
+
+    session.engine.aggregate_masked = aggregate_masked
+    result, wall = run_session(session, sim_seconds)
+    mout = masked_agg_quant_phase(session, calls[-1])
+    launches = read_counts()
+
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    logs = [e for node in session.nodes.values() for e in node.secagg_log]
+    want = {"fused.mask": result.trainings_completed,
+            "fused.unmask_agg": n_agg, "fused.unmask_agg_quant": 1}
+    if {k: v for k, v in launches.items() if v} != want or not (
+            len(calls) == len(logs) == n_agg > 0):
+        raise AssertionError(f"masked MF launches {launches}, want {want}; "
+                             f"{len(calls)} masked aggregations, {len(logs)} "
+                             "unmasks")
+    if leaks:
+        raise AssertionError(f"plaintext models on the wire: {leaks[:5]}")
+    if any(margin < 0 for _, _, _, margin in logs):
+        raise AssertionError(f"unmasked below threshold: {logs}")
+    mse = check_session(session, result, metric="mse")
+    masked_means_check(session, calls, phase="mf_masked_means")
+    masked_agg_quant_check(session, calls[-1], mout,
+                           phase="mf_masked_agg_quant")
+    emit("mf_masked_session", model="paper-mf",
+         n_params=session.task.flat_spec.n, n_nodes=32, sample_size=10,
+         sim_seconds=sim_seconds, rounds=result.rounds_completed,
+         wall_seconds=wall, trainings=result.trainings_completed,
+         aggregations=n_agg, unmasks=len(logs), launches=launches,
+         flushes=session.engine.flushes, jobs=session.engine.jobs_run,
+         min_share_margin=min(m for _, _, _, m in logs),
+         secagg_aborts=sum(n.secagg_aborts for n in session.nodes.values()),
+         total_bytes=result.usage["total_bytes"], mse=mse,
+         **mf_learning(session))
+
+
+MF_SOUND_SEEDS = (0, 1, 2, 3)
+MF_FAULTS = ("bias_grads_dropped", "l2_dropped", "grads_of_another_model")
+
+
+@contextlib.contextmanager
+def planted_fault(name: str):
+    """Within ``with``: the cohort engine's stacked MF gradients carry one
+    deliberate fault (for :func:`mf_gap_readings` only). The package's code
+    is not touched; the engine's reference to the lowering is swapped for
+    the duration."""
+    from repro_torch.engine import cohort
+    from repro_torch.models import mf
+
+    orig = cohort.stacked_grads_for
+
+    def faulty(task):
+        grads = orig(task)
+
+        def g(ptree, xb, yb, mb):
+            if name == "l2_dropped":
+                l2, mf.L2 = mf.L2, 0.0
+                try:
+                    return grads(ptree, xb, yb, mb)
+                finally:
+                    mf.L2 = l2
+            out = grads(ptree, xb, yb, mb)
+            if name == "bias_grads_dropped":
+                out["b_user"] = torch.zeros_like(out["b_user"])
+                out["b_item"] = torch.zeros_like(out["b_item"])
+            else:           # model s gets the gradient of model s - 1
+                out = {k: torch.roll(v, 1, 0) for k, v in out.items()}
+            return out
+        return g
+
+    cohort.stacked_grads_for = faulty
+    try:
+        yield
+    finally:
+        cohort.stacked_grads_for = orig
+
+
+def mf_engine_gap(batched, sequential, rb, rs):
+    """What ``mf_check`` compares between the two engines' runs of one MF
+    session: trajectory equal, and the largest held-out MSE gap over the
+    evaluated rounds; with the training-ratings MSE gap at the end."""
+    mb = {h["round"]: h["mse"] for h in rb.history}
+    ms = {h["round"]: h["mse"] for h in rs.history}
+    lb = mf_learning(batched, gate=False)
+    ls = mf_learning(sequential, gate=False)
+    return {"same_trajectory": (rb.rounds_completed == rs.rounds_completed
+                                and rb.usage["total_bytes"]
+                                == rs.usage["total_bytes"]
+                                and mb.keys() == ms.keys()),
+            "heldout_gap": max((abs(mb[k] - ms[k]) for k in mb.keys() & ms),
+                               default=float("inf")),
+            "train_end_gap": abs(lb["train_mse_end"] - ls["train_mse_end"]),
+            "train_mse_moved": lb["train_mse_round0"] - lb["train_mse_end"]}
+
+
+def mf_gap_readings(device=None, sim_seconds: float = 40.0) -> int:
+    """``python3 chip_smoke.py --mf-gap-readings``: the readings that
+    ``MF_GAP_TOL`` is set from. The MF session of ``mf_check``, batched
+    against sequential: sound over ``MF_SOUND_SEEDS``, then at seed 0 with
+    each of ``MF_FAULTS`` planted in the batched engine's stacked
+    gradients. Prints one JSON line."""
+    sound, faults = [], []
+    for seed in MF_SOUND_SEEDS:
+        seq = mf_direct_session("sequential", seed=seed, device=device)
+        rs = seq.run(sim_seconds)
+        bat = mf_direct_session("batched", seed=seed, device=device)
+        rb = bat.run(sim_seconds)
+        sound.append({"seed": seed, **mf_engine_gap(bat, seq, rb, rs)})
+        if seed == 0:
+            seq0, rs0 = seq, rs
+    for name in MF_FAULTS:
+        with planted_fault(name):
+            bat = mf_direct_session("batched", seed=0, device=device)
+            rb = bat.run(sim_seconds)
+        faults.append({"fault": name, **mf_engine_gap(bat, seq0, rb, rs0)})
+    emit("mf_gap_readings", sim_seconds=sim_seconds, sound=sound,
+         faults=faults, tol=MF_GAP_TOL)
+    return 0
+
+
 def engines_phase():
     from repro_torch.models.tasks import cnn_task
 
@@ -1062,7 +1606,7 @@ def main() -> int:
                      "cudnn": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
-    sources = ["fused_agg", "flash_attention"]
+    sources = ["fused_agg", "flash_attention", "aggregate", "quantize"]
     build.build(sources)                             # fails loudly
     emit("build", seconds=time.perf_counter() - t0,
          ptxas={n: [ln for ln in build.build_log(n).splitlines()
@@ -1081,11 +1625,16 @@ def main() -> int:
     reset_counts()
     served = serve_phase(dev)
     serve_launches = read_counts()
+    reset_counts()
+    trees = trees_phase(dev)
+    trees_launches = read_counts()
     launches = {}
     for names, counted in (({"fused.agg", "fused.agg_quant"}, plain_launches),
                            ({"fused.mask", "fused.unmask_agg",
                              "fused.unmask_agg_quant"}, masked_launches),
-                           ({"flash_attention"}, serve_launches)):
+                           ({"flash_attention"}, serve_launches),
+                           ({"aggregate.agg", "quantize.quant",
+                             "quantize.dequant"}, trees_launches)):
         for name in names:
             if counted[name] <= 0:
                 raise AssertionError(f"the main path never launched {name}")
@@ -1103,7 +1652,15 @@ def main() -> int:
     del session, models, msession, calls, last, out, codes, scales, mout
     serve_check(served, rows["flash_attention"][0]["ms"])
     del served
+    trees_check(trees, trees_launches)
+    del trees
     torch.cuda.empty_cache()
+    reset_counts()
+    mf, mf_result, mf_last, mf_line = mf_session_phase(sim_seconds=40.0)
+    mf_check(mf, mf_result, mf_last, mf_line, sim_seconds=40.0)
+    del mf, mf_last
+    reset_counts()
+    mf_masked_session_phase(sim_seconds=40.0)
     breakdown_phase(sim_seconds=40.0)
     breakdown_phase(sim_seconds=40.0, secure_agg="masked")
     profile_phase(sim_seconds=20.0)
@@ -1129,4 +1686,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--mf-gap-readings"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("--mf-gap-readings needs a CUDA device")
+        sys.exit(mf_gap_readings())
     sys.exit(main())

@@ -3,7 +3,8 @@
 Every architecture has one module here exporting ``CONFIG`` (the exact
 published dims, citation in ``citation``). Select with ``get_config(name)``;
 ``reduced()`` gives the 2-layer, d_model≤256 smoke variant the CPU tests
-use. The package holds the paper CNN and the dense LM family so far.
+use. The package holds the paper CNN, the paper MF and the dense LM family
+so far.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from repro_torch.configs import (
     gemma2_27b,
     llama3_405b,
     paper_cnn,
+    paper_mf,
     starcoder2_15b,
     tinyllama_1_1b,
 )
@@ -23,7 +25,7 @@ from repro_torch.configs import (
 ARCHS = {
     m.CONFIG.name: m.CONFIG
     for m in (starcoder2_15b, llama3_405b, gemma2_27b, tinyllama_1_1b,
-              paper_cnn)
+              paper_cnn, paper_mf)
 }
 
 
@@ -35,7 +37,7 @@ def get_config(name: str) -> ModelConfig:
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
     """Smoke-test variant of the same family: 2 layers, d_model<=256."""
-    if cfg.family == "cnn":
+    if cfg.family in ("cnn", "mf"):
         return cfg
     d = min(cfg.d_model, 256)
     hd = 32

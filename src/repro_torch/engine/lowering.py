@@ -12,15 +12,24 @@ Two forms are offered for each task:
   :func:`stacked_metrics_for`, which take a parameter tree whose every leaf
   has a leading S axis.
 
-The stacked form is written for the CNN family, the only one the package
-builds: the stack axis is written out by hand. The S models become the
-``groups`` of one grouped convolution (channels laid out model-major) and
-the dense layers one batched matrix product, and since the S losses are
-independent, one backward pass of their sum yields every model's own
-gradient. The math per model is that of ``models/cnn.py`` (conv SAME →
-relu → 2×2 max pool, twice, then three dense layers); only the batching
-differs. It avoids per-op batching rules on the hot path and costs one
-autograd graph per step. Other families raise ``NotImplementedError``.
+The stacked form is written for the CNN and MF families, with the stack
+axis written out by hand; since the S losses are independent, one backward
+pass of their sum yields every model's own gradient. It avoids per-op
+batching rules on the hot path and costs one autograd graph per step.
+Other families raise ``NotImplementedError``.
+
+* CNN: the S models become the ``groups`` of one grouped convolution
+  (channels laid out model-major) and the dense layers one batched matrix
+  product. The math per model is that of ``models/cnn.py`` (conv SAME →
+  relu → 2×2 max pool, twice, then three dense layers).
+* MF: a model is two embedding tables, two bias vectors and a scalar, and
+  its prediction two gathers and a dot product. The S tables are viewed as
+  one table of S·U (S·I) rows and model s's row u is row ``s·U + u``, so
+  the stack axis is only an offset into the gathers. The math per model is
+  that of ``models/mf.py``'s ``loss_fn``, the L2 term and the row mask
+  included. Its backward scatters into the tables with atomics on the
+  card, so card runs are not bit-reproducible (the trajectory of events
+  is).
 
 Pooling ties: ``F.max_pool2d`` routes the gradient of a window to one of
 its tied maxima, where the reference's reshape-max splits it evenly. The
@@ -97,10 +106,43 @@ def eval_metrics_for(task):
     return metrics
 
 
-def _require_cnn(task) -> None:
-    if task.cfg.family != "cnn":
+def _mf_rows(params, pairs, y, mask=None):
+    """Per-model MF loss and mse: leaves with a leading S axis, pairs
+    ``(S, B, 2)``, ratings and mask ``(S, B)`` -> ``(loss (S,), mse (S,))``.
+    Row s equals ``mf.loss_fn`` of model s alone."""
+    from repro_torch.models.mf import L2
+
+    users, items = params["users"], params["items"]
+    S, U, d = users.shape
+    n_items = items.shape[1]
+    off = torch.arange(S, device=pairs.device)[:, None]
+    u = pairs[..., 0].long() + off * U                    # (S, B)
+    i = pairs[..., 1].long() + off * n_items
+    pu = users.reshape(S * U, d)[u]                       # (S, B, d)
+    qi = items.reshape(S * n_items, d)[i]
+    pred = (params["mu"][:, None] + params["b_user"].reshape(-1)[u]
+            + params["b_item"].reshape(-1)[i] + torch.sum(pu * qi, dim=-1))
+    err = torch.square(pred - y)
+    reg_u = torch.sum(torch.square(pu), -1)
+    reg_i = torch.sum(torch.square(qi), -1)
+    if mask is None:
+        mse = torch.mean(err, dim=1)
+        reg = L2 * (torch.mean(reg_u, dim=1) + torch.mean(reg_i, dim=1))
+    else:
+        m = mask.to(torch.float32)
+        denom = torch.clamp_min(torch.sum(m, dim=1), 1.0)
+        mse = torch.sum(err * m, dim=1) / denom
+        reg = L2 * (torch.sum(reg_u * m, dim=1)
+                    + torch.sum(reg_i * m, dim=1)) / denom
+    return mse + reg, mse
+
+
+def _family(task) -> str:
+    family = task.cfg.family
+    if family not in ("cnn", "mf"):
         raise NotImplementedError(
-            f"no stacked lowering for the {task.cfg.family!r} family")
+            f"no stacked lowering for the {family!r} family")
+    return family
 
 
 def stacked_grads_for(task):
@@ -108,13 +150,16 @@ def stacked_grads_for(task):
     loss over a cohort. Every leaf of ``ptree``/``gtree`` and ``xb``
     ``(S, B, ...)``, ``yb`` ``(S, B)``, ``mb`` ``(S, B)`` carry the stack
     axis."""
-    _require_cnn(task)
+    family = _family(task)
 
     def grads(ptree, xb, yb, mb):
         keys = sorted(ptree)
         leaves = {k: ptree[k].detach().requires_grad_(True) for k in keys}
-        logits = _cnn_apply_stacked(leaves, xb)
-        total = torch.sum(_rows_xent(logits, yb.long(), mb))
+        if family == "cnn":
+            logits = _cnn_apply_stacked(leaves, xb)
+            total = torch.sum(_rows_xent(logits, yb.long(), mb))
+        else:
+            total = torch.sum(_mf_rows(leaves, xb, yb, mb)[0])
         gs = torch.autograd.grad(total, [leaves[k] for k in keys])
         return dict(zip(keys, gs))
 
@@ -123,12 +168,19 @@ def stacked_grads_for(task):
 
 def stacked_metrics_for(task):
     """``f(ptree, batch) -> {metric: (M,)}``: the metrics of M stacked
-    models on one shared, unmasked batch (the evaluation sweep)."""
-    _require_cnn(task)
+    models on one shared, unmasked batch (the evaluation sweep): the
+    family's ``loss_fn`` metrics, model by model."""
+    family = _family(task)
 
     def metrics(ptree, batch):
+        x, y = batch["x"], batch["y"]
+        if family == "mf":
+            M = ptree["mu"].shape[0]
+            _, mse = _mf_rows(ptree, x.expand((M,) + tuple(x.shape)),
+                              y.expand(M, y.shape[0]))
+            return {"loss": mse, "mse": mse}
         M = ptree["b1"].shape[0]
-        x, labels = batch["x"], batch["y"].long()
+        labels = y.long()
         logits = _cnn_apply_stacked(ptree, x.expand((M,) + tuple(x.shape)))
         yb = labels.expand(M, labels.shape[0])
         acc = torch.mean((torch.argmax(logits, -1) == yb).to(torch.float32),

@@ -1,13 +1,18 @@
 """Hand-written CUDA kernels for MoDeST's perf-critical layers.
 
 The paper's compute hot spot is the aggregator: averaging ``sf·s`` incoming
-models (a bandwidth-bound streaming reduction) every round. Serving the
-dense LMs adds attention.
+models (a bandwidth-bound streaming reduction) every round. Model deltas
+can be int8-quantised before they are pushed. Serving the dense LMs adds
+attention.
 
 * :mod:`repro_torch.kernels.fused` — whole-model one-pass aggregation over
   flat ``(P, N)`` buffers + fused aggregate→quantize, the seal of secure
   aggregation and the fused unmask→aggregate(→quantize) over sealed rows
   (``csrc/fused_agg.cu``)
+* :mod:`repro_torch.kernels.aggregate` — per-leaf weighted multi-model
+  average, fp32 or bf16 (``csrc/aggregate.cu``)
+* :mod:`repro_torch.kernels.quantize` — per-tile int8 delta quantise and
+  dequantise (``csrc/quantize.cu``)
 * :mod:`repro_torch.kernels.flash_attention` — causal / full GQA
   attention by online softmax, forward (``csrc/flash_attention.cu``)
 * :mod:`repro_torch.kernels.ops`   — model-level wrappers (public API)
@@ -27,8 +32,19 @@ from repro_torch.kernels.fused import (  # noqa: F401
     unmask_aggregate_quantize_flat,
 )
 from repro_torch.kernels.ops import (  # noqa: F401
+    aggregate_flat,
     aggregate_flatmodel,
+    aggregate_pytree,
+    dequantize_flat,
     masked_aggregate_flatmodel,
+    quantize_flat,
+    quantized_delta_pull,
+    quantized_delta_push,
+)
+from repro_torch.kernels.aggregate import aggregate_tiles  # noqa: E402
+from repro_torch.kernels.quantize import (  # noqa: E402
+    dequantize_tiles,
+    quantize_tiles,
 )
 
 # bound under another name, so that ``repro_torch.kernels.flash_attention``
@@ -67,6 +83,24 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
         "replaces": "src/repro/kernels/fused.py:405",
+    },
+    "aggregate.agg": {
+        "wrapper": aggregate_tiles,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/aggregate.cu",
+        "replaces": "src/repro/kernels/aggregate.py:41",
+    },
+    "quantize.quant": {
+        "wrapper": quantize_tiles,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:45",
+    },
+    "quantize.dequant": {
+        "wrapper": dequantize_tiles,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize.cu",
+        "replaces": "src/repro/kernels/quantize.py:66",
     },
     "flash_attention": {
         "wrapper": _flash_attention,

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Sources live in ``kernels/csrc/*.cu``. Each is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface and loaded with
-``ctypes`` — seconds per file, where a build through PyTorch's extension
-headers takes minutes. Libraries are built at first use into ``build/`` at
-the root of the checkout, keyed
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing is built or looked for at import time.
+Sources live in ``kernels/csrc/*.cu``, with the headers they share in
+``kernels/csrc/*.cuh``. Each source is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface and loaded with ``ctypes``
+— seconds per file, where a build through PyTorch's extension headers
+takes minutes. Libraries are built at first use into ``build/`` at the
+root of the checkout, keyed by a hash of the source, the headers and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing is built or looked for at import time.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 

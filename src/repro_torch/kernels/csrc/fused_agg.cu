@@ -59,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kSubtile = 16384;               // quantisation granularity
@@ -70,13 +72,6 @@ constexpr int kThreads = 256;                 // mean-only kernel
 constexpr int kQuantThreadsWide = 1024;
 constexpr int kQuantThreads = 256;
 constexpr int kFewSubtiles = 264;             // fewer blocks than 2 per SM
-
-__device__ __forceinline__ float total_weight(const float* __restrict__ w,
-                                              int P) {
-  float total = 0.0f;
-  for (int p = 0; p < P; ++p) total = __fadd_rn(total, __ldg(w + p));
-  return total;
-}
 
 // The one definition of the mean of a lane: shared by every kernel here.
 __device__ __forceinline__ float finish_lane(float acc, float total,
@@ -240,25 +235,6 @@ fused_agg_kernel(const Rows rows_arg, const float* __restrict__ w,
 
 // ------------------------------------------------------- mean + int8 codes
 
-template <int THREADS>
-__device__ __forceinline__ float block_absmax(float v) {
-  __shared__ float warp_max[THREADS / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = warp_max[0];
-#pragma unroll
-  for (int i = 1; i < THREADS / 32; ++i) r = fmaxf(r, warp_max[i]);
-  return r;
-}
-
-__device__ __forceinline__ signed char quantize_lane(float mean, float scale) {
-  float q = rintf(__fdiv_rn(mean, scale));
-  q = fminf(fmaxf(q, -127.0f), 127.0f);
-  return (signed char)(int)q;
-}
-
 // One block per subtile. Lanes at or beyond N (the ragged last subtile)
 // count as exact zeros for absmax and are never read or written.
 template <class Rows, bool VEC, int THREADS>
@@ -307,7 +283,7 @@ fused_agg_quant_kernel(const Rows rows_arg, const float* __restrict__ w,
   }
 
   amax = block_absmax<THREADS>(amax);
-  const float scale = __fdiv_rn(fmaxf(amax, 1e-12f), 127.0f);
+  const float scale = tile_scale(amax);
   if (threadIdx.x == 0) scales[blockIdx.x] = scale;
 
   if (VEC) {
@@ -345,10 +321,6 @@ fused_mask_kernel(const uint32_t* __restrict__ x,
   if (lane < N)
     out[lane] = __ldg(x + lane) + mask_word(staged, staged + R, R,
                                             (uint32_t)lane);
-}
-
-inline bool aligned(const void* p, uintptr_t a) {
-  return (reinterpret_cast<uintptr_t>(p) % a) == 0;
 }
 
 // Shared memory for the staged (P, R) seeds and signs: two words a term.

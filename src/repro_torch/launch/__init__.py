@@ -1,1 +1,2 @@
-"""Launchers: the serving launcher (``serve``)."""
+"""Launchers: the training launcher (``train``) and the serving launcher
+(``serve``)."""

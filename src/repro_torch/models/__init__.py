@@ -9,8 +9,8 @@ bundle with a uniform interface:
     prefill(params, batch, cache)               -> (logits, cache)
     decode_step(params, token, cache)           -> (logits, cache)
 
-The ``cnn`` and ``dense`` families are part of this package so far; the
-others raise ``NotImplementedError``.
+The ``cnn``, ``mf`` and ``dense`` families are part of this package so far;
+the others raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,9 +32,11 @@ class Model(NamedTuple):
 def build(cfg: ModelConfig) -> Model:
     if cfg.family == "cnn":
         from repro_torch.models import cnn as m
+    elif cfg.family == "mf":
+        from repro_torch.models import mf as m
     elif cfg.family == "dense":
         from repro_torch.models import transformer as m
-    elif cfg.family in ("moe", "ssm", "hybrid", "audio", "vlm", "mf"):
+    elif cfg.family in ("moe", "ssm", "hybrid", "audio", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r}: later slice")
     else:
         raise ValueError(f"unknown family {cfg.family!r}")

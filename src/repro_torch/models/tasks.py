@@ -1,5 +1,5 @@
-"""Concrete learning tasks wiring the model zoo into the protocol core's
-:class:`~repro_torch.core.tasks.LearningTask` interface.
+"""Concrete learning tasks (CNN / MF) wiring the model zoo into the
+protocol core's :class:`~repro_torch.core.tasks.LearningTask` interface.
 
 One task is shared by all simulated nodes (they share architecture and
 hyperparameters per the paper's system model).
@@ -73,6 +73,9 @@ class TorchTask(LearningTask):
     # -- batch adaptation per family ------------------------------------------
 
     def _to_batch(self, x, y, mask=None) -> dict:
+        """Host arrays -> device tensors in their own dtypes: the CNN's
+        images float and labels integer, MF's pairs integer and ratings
+        float."""
         dev = self.device
         b = {"x": torch.as_tensor(x, device=dev),
              "y": torch.as_tensor(y, device=dev)}
@@ -199,3 +202,11 @@ def cnn_task(tcfg: Optional[TrainConfig] = None, device=None,
     cfg = get_config("paper-cnn").with_(**cfg_overrides)
     return TorchTask(cfg, tcfg or TrainConfig(optimizer="momentum", lr=0.002,
                                               momentum=0.9), device=device)
+
+
+def mf_task(tcfg: Optional[TrainConfig] = None, device=None,
+            **cfg_overrides) -> TorchTask:
+    from repro_torch.configs import get_config
+    cfg = get_config("paper-mf").with_(**cfg_overrides)
+    return TorchTask(cfg, tcfg or TrainConfig(optimizer="sgd", lr=0.2),
+                     device=device)

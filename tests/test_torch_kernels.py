@@ -240,10 +240,14 @@ def test_cpu_calls_launch_no_kernel_and_registry_is_complete():
     fused.unmask_aggregate_quantize_flat(tx, tw, seeds=terms, signs=terms)
     q = torch.ones((1, 2, 8, 32))
     KERNELS["flash_attention"]["wrapper"](q, q, q)
+    KERNELS["aggregate.agg"]["wrapper"](tx, tw)
+    codes, scales = KERNELS["quantize.quant"]["wrapper"](tx[0])
+    KERNELS["quantize.dequant"]["wrapper"](codes, scales)
     assert before == {n: k["wrapper"].launches for n, k in KERNELS.items()}
     assert set(KERNELS) == {"fused.agg", "fused.agg_quant", "fused.mask",
                             "fused.unmask_agg", "fused.unmask_agg_quant",
-                            "flash_attention"}
+                            "aggregate.agg", "quantize.quant",
+                            "quantize.dequant", "flash_attention"}
     repo = os.path.join(os.path.dirname(__file__), "..")
     for name, meta in KERNELS.items():
         assert meta["route"] == "cuda"
