@@ -59,7 +59,11 @@ to bf16, so where their fp32 sums straddle a rounding point they differ by
 one bf16 step, at most 2^-7 = 0.0078 of the value: ``rtol`` passes that
 and no more, and ``atol`` is far above the fp32 sums' own difference and
 far below the outputs' typical size (about 0.02 at the serving shape), so
-a kernel that keeps its sums in bf16 (several per cent off) fails.
+a kernel that keeps its sums in bf16 (several per cent off) fails, and so
+does one that rounds P to one bf16 before P·V (the bf16 kernel splits P
+in two bf16 terms). SDPA's error under the same check is reported beside
+its time and not gated; the ptxas lines of the flash kernels (registers,
+spills, target) are printed, and each must be built for sm_90a.
 
 The per-leaf kernels: fp32 means against ``ref.aggregate_ref``
 ``rtol = atol = 1e-6``; bf16 means equal or one bf16 step apart (both
@@ -521,8 +525,9 @@ def flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal):
     written once over the HBM rate, against the 4·hd operations a (query,
     key) pair that is not masked needs (two multiply-adds a dim, for q·k and
     p·v) over the peak of the inputs' type: bf16 on the tensor cores, fp32
-    outside them. Also the fp32-core time of the same operations, the peak
-    of the pipe the kernel uses."""
+    outside them. Also the least time of the kernel's own design on the
+    pipe it uses: bf16 runs p·v twice (P in two bf16 terms), 6·hd tensor
+    operations a pair; fp32 runs the 4·hd on the CUDA cores."""
     esize = torch.finfo(dtype).bits // 8
     nbytes = esize * B * S * hd * (2 * Hq + 2 * Hkv)
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -531,13 +536,20 @@ def flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return bound + (max(t_bytes, flops / FP32_FLOPS_PER_S * 1e3),)
+    design = 1.5 * t_ops if dtype == torch.bfloat16 else t_ops
+    return bound + (max(t_bytes, design),)
 
 
 def flash_qkv(B, Hq, Hkv, S, hd, dtype, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [(torch.randn(shape, generator=g, device=dev) * 0.5).to(dtype)
             for shape in ((B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))]
+
+
+def err_share(got, plain, tol):
+    """Largest error over its allowance ``atol + rtol |plain|``."""
+    a, b = got.to(torch.float32), plain.to(torch.float32)
+    return float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max())
 
 
 def flash_check(q, k, v, causal, name):
@@ -558,7 +570,7 @@ def flash_check(q, k, v, causal, name):
     a, b = got.to(torch.float32), plain.to(torch.float32)
     tol = FLASH_TOL[q.dtype]
     err = float((a - b).abs().max())
-    share = float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max())
+    share = err_share(a, b, tol)
     rel = float((a - b).norm() / b.norm())
     if not torch.allclose(a, b, **tol):
         raise AssertionError(f"{name}: off its plain version by {err} "
@@ -566,46 +578,91 @@ def flash_check(q, k, v, causal, name):
     return err, share, rel
 
 
+def flash_ptxas(log: str):
+    """Target, registers, spills and static shared memory of each kernel
+    in the ``-Xptxas -v`` log of ``flash_attention.cu`` (the bf16 kernel's
+    shared memory is dynamic: the ring and Q, sized in its launcher)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)' for '(\w+)'", ln)
+        if m:
+            name = re.search(r"(flash_(?:tc|fwd)_kernel)I(\w*?)EEv",
+                             m.group(1))
+            label = m.group(1) if not name else "{}<{}>".format(
+                name.group(1), ",".join(
+                    (["float"] if name.group(2).startswith("f") else [])
+                    + re.findall(r"Li(\d+)", name.group(2))))
+            cur = {"kernel": label, "target": m.group(2)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                sm = re.search(r"(\d+) bytes smem", ln)
+                cur["registers"] = int(m.group(1))
+                cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def flash_rows(rows, dev):
     """B9 against its plain version at the serving shape and at S = 640
     (where the reference's tiling raises, ROADMAP C3), causal and not, fp32
-    and bf16, timed beside its plain version and PyTorch's
-    ``scaled_dot_product_attention`` (a yardstick; the package never calls
-    it). The serving shape in bf16, causal, is the main path's and comes
-    first. Then every head dim and a ragged length, checked only."""
+    and bf16, and at starcoder2-15b's heads (hd 128, bf16, causal), timed
+    beside its plain version and PyTorch's ``scaled_dot_product_attention``
+    (a yardstick; the package never calls it), whose error under the same
+    check is reported, not gated. bf16 rows also time each block shape of
+    the kernel (one or two query heads of a KV head a block, one a
+    warpgroup). The serving shape in bf16, causal, is the main path's and
+    comes first. Then every head dim and a ragged length, checked only,
+    each block shape equal bit for bit to the wrapper's choice."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import flash_attention_ref
 
     out = rows.setdefault("flash_attention", [])
-    B, Hq, Hkv, hd = SERVE_B, 32, 4, 64
-    cases = [(S, dtype, causal) for S in (SERVE_S, 640)
+    cases = [(SERVE_B, 32, 4, S, 64, dtype, causal) for S in (SERVE_S, 640)
              for dtype in (torch.bfloat16, torch.float32)
              for causal in (True, False)]
-    for i, (S, dtype, causal) in enumerate(cases):
-        name = f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+    cases.append((SERVE_B, 48, 4, SERVE_S, 128, torch.bfloat16, True))
+    for i, (B, Hq, Hkv, S, hd, dtype, causal) in enumerate(cases):
+        name = (f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+                + ("" if hd == 64 else f"_Hq{Hq}_hd{hd}"))
         q, k, v = flash_qkv(B, Hq, Hkv, S, hd, dtype, 300 + i, dev)
         err, share, rel = flash_check(q, k, v, causal, name)
-        b, by, fp32_core = flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal)
+        b, by, design = flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
         try:
             library = time_ms(sdpa, 20)
         except RuntimeError as e:        # a yardstick only: note and go on
-            library, library_error = None, str(e)[:200]
+            library, library_error, library_share = None, str(e)[:200], None
         else:
             library_error = None
-        out.append({
+            library_share = err_share(sdpa(), flash_attention_ref(
+                q, k, v, causal), FLASH_TOL[dtype])
+        row = {
             "shape": name, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "hd": hd,
             "dtype": str(dtype)[6:], "causal": causal, "max_abs_err": err,
             "err_share_of_tol": share, "rel_l2_err": rel,
             "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                           20),
             "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal), 5),
-            "bound_ms": b, "bound_by": by, "bound_fp32_core_ms": fp32_core,
+            "bound_ms": b, "bound_by": by, "design_bound_ms": design,
             "library_ms": library, "library": "scaled_dot_product_attention",
             "library_error": library_error,
+            "library_err_share_of_tol": library_share,
             "eager_ms": eager_ms(
-                lambda: fa.flash_attention(q, k, v, causal=causal), 20)})
+                lambda: fa.flash_attention(q, k, v, causal=causal), 20)}
+        if dtype == torch.bfloat16:      # each block shape the kernel has
+            o = torch.empty_like(q)
+            row["warpgroups"] = fa.warpgroups_for(hd, Hq // Hkv)
+            row["ms_by_warpgroups"] = {str(n): time_ms(
+                lambda: fa._launch(q, k, v, o, causal, warpgroups=n), 20)
+                for n in (1, 2) if (Hq // Hkv) % n == 0}
+            del o
+        out.append(row)
         del q, k, v
         torch.cuda.empty_cache()
     # every template, GQA with B > 1, ragged tails, a length of one
@@ -615,8 +672,18 @@ def flash_rows(rows, dev):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 q, k, v = flash_qkv(B_, Hq_, Hkv_, S, hd_, dtype, 400 + j, dev)
-                flash_check(q, k, v, causal,
-                            f"B{B_} Hq{Hq_} Hkv{Hkv_} S{S} hd{hd_} {dtype}")
+                name = f"B{B_} Hq{Hq_} Hkv{Hkv_} S{S} hd{hd_} {dtype}"
+                flash_check(q, k, v, causal, name)
+                if dtype == torch.bfloat16:     # each block shape
+                    want = fa.flash_attention(q, k, v, causal=causal)
+                    for n in (1, 2):
+                        if (Hq_ // Hkv_) % n:
+                            continue
+                        o = torch.empty_like(q)
+                        fa._launch(q, k, v, o, causal, warpgroups=n)
+                        if not torch.equal(o, want):
+                            raise AssertionError(
+                                f"{name}: {n} heads a block differ")
     # the model's layout: (B,S,H,hd) read and written through strides
     q, k, v = flash_qkv(2, 8, 2, 300, 64, torch.bfloat16, 500, dev)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1609,9 +1676,17 @@ def main() -> int:
     sources = ["fused_agg", "flash_attention", "aggregate", "quantize"]
     build.build(sources)                             # fails loudly
     emit("build", seconds=time.perf_counter() - t0,
+         seconds_by_source={n: build.build_seconds(n) for n in sources},
          ptxas={n: [ln for ln in build.build_log(n).splitlines()
                     if "registers" in ln or "Compiling" in ln]
                 for n in sources})
+    flash_kernels = flash_ptxas(build.build_log("flash_attention"))
+    emit("flash_ptxas", kernels=flash_kernels)
+    if not any(k["kernel"].startswith("flash_tc_kernel") for k in
+               flash_kernels) or {k["target"] for k in flash_kernels} != {
+                   "sm_90a"}:
+        raise AssertionError(f"flash_attention.cu's kernels not all built "
+                             f"for sm_90a: {flash_kernels}")
 
     rows = kernel_phase(dev)
     # each main path with the counts set to 0 just before it, read after

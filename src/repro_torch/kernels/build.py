@@ -15,10 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -54,30 +57,38 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(cmd):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build(names: Iterable[str]) -> List[Path]:
     """Compile every named source that has no up-to-date library: one
     ``nvcc`` per source, all started together. A failed build raises with
     the compiler's output. The compiler's log (register and shared-memory
-    use per kernel) is kept beside the library as ``<lib>.log``."""
+    use per kernel) is kept beside the library as ``<lib>.log``, ending in
+    the build's wall seconds."""
     names = list(names)
     outs = [library_path(n) for n in names]
-    procs = []
+    jobs = []
     for name, out in zip(names, outs):
         if out.exists():
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs.append((out, tmp, [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                str(CSRC / f"{name}.cu")]))
+    with ThreadPoolExecutor(max(1, len(jobs))) as pool:
+        results = list(pool.map(_nvcc, [cmd for _, _, cmd in jobs]))
     failed = []
-    for name, out, tmp, cmd, proc in procs:
-        log, _ = proc.communicate()
+    for (out, tmp, cmd), (proc, seconds) in zip(jobs, results):
         if proc.returncode != 0 or not tmp.exists():
-            failed.append(f"{' '.join(cmd)}\n{log}")
+            failed.append(f"{' '.join(cmd)}\n{proc.stdout}")
             continue
-        out.with_suffix(".log").write_text(log)
+        out.with_suffix(".log").write_text(
+            f"{proc.stdout}nvcc wall seconds: {seconds!r}\n")
         os.replace(tmp, out)                 # atomic: safe across processes
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -98,3 +109,9 @@ def build_log(name: str) -> str:
     library was not built yet)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def build_seconds(name: str) -> Optional[float]:
+    """Wall seconds of the last build of ``name`` (None if not built)."""
+    m = re.search(r"nvcc wall seconds: (\S+)", build_log(name))
+    return float(m.group(1)) if m else None

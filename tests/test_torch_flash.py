@@ -11,6 +11,7 @@ by at most one bf16 step (2^-7 of the value) where their fp32 sums straddle a
 rounding point, while the outputs are about 0.02 in size.
 """
 
+import math
 import os
 
 import jax.numpy as jnp
@@ -74,29 +75,40 @@ def test_flash_matches_reference_kernel_and_oracle(B, Hq, Hkv, S, hd, dtype,
     assert torch.equal(got, ref.flash_attention_ref(q, k, v, causal=causal))
 
 
-def _online_softmax(q, k, v, causal, acc_dtype, block=16):
+def _online_softmax(q, k, v, causal, acc_dtype, block=16, p_terms=0):
     """Attention by online softmax over blocks of keys, its running sum kept
     in ``acc_dtype`` between blocks and cast to bf16 at the end: in fp32 the
-    CUDA kernel's arithmetic, in bf16 a kernel that has lost precision."""
+    fp32 kernel's arithmetic, in bf16 a kernel that has lost precision.
+    ``p_terms`` 1 or 2 is the bf16 kernel's: scores pre-scaled into the log2
+    domain, ``l`` summed from the fp32 p, and ``P . V`` of p rounded to one
+    bf16 (1) or split into ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` (2),
+    bf16 products summed in fp32 as the tensor cores do."""
     g = q.shape[1] // k.shape[1]
     S, hd = q.shape[2], q.shape[3]
     qf = q.float()
     kf, vf = (t.float().repeat_interleave(g, 1) for t in (k, v))
+    scale = hd ** -0.5 * (math.log2(math.e) if p_terms else 1.0)
+    exp = torch.exp2 if p_terms else torch.exp
     m = torch.full(q.shape[:3], -1e30)
     l = torch.zeros(q.shape[:3])
     acc = torch.zeros(q.shape, dtype=acc_dtype)
     for j in range(0, S, block):
-        s = (qf @ kf[:, :, j:j + block].transpose(-1, -2)) * hd ** -0.5
+        s = (qf @ kf[:, :, j:j + block].transpose(-1, -2)) * scale
         if causal:
             visible = (torch.arange(j, min(S, j + block))[None]
                        <= torch.arange(S)[:, None])
             s = torch.where(visible, s, torch.tensor(-1e30))
         m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
+        p = exp(s - m_new[..., None])
+        alpha = exp(m - m_new)
         l = l * alpha + p.sum(-1)
-        acc = (acc.float() * alpha[..., None]
-               + p @ vf[:, :, j:j + block]).to(acc_dtype)
+        if p_terms:
+            hi = p.bfloat16().float()
+            terms = [hi, (p - hi).bfloat16().float()][:p_terms]
+            pv = sum(t @ vf[:, :, j:j + block] for t in terms)
+        else:
+            pv = p @ vf[:, :, j:j + block]
+        acc = (acc.float() * alpha[..., None] + pv).to(acc_dtype)
         m = m_new
     return (acc.float() / torch.clamp_min(l, 1e-30)[..., None]).bfloat16()
 
@@ -115,6 +127,24 @@ def test_bf16_tolerance_rejects_sums_kept_in_bf16(causal):
         np.testing.assert_allclose(
             _f32(_online_softmax(q, k, v, causal, torch.bfloat16)), want,
             **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_tolerance_needs_p_in_two_terms(causal, hd):
+    """The bf16 kernel's tile loop (64 keys a tile, P split in two bf16
+    terms) passes the bf16 tolerance; the same loop with P rounded to one
+    bf16, as a plain tensor-core flash kernel does, fails it."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(1, 8, 2, 256, hd, seed=7))
+    want = _f32(ref.flash_attention_ref(q, k, v, causal=causal))
+    np.testing.assert_allclose(
+        _f32(_online_softmax(q, k, v, causal, torch.float32, block=64,
+                             p_terms=2)), want, **TOL["bfloat16"])
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(
+            _f32(_online_softmax(q, k, v, causal, torch.float32, block=64,
+                                 p_terms=1)), want, **TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -192,17 +222,60 @@ def test_registered_with_its_source_and_counts_no_cpu_launch():
 
 
 def test_cuda_source_keeps_its_contract():
-    """What the CPU can check of the CUDA source: IEEE division, the
+    """What the CPU can check of the CUDA source: bf16 on the tensor cores
+    through wgmma beside the fp32 entry point, IEEE division, the
     reference's mask value, round-to-nearest bf16 stores, accurate exp, the
     launch error returned, the causal loop stopping at the diagonal."""
     from repro_torch.kernels import build
 
     src = open(os.path.join(build.CSRC, "flash_attention.cu")).read()
-    for needle in ("__fdiv_rn", "-1e30f", "__float2bfloat16_rn", "expf(",
+    for needle in ("wgmma.mma_async", "cp.async",
+                   'extern "C" int flash_attention_bf16_launch',
                    'extern "C" int flash_attention_launch',
+                   "__fdiv_rn", "-1e30f", "__float2bfloat16_rn", "exp2f(",
                    "cudaGetLastError", "min(S, (qb + 1) * BQ)",
-                   "h / group"):
+                   "min(S, q0 + BQ)", "h / group"):
         assert needle in src, needle
     assert "__expf" not in src and "-use_fast_math" not in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path("flash_attention").name.startswith(
         "libflash_attention_")
+
+
+def _c_params(src, name):
+    """Kinds of the parameters of ``extern "C" int name(...)`` in the
+    source: pointer, long long* (the strides), int or float."""
+    head = src[src.index(f'extern "C" int {name}('):]
+    kinds = []
+    for param in head[head.index("(") + 1:head.index(")")].split(","):
+        flat = param.replace(" ", "")
+        kinds.append("pointer" if "void*" in flat else
+                     "long long*" if "longlong*" in flat else
+                     param.split()[0])
+    return kinds
+
+
+def test_ctypes_binding_matches_the_c_entry_points(monkeypatch):
+    """The wrapper's ctypes argument types follow each entry point's C
+    parameters one for one (a pointer or an int in the wrong place is cut
+    or misread silently)."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    names = ("flash_attention_launch", "flash_attention_bf16_launch")
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                    for n in names})
+    monkeypatch.setattr(build, "load", lambda name: fake)
+    monkeypatch.setattr(fa, "_LIB", None)
+    fa._lib()
+    src = open(os.path.join(build.CSRC, "flash_attention.cu")).read()
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+             ctypes.c_float: "float",
+             ctypes.POINTER(ctypes.c_longlong): "long long*"}
+    for name in names:
+        fn = getattr(fake, name)
+        assert [kinds[t] for t in fn.argtypes] == _c_params(src, name), name
+        assert fn.restype is ctypes.c_int
