@@ -40,6 +40,17 @@ two main paths and checks that each really went through its kernels:
 Each path is driven with every launch count set to 0 just before it and
 read just after.
 
+Before the paths, the kernels phase times every kernel beside its plain
+version; B1-B5 at the CNN session's stack (P = 10, N = 136,672), with an
+integer leaf, at a streaming shape (P = 16, N = 2^24), ragged, and at the MF
+session's stack (P = 10, N = 11,173), next to the launch floor (a
+one-element ``fill_``). The masked kernels' rows carry ``pipe_bound_ms``,
+their least time on the integer pipes: the PRG's own instructions a mask
+word, read from the SASS of the library this run built (``fused_sass``);
+``masked_edges`` holds the masked kernels bit for bit at edge shapes, and
+``fused_ptxas`` prints the registers and spills of every kernel of
+``fused_agg.cu``, each of which must be built for sm_90a.
+
 It needs a CUDA device and fails without one (non-zero exit, nothing is
 caught). Each phase prints one JSON line. The last three lines are: the
 card's name and power limit, one JSON object ``{"kernels": [...]}`` with
@@ -96,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import json
 import os
 import re
@@ -122,6 +134,9 @@ INT32_OPS_PER_S = 33.5e12
 # xor, two mixes of 8, one add; the seed's product is per row, hoisted),
 # then the sign's product and the running sum
 TERM_OPS = 18 + 2
+# Hopper's integer ALU pipe and its FMA pipe each issue 64 lanes an SM a
+# clock (the masked kernels' bound on them: ``pipe_bound_ms``)
+INT_PIPE_LANES = 64
 TOL = 1e-6
 FLASH_TOL = {torch.float32: {"rtol": 3e-5, "atol": 3e-5},
              torch.bfloat16: {"rtol": 1e-2, "atol": 1e-4}}
@@ -213,6 +228,26 @@ def bound_ms(kind: str, P: int, N: int, R: int, int_lanes: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (``nvidia-smi clocks.max.sm``)."""
+    return 1e6 * float(run_cmd(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"])
+                       .splitlines()[0])
+
+
+def pipe_bound_ms(kind: str, P: int, N: int, R: int, word_pipes) -> float:
+    """Least time of a masked kernel on the integer pipes: the busier of
+    the ALU and FMA pipes' instructions a mask word, as the PRG itself
+    issues them in this build (``word_pipes``, from ``prg_word_pipes``),
+    times the words (R a lane, a row each), over 64 lanes an SM a clock on
+    every SM at the largest SM clock."""
+    words = R * N if kind == "fused.mask" else P * R * N
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (max(word_pipes[kind].values()) * words
+            / (sms * INT_PIPE_LANES * sm_clock_hz()) * 1e3)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: every kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -246,7 +281,7 @@ def check_quant(mean, codes, scales, fused):
         raise AssertionError(f"{bad} codes differ from the plain quantiser's")
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, word_pipes):
     from repro_torch.kernels import fused
 
     # half-to-even on integer lanes: [7, 8] -> 7.5 -> 8, [100, 101] -> 100
@@ -261,25 +296,57 @@ def kernel_phase(dev):
     if got != [8.0, 100.0] or got_q != [8.0, 100.0]:
         raise AssertionError(f"half-to-even rounding: {got} {got_q}")
 
-    shapes = [
-        # name, P, N, integer lanes, timing iterations
-        ("session", 10, 136672, 0, 200),
-        ("session_int_leaf", 10, 136672 + 4, 4, 200),
-        ("stream", 16, 1 << 24, 0, 10),
-        ("stream_ragged", 16, (1 << 24) - 1003, 1000, 10),
-    ]
+    rows = fused_rows(dev, fused, word_pipes)
+    masked_edges(dev, fused)
+    flash_rows(rows, dev)
+    tile_rows(rows, dev)
+    emit("kernels", tolerance={"mean_rtol_atol": TOL, "codes": "bit-identical",
+                               "flash": {str(t)[6:]: v
+                                         for t, v in FLASH_TOL.items()},
+                               "scales": "bit-identical",
+                               "agg_vs_agg_quant_mean": "bit-identical",
+                               "mask_vs_plain": "bit-identical",
+                               "unmask_vs_plain_kernels_on_unsealed_rows":
+                                   "bit-identical",
+                               "per_leaf_mean_bf16": "at most one bf16 step",
+                               "quantize_and_dequantize": "bit-identical"},
+         launch_floor_ms=launch_floor_ms(dev), kernels=rows)
+    return rows
+
+
+# B1-B5's timed shapes; the first is the CNN session's, the main path's
+FUSED_SHAPES = [
+    # name, P, N, integer lanes, timing iterations
+    ("session", 10, 136672, 0, 200),
+    ("session_int_leaf", 10, 136672 + 4, 4, 200),
+    ("stream", 16, 1 << 24, 0, 10),
+    ("stream_ragged", 16, (1 << 24) - 1003, 1000, 10),
+    ("mf_session", 10, 11173, 0, 200),          # the MF session's stack
+]
+
+
+def launch_floor_ms(dev) -> float:
+    """Graph-replay time of a one-element ``fill_``: what any launch costs
+    on this card, a yardstick for the kernels at the sessions' shapes."""
+    t = torch.zeros((1,), device=dev)
+    return time_ms(lambda: t.fill_(1.0), 200)
+
+
+def fused_rows(dev, fused, word_pipes):
+    """B1-B5 at ``FUSED_SHAPES``: each checked against its plain version
+    and timed beside it."""
     rows = {"fused.agg": [], "fused.agg_quant": []}
-    for i, (name, P, N, n_int, iters) in enumerate(shapes):
+    for i, (name, P, N, n_int, iters) in enumerate(FUSED_SHAPES):
         x, w, mask = make_inputs(P, N, n_int, seed=100 + i, dev=dev)
         mean = fused.aggregate_flat_onepass(x, w, mask)
         mean_q, codes, scales = fused.aggregate_quantize_flat(x, w, mask)
         torch.cuda.synchronize()
-        plain = fused._plain_onepass(x, w, mask)
+        plain_mean = fused._plain_onepass(x, w, mask)
         for got_mean in (mean, mean_q):
             if got_mean.shape != (N,) or not torch.isfinite(got_mean).all():
                 raise AssertionError(f"{name}: bad mean")
-        err = float((mean - plain).abs().max())
-        if not torch.allclose(mean, plain, rtol=TOL, atol=TOL):
+        err = float((mean - plain_mean).abs().max())
+        if not torch.allclose(mean, plain_mean, rtol=TOL, atol=TOL):
             raise AssertionError(f"{name}: mean off by {err}")
         if not torch.equal(mean, mean_q):
             raise AssertionError(f"{name}: the two kernels' means differ")
@@ -307,22 +374,9 @@ def kernel_phase(dev):
                 "eager_ms": eager_ms(kernel, iters),
                 "eager_plain_ms": eager_ms(plain_fn, iters)})
         masked_rows(rows, name, x, w, mask, n_int, iters, seed=200 + i,
-                    fused=fused)
-        del x, w, mask, mean, mean_q, codes, scales, plain
+                    fused=fused, word_pipes=word_pipes)
+        del x, w, mask, mean, mean_q, codes, scales, plain_mean
         torch.cuda.empty_cache()
-    flash_rows(rows, dev)
-    tile_rows(rows, dev)
-    emit("kernels", tolerance={"mean_rtol_atol": TOL, "codes": "bit-identical",
-                               "flash": {str(t)[6:]: v
-                                         for t, v in FLASH_TOL.items()},
-                               "scales": "bit-identical",
-                               "agg_vs_agg_quant_mean": "bit-identical",
-                               "mask_vs_plain": "bit-identical",
-                               "unmask_vs_plain_kernels_on_unsealed_rows":
-                                   "bit-identical",
-                               "per_leaf_mean_bf16": "at most one bf16 step",
-                               "quantize_and_dequantize": "bit-identical"},
-         kernels=rows)
     return rows
 
 
@@ -342,7 +396,8 @@ def mask_terms(P: int, seed: int, dev):
     return seeds, signs
 
 
-def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused):
+def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused,
+                word_pipes):
     """The seal and the two masked kernels at one shape, R = P terms a row:
     the seal against its plain version bit for bit, row by row; the masked
     kernels against the plain kernels on the unsealed rows bit for bit, and
@@ -394,6 +449,7 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused):
         b, by = bound_ms(kname, P, N, P, mask is not None)
         rows.setdefault(kname, []).append({
             "shape": name, "P": P, "R": P, "N": N, "int_lanes": n_int,
+            "pipe_bound_ms": pipe_bound_ms(kname, P, N, P, word_pipes),
             "max_abs_err": 0.0 if kname == "fused.mask" else err,
             "ms": time_ms(kernel, iters),
             "plain_ms": time_ms(plain_fn, pi, warmup=1,
@@ -402,6 +458,64 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused):
             "eager_ms": eager_ms(kernel, iters),
             "eager_plain_ms": eager_ms(plain_fn, pi, warmup=1)})
         torch.cuda.empty_cache()
+
+
+# The masked kernels' edges, checked, not timed: rows across the mean's
+# unroll (P), terms across the four-term unroll (R), lanes across blocks
+# and groups of 32, and both of B4's kernels (N); rows across the row
+# chunks of B4's kernel for few lanes (``EDGE_MANY_ROWS``, at N where that
+# kernel runs); staged terms at and past 48 KB of shared memory, with the
+# static shared memory of B4's rows kernel (N 11,173) and of B5's wide
+# blocks (N 136,672) on top; a sealed NaN payload and a subnormal lane.
+EDGE_P = (1, 3, 7, 17)
+EDGE_R = (1, 3, 17)
+EDGE_N = ((1, 0), (5, 0), (11173, 0), (136676, 4))      # (N, integer lanes)
+EDGE_MANY_ROWS = ((65, 3, 5), (65, 3, 11173), (130, 3, 5),
+                  (130, 3, 11173))                      # (P, R, N)
+EDGE_MANY_TERMS = ((1, 6144, 777), (3, 2048, 3001), (3, 1024, 11173),
+                   (3, 1024, 136672))                   # (P, R, N)
+
+
+def masked_edges(dev, fused):
+    """Each edge shape in ``masked_rows``' manner, bit for bit: every
+    sealed row against ``_plain_mask``, the masked means, codes and scales
+    against ``fused.agg`` / ``fused.agg_quant`` on the unsealed rows."""
+    cases = [(P, R, N, n_int) for P in EDGE_P for R in EDGE_R
+             for N, n_int in EDGE_N]
+    cases += [(P, R, N, 0) for P, R, N in EDGE_MANY_ROWS + EDGE_MANY_TERMS]
+    for i, (P, R, N, n_int) in enumerate(cases):
+        x, w, mask = make_inputs(P, N, n_int, seed=700 + i, dev=dev)
+        if i == 0 or (P, R, N) == (7, 3, 11173):
+            x.view(torch.int32)[:, 0] = 0x7FC00001          # NaN payload
+            if N > 1:
+                x.view(torch.int32)[:, -1] = 0x00000001     # subnormal
+        g = torch.Generator(device=dev).manual_seed(800 + i)
+        seeds = torch.randint(0, 1 << 32, (P, R), generator=g, device=dev,
+                              dtype=torch.int64)
+        signs = torch.where(torch.rand((P, R), generator=g, device=dev)
+                            < 0.5, -1, 1).to(torch.int64)
+        name = f"edge P={P} R={R} N={N}"
+        y = torch.stack([fused.apply_mask_flat(x[p], seeds[p], signs[p])
+                         for p in range(P)])
+        for p in range(P):
+            if not torch.equal(bits(y[p]), bits(fused._plain_mask(
+                    x[p], seeds[p], signs[p]))):
+                raise AssertionError(f"{name}: fused.mask differs from its "
+                                     f"plain version on row {p}")
+        kw = dict(seeds=seeds, signs=signs)
+        got = [fused.unmask_aggregate_flat(y, w, mask, **kw),
+               *fused.unmask_aggregate_quantize_flat(y, w, mask, **kw)]
+        want = [fused.aggregate_flat_onepass(x, w, mask),
+                *fused.aggregate_quantize_flat(x, w, mask)]
+        for what, a, b in zip(("mean", "agg_quant mean", "codes", "scales"),
+                              got, want):
+            if not torch.equal(a.view(torch.int8), b.view(torch.int8)):
+                raise AssertionError(f"{name}: masked {what} differs from "
+                                     "the plain kernel's on the unsealed rows")
+    emit("masked_edges", cases=len(cases), P=EDGE_P, R=EDGE_R,
+         N=[n for n, _ in EDGE_N], many_rows=EDGE_MANY_ROWS,
+         many_terms=EDGE_MANY_TERMS,
+         vs_plain="bit-identical")
 
 
 def tile_bound_ms(kind: str, P: int, N: int, in_size: int, out_size: int):
@@ -578,21 +692,41 @@ def flash_check(q, k, v, causal, name):
     return err, share, rel
 
 
-def flash_ptxas(log: str):
+def flash_label(mangled: str) -> str:
+    name = re.search(r"(flash_(?:tc|fwd)_kernel)I(\w*?)EEv", mangled)
+    return mangled if not name else "{}<{}>".format(
+        name.group(1), ",".join(
+            (["float"] if name.group(2).startswith("f") else [])
+            + re.findall(r"Li(\d+)", name.group(2))))
+
+
+def fused_label(mangled: str) -> str:
+    """``fused_agg_quant_kernel<SealedRows<0>,1,1024>`` from its mangled
+    name (template arguments: row reader, bools, ints)."""
+    name = re.search(r"\d(fused_[a-z_]*kernel)", mangled)
+    if not name:
+        return mangled
+    targs = re.search(r"kernelI(.*?)EvT_", mangled)
+    if not targs:
+        return name.group(1)
+    t = re.sub(r"NS_\d+(PlainRows|SealedRows)(?:ILb(\d)EE)?",
+               lambda m: m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                       else "") + ",", targs.group(1))
+    t = re.sub(r"Lb(\d)E|Li(\d+)E",
+               lambda m: (m.group(1) or m.group(2)) + ",", t)
+    return "{}<{}>".format(name.group(1), t.replace("E", "").rstrip(","))
+
+
+def ptxas_kernels(log: str, label=flash_label):
     """Target, registers, spills and static shared memory of each kernel
-    in the ``-Xptxas -v`` log of ``flash_attention.cu`` (the bf16 kernel's
-    shared memory is dynamic: the ring and Q, sized in its launcher)."""
+    in a ``-Xptxas -v`` log (shared memory sized in a launcher is dynamic
+    and not in it: the bf16 flash kernel's ring and Q, the staged mask
+    terms)."""
     out, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)' for '(\w+)'", ln)
         if m:
-            name = re.search(r"(flash_(?:tc|fwd)_kernel)I(\w*?)EEv",
-                             m.group(1))
-            label = m.group(1) if not name else "{}<{}>".format(
-                name.group(1), ",".join(
-                    (["float"] if name.group(2).startswith("f") else [])
-                    + re.findall(r"Li(\d+)", name.group(2))))
-            cur = {"kernel": label, "target": m.group(2)}
+            cur = {"kernel": label(m.group(1)), "target": m.group(2)}
             out.append(cur)
         elif cur is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1625,6 +1759,151 @@ def mf_gap_readings(device=None, sim_seconds: float = 40.0) -> int:
     return 0
 
 
+def dump_sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library, kept beside it (``.sass``)."""
+    from repro_torch.kernels import build
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    text = run_cmd([str(tool), "-sass", str(lib)])
+    lib.with_suffix(".sass").write_text(text)
+    return text
+
+
+# SASS opcodes by the Hopper pipe that issues them: the integer ALU pipe and
+# the FMA pipe (IMAD, the integer multiply-add, runs there)
+ALU_OPS = ("LOP3", "SHF", "ISETP", "IADD3", "LEA", "SEL", "PRMT", "MOV",
+           "IMNMX", "VIADD", "IABS", "PLOP3", "BMSK", "SGXT")
+FMA_OPS = ("IMAD", "FFMA", "FMUL", "FADD")
+PRG_MIX = ("0x7feb352d", "0x846ca68b", "-0x7b935975")   # kPrgMix1, kPrgMix2
+# the SASS functions of each masked kernel (labels from ``fused_label``)
+PRG_KERNELS = {"fused.mask": ("fused_mask_kernel",),
+               "fused.unmask_agg": ("fused_agg_kernel<SealedRows",
+                                    "fused_unmask_rows_kernel"),
+               "fused.unmask_agg_quant": ("fused_agg_quant_kernel<SealedRows",)}
+
+
+def sass_functions(sass: str):
+    """{kernel label: [(address, opcode, operands)]} of a ``cuobjdump
+    -sass`` listing."""
+    funcs, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = funcs.setdefault(fused_label(m.group(1)), [])
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", ln)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def sass_registers(op: str, args: str):
+    """(written, read) registers of one SASS instruction: the first operand
+    is written, as wide as the instruction (.64 and .WIDE two, .128 four),
+    unless it is an address or the instruction a store or a branch."""
+    ops = [a.strip() for a in args.split(",")]
+    regs = [re.findall(r"\b(U?R\d+|U?P\d)\b", a) for a in ops]
+    if not ops or ops[0].startswith("[") or op.startswith(("ST", "BRA")):
+        return [], [r for rs in regs for r in rs]
+    width = 4 if ".128" in op else 2 if (".64" in op or "WIDE" in op) else 1
+    out = []
+    for r in regs[0][:1]:
+        kind, n = re.match(r"(\D+)(\d+)", r).groups()
+        out = [f"{kind}{int(n) + k}" for k in range(width)]
+    return out, [r for rs in regs[1:] for r in rs]
+
+
+def prg_chain(body):
+    """Indices of the instructions of ``body`` (a loop, in order) that
+    compute mask words: the products by the PRG's constants and every
+    ALU- or FMA-pipe instruction on a path of values into or out of them
+    (a load, or a value made before the loop, ends a path)."""
+    regs = [sass_registers(op, args) for _, op, args in body]
+    n = len(body)
+
+    def writer(i, r):          # this iteration's, else the last one's
+        for j in list(range(i - 1, -1, -1)) + list(range(n - 1, i - 1, -1)):
+            if r in regs[j][0]:
+                return j
+        return None
+
+    def computes(i):
+        return body[i][1].split(".")[0] in ALU_OPS + FMA_OPS
+
+    chain = {i for i, (_, op, args) in enumerate(body)
+             if op.startswith("IMAD") and any(c in args.lower()
+                                              for c in PRG_MIX)}
+    todo = list(chain)
+    while todo:                                      # into the products
+        i = todo.pop()
+        for r in regs[i][1]:
+            j = writer(i, r)
+            if j is not None and j not in chain and computes(j):
+                chain.add(j)
+                todo.append(j)
+    grew = True
+    while grew:                                      # out of them
+        grew = False
+        for i in range(n):
+            if i not in chain and computes(i) and any(
+                    writer(i, r) in chain for r in regs[i][1]):
+                chain.add(i)
+                grew = True
+    return chain
+
+
+def mask_word_loop(ins):
+    """The innermost loop of a kernel that makes the most mask words (a
+    backward branch with no other inside): (its instructions, words), a
+    word found by its two products by kPrgMix2; None where none does."""
+    branches = [(a, int(m.group(1), 16)) for a, op, args in ins
+                if op.startswith("BRA")
+                and (m := re.search(r"0x([0-9a-f]+)", args))
+                and int(m.group(1), 16) < a]
+    best = None
+    for end, start in branches:
+        if any(start <= t < a <= end and (a, t) != (end, start)
+               for a, t in branches):
+            continue                               # not innermost
+        body = [i for i in ins if start <= i[0] <= end]
+        words = sum(op.startswith("IMAD") and any(
+            c in args.lower() for c in PRG_MIX[1:]) for _, op, args in body) / 2
+        if words and (best is None or words > best[1]):
+            best = (body, words)
+    return best
+
+
+def prg_word_pipes(sass: str):
+    """Instructions a mask word on the integer ALU and FMA pipes in each
+    masked kernel's mask-word loop: those of the PRG's own chain (``prg``:
+    the products, shifts, xors, the seed's add, the sign's product and the
+    sum) and all of the loop's (``loop``: its counter and addresses too).
+    Returns ({kind: the fewest ``prg`` counts over its kernels}, the counts
+    of every kernel)."""
+    per_kernel = {}
+    for label, ins in sass_functions(sass).items():
+        found = mask_word_loop(ins)
+        if found is None:
+            continue
+        body, words = found
+        chain = prg_chain(body)
+        counts = {"words": words}
+        for what, idx in (("prg", chain), ("loop", range(len(body)))):
+            pipes = [body[i][1].split(".")[0] for i in idx]
+            counts[what] = {"alu": sum(op in ALU_OPS for op in pipes) / words,
+                            "fma": sum(op in FMA_OPS for op in pipes) / words}
+        per_kernel[label] = counts
+    by_kind = {}
+    for kind, prefixes in PRG_KERNELS.items():
+        forms = [c["prg"] for k, c in per_kernel.items()
+                 if k.startswith(prefixes)]
+        if not forms:
+            raise AssertionError(f"no mask-word loop of {kind} in the SASS: "
+                                 f"{sorted(per_kernel)}")
+        by_kind[kind] = min(forms, key=lambda c: max(c.values()))
+    return by_kind, per_kernel
+
+
 def engines_phase():
     from repro_torch.models.tasks import cnn_task
 
@@ -1680,15 +1959,24 @@ def main() -> int:
          ptxas={n: [ln for ln in build.build_log(n).splitlines()
                     if "registers" in ln or "Compiling" in ln]
                 for n in sources})
-    flash_kernels = flash_ptxas(build.build_log("flash_attention"))
+    flash_kernels = ptxas_kernels(build.build_log("flash_attention"))
     emit("flash_ptxas", kernels=flash_kernels)
     if not any(k["kernel"].startswith("flash_tc_kernel") for k in
                flash_kernels) or {k["target"] for k in flash_kernels} != {
                    "sm_90a"}:
         raise AssertionError(f"flash_attention.cu's kernels not all built "
                              f"for sm_90a: {flash_kernels}")
+    fused_kernels = ptxas_kernels(build.build_log("fused_agg"), fused_label)
+    emit("fused_ptxas", kernels=fused_kernels)
+    if not fused_kernels or {k["target"] for k in fused_kernels} != {
+            "sm_90a"}:
+        raise AssertionError(f"fused_agg.cu's kernels not all built for "
+                             f"sm_90a: {fused_kernels}")
+    word_pipes, sass_counts = prg_word_pipes(
+        dump_sass(build.library_path("fused_agg")))
+    emit("fused_sass", prg=word_pipes, kernels=sass_counts)
 
-    rows = kernel_phase(dev)
+    rows = kernel_phase(dev, word_pipes)
     # each main path with the counts set to 0 just before it, read after
     session, models = session_phase(sim_seconds=40.0)
     out, codes, scales = agg_quant_phase(session, models)
@@ -1751,7 +2039,9 @@ def main() -> int:
             "ms": at_session["ms"], "plain_ms": at_session["plain_ms"],
             "bound_ms": at_session["bound_ms"],
             "bound_by": at_session["bound_by"],
-            "library_ms": at_session["library_ms"]})
+            "library_ms": at_session["library_ms"],
+            **({"pipe_bound_ms": at_session["pipe_bound_ms"]}
+               if "pipe_bound_ms" in at_session else {})})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,23 +35,32 @@
 //
 // with the lane index as the PRG's counter (`fused_mask_kernel`; unsealing
 // is the same call with the signs negated, a -1 sign is 0xFFFFFFFF, ring
-// negation by multiplication, no branch). The aggregator's kernels take
-// the rows through `SealedRows`, which regenerates row p's mask from its R
-// seeds and signs, subtracts it and reads the restored bits as fp32, and
-// then run the plain kernels' code unchanged. What bounds them here is the
-// PRG, not bytes: each lane of each row costs R words of ~18 integer
-// operations (P*R*N words in all), against (P+1)*N words of traffic. The
-// (P, R) seeds and signs are tiny and are staged in shared memory once per
-// block. A sealed row is arbitrary bits (NaNs with payloads, subnormals),
-// so it is read as uint32 and no float operation touches it before the
-// mask is gone.
+// negation by multiplication, no branch). The aggregator reads the rows
+// through `SealedRows`, which regenerates row p's mask from its R staged
+// terms, subtracts it and reads the restored bits as fp32. What bounds the
+// masked kernels is the PRG on the integer ALU pipe, not bytes: P*R*N words
+// (R*N for the seal) of 11 ALU-pipe instructions each (see the PRG below),
+// against (P+1)*N words of traffic. A sealed row is arbitrary bits (NaNs
+// with payloads, subnormals), so it is read as uint32 and no float
+// operation touches it before the mask is gone.
 //
-// Bit-exactness: every kernel here shares `weighted_mean_lane` (templated
-// on how a row is read), so the means of all four aggregation kernels are
-// equal bit for bit, masked or not, and do not depend on the grid. Rows are added in row order with an explicit
-// fused multiply-add, the total weight is added in row order by every
-// thread alike, both divisions are IEEE (`__fdiv_rn`), rounding is `rintf`
-// (half to even, never `roundf`). Build without -use_fast_math.
+// What the design does about it: the seal takes one lane a thread. B4
+// (unmask + mean) must fill the card at the sessions' shapes, where a
+// model is 136,672 lanes (CNN) or 11,173 (MF): with lanes enough for every
+// scheduler to hold 4 warps of one lane a thread, it runs B1's kernel over
+// SealedRows with one lane a thread and a block size chosen so the blocks
+// split evenly over the SMs (`lane_threads`); with fewer lanes, its rows
+// are spread over warps too (`fused_unmask_rows_kernel`). B5 runs B2's
+// kernel over SealedRows.
+//
+// Bit-exactness: every kernel adds rows with `mean_step` in row order from
+// 0 and ends with `finish_lane`, and B1, B2, B5 and B4's larger form share
+// `weighted_mean_lane` (templated on how a row is read), so the means of
+// all the aggregation kernels are equal bit for bit, masked or not, and do
+// not depend on the grid. The fused multiply-add is explicit, the total
+// weight is added in row order by every thread alike, both divisions are
+// IEEE (`__fdiv_rn`), rounding is `rintf` (half to even, never `roundf`).
+// Build without -use_fast_math.
 //
 // Plain C interface for ctypes: each launcher enqueues on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
@@ -64,7 +73,7 @@
 namespace {
 
 constexpr int kSubtile = 16384;               // quantisation granularity
-constexpr int kThreads = 256;                 // mean-only kernel
+constexpr int kThreads = 256;                 // B1 and the seal
 // The quantised kernel runs one block per subtile in one of two widths:
 // 256 threads (64 means a thread) when there are subtiles enough to fill
 // the card, 1024 threads (16 a thread) when there are few, so that a small
@@ -73,7 +82,12 @@ constexpr int kQuantThreadsWide = 1024;
 constexpr int kQuantThreads = 256;
 constexpr int kFewSubtiles = 264;             // fewer blocks than 2 per SM
 
-// The one definition of the mean of a lane: shared by every kernel here.
+// The one definition of the mean of a lane, shared by every kernel here:
+// rows are added by `mean_step` in row order from 0, then `finish_lane`.
+__device__ __forceinline__ float mean_step(float acc, float w, float v) {
+  return __fmaf_rn(w, v, acc);
+}
+
 __device__ __forceinline__ float finish_lane(float acc, float total,
                                              bool is_int) {
   float mean = __fdiv_rn(acc, total);
@@ -81,43 +95,110 @@ __device__ __forceinline__ float finish_lane(float acc, float total,
 }
 
 // ------------------------------------------------------------ mask PRG
-// Mirrors repro_torch.secureagg.prg.prg_word bit for bit; unsigned 32-bit
-// arithmetic wraps mod 2^32 and its shifts are logical.
+// Mirrors repro_torch.secureagg.prg.prg_word bit for bit,
+//
+//   prg(seed, ctr) = mix(mix(ctr ^ seed * kPrgMix1) + seed)
+//   mix(x)         = xs16(xs15(xs16(x) * kPrgMix1) * kPrgMix2)
+//   xsk(x)         = x ^ (x >> k)
+//
+// in unsigned 32-bit arithmetic (wraps mod 2^32, logical shifts), in the
+// form the kernels run. A logical shift distributes over xor, so the first
+// xs16 of ctr ^ sm (sm = seed * kPrgMix1) is xs16(ctr) ^ xs16(sm): a term
+// is staged once with its `key` xs16(sm) beside its seed and sign (one
+// 16-byte load), a lane computes its own key xs16(ctr) once for all its
+// terms, and a word starts from one xor. In the SASS a word costs 11
+// instructions on the integer ALU pipe (LOP3, SHF) and 6 on the FMA pipe
+// (IMAD; ptxas puts the `+ seed` there too), against 14 and 7 unstaged.
+// (Logical shifts taken as the high half of a product, IMAD.HI, to balance
+// the two pipes made every masked kernel slower on the H100.)
 
 constexpr uint32_t kPrgMix1 = 0x7FEB352Du;
 constexpr uint32_t kPrgMix2 = 0x846CA68Bu;
 
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x = (x ^ (x >> 16)) * kPrgMix1;
-  x = (x ^ (x >> 15)) * kPrgMix2;
-  return x ^ (x >> 16);
+struct __align__(16) MaskTerm {     // one (seed, sign) as the kernels use it
+  uint32_t key;                     // xs16(seed * kPrgMix1)
+  uint32_t seed;
+  uint32_t sign;                    // +1, or 0xFFFFFFFF for -1
+  uint32_t unused;
+};
+
+template <int K>
+__device__ __forceinline__ uint32_t xs(uint32_t x) {
+  return x ^ (x >> K);
 }
 
-__device__ __forceinline__ uint32_t prg_word(uint32_t seed, uint32_t ctr) {
-  uint32_t x = ctr ^ (seed * kPrgMix1);
-  x = mix32(x) + seed;
-  return mix32(x);
+__device__ __forceinline__ uint32_t lane_key(uint32_t ctr) {
+  return xs<16>(ctr);
 }
 
-// sum_j signs[j] * prg(seeds[j], ctr) mod 2^32 (seeds/signs in shared memory).
-__device__ __forceinline__ uint32_t mask_word(const uint32_t* seeds,
-                                              const uint32_t* signs, int R,
-                                              uint32_t ctr) {
-  uint32_t m = 0u;
-  for (int j = 0; j < R; ++j) m += signs[j] * prg_word(seeds[j], ctr);
-  return m;
+// The PRG's words for W terms held in registers, stage by stage over the
+// W words, so that with W > 1 ptxas can interleave their chains.
+template <int W>
+__device__ __forceinline__ void prg_words(uint32_t lkey,
+                                          const MaskTerm (&t)[W],
+                                          uint32_t (&x)[W]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = (lkey ^ t[i].key) * kPrgMix1;
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = xs<15>(x[i]) * kPrgMix2;
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = xs<16>(x[i]) + t[i].seed;
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = xs<16>(x[i]) * kPrgMix1;
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = xs<15>(x[i]) * kPrgMix2;
+#pragma unroll
+  for (int i = 0; i < W; ++i) x[i] = xs<16>(x[i]);
 }
 
-// Copies n int64 seeds and signs into shared memory as uint32 (mod 2^32, so
-// a -1 sign becomes 0xFFFFFFFF). Every thread of the block must call it.
+__device__ __forceinline__ uint32_t signed_word(uint32_t lkey,
+                                                const MaskTerm& t) {
+  const MaskTerm ts[1] = {t};
+  uint32_t x[1];
+  prg_words(lkey, ts, x);
+  return t.sign * x[0];
+}
+
+// sum_j sign_j * prg(seed_j, ctr) mod 2^32 over n staged terms, four
+// words in flight (the ring sum takes any order). STAGED loads four terms
+// into registers and runs their words stage by stage, and ptxas
+// interleaves the four chains (B4, the seal); without it the four words
+// run one after another into four sums, which keeps B5's register-heavy
+// 256-thread forms from spilling.
+template <bool STAGED>
+__device__ __forceinline__ uint32_t mask_sum(const MaskTerm* terms, int n,
+                                             uint32_t lkey) {
+  uint32_t m[4] = {0u, 0u, 0u, 0u};
+  int j = 0;
+  for (; j + 3 < n; j += 4) {
+    if (STAGED) {
+      MaskTerm t[4];
+      uint32_t x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) t[i] = terms[j + i];
+      prg_words(lkey, t, x);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i] += t[i].sign * x[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i] += signed_word(lkey, terms[j + i]);
+    }
+  }
+  for (; j < n; ++j) m[0] += signed_word(lkey, terms[j]);
+  return (m[0] + m[1]) + (m[2] + m[3]);
+}
+
+// Stages n int64 seeds and signs in shared memory as MaskTerms (mod 2^32,
+// so a -1 sign becomes 0xFFFFFFFF), the block's threads in turn; the
+// caller synchronises the block before they are read.
 __device__ __forceinline__ void stage_mask_terms(
     const long long* __restrict__ seeds, const long long* __restrict__ signs,
-    int n, uint32_t* staged) {
+    int n, MaskTerm* staged) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    staged[i] = (uint32_t)seeds[i];
-    staged[n + i] = (uint32_t)signs[i];
+    const uint32_t seed = (uint32_t)seeds[i];
+    staged[i] = MaskTerm{xs<16>(seed * kPrgMix1), seed, (uint32_t)signs[i],
+                         0u};
   }
-  __syncthreads();
 }
 
 // ------------------------------------------------------------- row access
@@ -128,7 +209,7 @@ __device__ __forceinline__ void stage_mask_terms(
 struct PlainRows {                  // x: (P, N) fp32
   const float* x;
   long long N;
-  __device__ __forceinline__ PlainRows bind(uint32_t*, int) const {
+  __device__ __forceinline__ PlainRows bind(uint4*, int) const {
     return *this;
   }
   __device__ __forceinline__ float row(int p, long long lane) const {
@@ -139,25 +220,27 @@ struct PlainRows {                  // x: (P, N) fp32
   }
 };
 
+template <bool STAGED>              // mask_sum's form
 struct SealedRows {                 // y: (P, N) sealed bits; (P, R) terms
   const uint32_t* y;
   long long N;
   const long long* seeds;           // device memory, until bound
   const long long* signs;
   int R;
-  const uint32_t* sd;               // shared memory, after bind
-  const uint32_t* sg;
+  const MaskTerm* terms;            // shared memory, after bind
 
-  __device__ __forceinline__ SealedRows bind(uint32_t* staged, int P) const {
-    stage_mask_terms(seeds, signs, P * R, staged);
+  __device__ __forceinline__ SealedRows bind(uint4* staged, int P) const {
+    MaskTerm* t = reinterpret_cast<MaskTerm*>(staged);
+    stage_mask_terms(seeds, signs, P * R, t);
+    __syncthreads();
     SealedRows r = *this;
-    r.sd = staged;
-    r.sg = staged + P * R;
+    r.terms = t;
     return r;
   }
   __device__ __forceinline__ float unseal(int p, uint32_t bits,
                                           uint32_t ctr) const {
-    return __uint_as_float(bits - mask_word(sd + p * R, sg + p * R, R, ctr));
+    return __uint_as_float(bits -
+                           mask_sum<STAGED>(terms + p * R, R, lane_key(ctr)));
   }
   __device__ __forceinline__ float row(int p, long long lane) const {
     return unseal(p, __ldg(y + (long long)p * N + lane), (uint32_t)lane);
@@ -179,7 +262,7 @@ __device__ __forceinline__ float weighted_mean_lane(
   float acc = 0.0f;
 #pragma unroll 4
   for (int p = 0; p < P; ++p)
-    acc = __fmaf_rn(__ldg(w + p), rows.row(p, lane), acc);
+    acc = mean_step(acc, __ldg(w + p), rows.row(p, lane));
   return finish_lane(acc, total, mask != nullptr && mask[lane] != 0);
 }
 
@@ -196,10 +279,10 @@ __device__ __forceinline__ float4 weighted_mean_lane4(
   for (int p = 0; p < P; ++p) {
     const float wp = __ldg(w + p);
     const float4 v = rows.row4(p, lane);
-    acc.x = __fmaf_rn(wp, v.x, acc.x);
-    acc.y = __fmaf_rn(wp, v.y, acc.y);
-    acc.z = __fmaf_rn(wp, v.z, acc.z);
-    acc.w = __fmaf_rn(wp, v.w, acc.w);
+    acc.x = mean_step(acc.x, wp, v.x);
+    acc.y = mean_step(acc.y, wp, v.y);
+    acc.z = mean_step(acc.z, wp, v.z);
+    acc.w = mean_step(acc.w, wp, v.w);
   }
   uchar4 m = make_uchar4(0, 0, 0, 0);
   if (mask != nullptr) m = *reinterpret_cast<const uchar4*>(mask + lane);
@@ -212,16 +295,17 @@ __device__ __forceinline__ float4 weighted_mean_lane4(
 }
 
 // ---------------------------------------------------------------- mean only
+// B1, and B4 where the lanes fill the card (VEC false, any block size).
 
 template <class Rows, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 fused_agg_kernel(const Rows rows_arg, const float* __restrict__ w,
                  const unsigned char* __restrict__ mask,
                  float* __restrict__ out, int P, long long N) {
-  extern __shared__ uint32_t staged[];
+  extern __shared__ uint4 staged[];
   const Rows rows = rows_arg.bind(staged, P);
   const float total = total_weight(w, P);
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (VEC) {
     const long long lane = t * 4;
     if (lane < N) {
@@ -231,6 +315,59 @@ fused_agg_kernel(const Rows rows_arg, const float* __restrict__ w,
   } else {
     if (t < N) out[t] = weighted_mean_lane(rows, w, mask, P, t, total);
   }
+}
+
+// ------------------------------------------------ unmask + mean, few lanes
+// B4 where one lane a thread would leave the card's schedulers short of
+// warps (the MF session's 11,173 lanes make 350 warps for 528 schedulers):
+// a block takes 32 lanes and all P rows, and its warps take the rows of a
+// chunk in turn, each unsealing its row's 32 words into shared memory; after
+// a barrier the first warp adds the chunk's rows to its lanes' means with
+// `mean_step`, in row order.
+
+constexpr int kRowsThreads = 128;
+constexpr int kRowsChunk = 64;                // rows a chunk
+
+__global__ void __launch_bounds__(kRowsThreads)
+fused_unmask_rows_kernel(const uint32_t* __restrict__ y,
+                         const float* __restrict__ w,
+                         const unsigned char* __restrict__ mask,
+                         const long long* __restrict__ seeds,
+                         const long long* __restrict__ signs, int R,
+                         float* __restrict__ out, int P, long long N) {
+  extern __shared__ MaskTerm terms[];           // (P, R)
+  __shared__ uint32_t unsealed[kRowsChunk][32];
+  stage_mask_terms(seeds, signs, P * R, terms);
+  const float total = total_weight(w, P);       // loads beside the staging's
+  __syncthreads();
+
+  constexpr int kWarps = kRowsThreads / 32;
+  const int warp = threadIdx.x >> 5, l32 = threadIdx.x & 31;
+  const long long lane = (long long)blockIdx.x * 32 + l32;
+  const bool live = lane < N;
+  const uint32_t lkey = lane_key((uint32_t)lane);
+  // the warps that take a row more than the others differ by block
+  const int first = (warp + kWarps - (int)(blockIdx.x % kWarps)) % kWarps;
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < P; r0 += kRowsChunk) {
+    const int rows = min(kRowsChunk, P - r0);
+    if (live) {
+      for (int c = first; c < rows; c += kWarps) {
+        const int r = r0 + c;
+        unsealed[c][l32] = __ldg(y + (long long)r * N + lane) -
+                           mask_sum<true>(terms + r * R, R, lkey);
+      }
+    }
+    __syncthreads();
+    if (warp == 0 && live) {
+      for (int c = 0; c < rows; ++c)
+        acc = mean_step(acc, __ldg(w + r0 + c),
+                        __uint_as_float(unsealed[c][l32]));
+    }
+    __syncthreads();
+  }
+  if (warp == 0 && live)
+    out[lane] = finish_lane(acc, total, mask != nullptr && mask[lane] != 0);
 }
 
 // ------------------------------------------------------- mean + int8 codes
@@ -244,7 +381,7 @@ fused_agg_quant_kernel(const Rows rows_arg, const float* __restrict__ w,
                        float* __restrict__ mean_out,
                        signed char* __restrict__ codes,
                        float* __restrict__ scales, int P, long long N) {
-  extern __shared__ uint32_t staged[];
+  extern __shared__ uint4 staged[];
   const Rows rows = rows_arg.bind(staged, P);
   const float total = total_weight(w, P);
   constexpr int kPerThread = kSubtile / THREADS;
@@ -315,31 +452,79 @@ fused_mask_kernel(const uint32_t* __restrict__ x,
                   const long long* __restrict__ seeds,
                   const long long* __restrict__ signs, int R,
                   uint32_t* __restrict__ out, long long N) {
-  extern __shared__ uint32_t staged[];
-  stage_mask_terms(seeds, signs, R, staged);
+  extern __shared__ MaskTerm terms[];
+  stage_mask_terms(seeds, signs, R, terms);
+  __syncthreads();
   const long long lane = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (lane < N)
-    out[lane] = __ldg(x + lane) + mask_word(staged, staged + R, R,
-                                            (uint32_t)lane);
+    out[lane] =
+        __ldg(x + lane) + mask_sum<true>(terms, R, lane_key((uint32_t)lane));
 }
 
-// Shared memory for the staged (P, R) seeds and signs: two words a term.
-inline size_t staged_bytes(int terms) { return 2 * sizeof(uint32_t) * terms; }
+// Shared memory for the staged (P, R) seeds and signs.
+inline size_t staged_bytes(int terms) { return sizeof(MaskTerm) * terms; }
 
-template <class Rows>
-int launch_agg(const Rows& rows, const void* rows_ptr, const float* w,
-               const unsigned char* mask, float* out, int P, long long N,
-               size_t smem, cudaStream_t s) {
+// Lets `kernel` take `smem` bytes of dynamic shared memory. A block gets
+// 48 KB of static and dynamic shared memory together without an opt-in;
+// the staged terms of P·R up to MAX_MASK_TERMS take up to 96 KB.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t smem) {
+  cudaFuncAttributes attr;
+  const cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc != cudaSuccess) return rc;
+  if (attr.sharedSizeBytes + smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+int sm_count() {
+  static int count[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (count[dev & 15] == 0)
+    cudaDeviceGetAttribute(&count[dev & 15], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return count[dev & 15];
+}
+
+// B4 spreads its rows over warps where one lane a thread would give the
+// card's schedulers (four an SM) fewer than 4 warps each.
+bool unmask_by_rows(long long N) {
+  return (N + 31) / 32 < 16LL * sm_count();
+}
+
+// The block size of B4 at one lane a thread: the one whose busiest SM
+// (ceil(blocks / SMs) blocks) has the fewest lanes, ties to the larger
+// block, at most 32 blocks an SM.
+int lane_threads(long long N) {
+  const int sms = sm_count();
+  int best = kThreads;
+  long long best_lanes = -1;
+  for (int threads = kThreads; threads >= 64; threads -= 64) {
+    const long long blocks = (N + threads - 1) / threads;
+    const long long per_sm = (blocks + sms - 1) / sms;
+    if (per_sm > 32 && threads != kThreads) continue;
+    if (best_lanes < 0 || per_sm * threads < best_lanes) {
+      best = threads;
+      best_lanes = per_sm * threads;
+    }
+  }
+  return best;
+}
+
+int launch_agg(const float* x, const float* w, const unsigned char* mask,
+               float* out, int P, long long N, cudaStream_t s) {
   if (N <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
-  const bool vec = (N % 4 == 0) && aligned(rows_ptr, 16) &&
-                   aligned(out, 16) && (mask == nullptr || aligned(mask, 4));
+  const PlainRows rows{x, N};
+  const bool vec = (N % 4 == 0) && aligned(x, 16) && aligned(out, 16) &&
+                   (mask == nullptr || aligned(mask, 4));
   if (vec) {
     const long long blocks = (N / 4 + kThreads - 1) / kThreads;
-    fused_agg_kernel<Rows, true><<<(unsigned)blocks, kThreads, smem, s>>>(
+    fused_agg_kernel<PlainRows, true><<<(unsigned)blocks, kThreads, 0, s>>>(
         rows, w, mask, out, P, N);
   } else {
     const long long blocks = (N + kThreads - 1) / kThreads;
-    fused_agg_kernel<Rows, false><<<(unsigned)blocks, kThreads, smem, s>>>(
+    fused_agg_kernel<PlainRows, false><<<(unsigned)blocks, kThreads, 0, s>>>(
         rows, w, mask, out, P, N);
   }
   return (int)cudaGetLastError();
@@ -356,30 +541,23 @@ int launch_agg_quant(const Rows& rows, const void* rows_ptr, const float* w,
                    aligned(mean, 16) && aligned(codes, 4) &&
                    (mask == nullptr || aligned(mask, 4));
   const bool wide = blocks < kFewSubtiles;
-  const unsigned g = (unsigned)blocks;
-  if (vec && wide) {
-    fused_agg_quant_kernel<Rows, true, kQuantThreadsWide>
-        <<<g, kQuantThreadsWide, smem, s>>>(rows, w, mask, mean, codes,
-                                            scales, P, N);
-  } else if (vec) {
-    fused_agg_quant_kernel<Rows, true, kQuantThreads>
-        <<<g, kQuantThreads, smem, s>>>(rows, w, mask, mean, codes, scales,
-                                        P, N);
-  } else if (wide) {
-    fused_agg_quant_kernel<Rows, false, kQuantThreadsWide>
-        <<<g, kQuantThreadsWide, smem, s>>>(rows, w, mask, mean, codes,
-                                            scales, P, N);
-  } else {
-    fused_agg_quant_kernel<Rows, false, kQuantThreads>
-        <<<g, kQuantThreads, smem, s>>>(rows, w, mask, mean, codes, scales,
-                                        P, N);
-  }
+  auto kernel =
+      vec ? (wide ? fused_agg_quant_kernel<Rows, true, kQuantThreadsWide>
+                  : fused_agg_quant_kernel<Rows, true, kQuantThreads>)
+          : (wide ? fused_agg_quant_kernel<Rows, false, kQuantThreadsWide>
+                  : fused_agg_quant_kernel<Rows, false, kQuantThreads>);
+  const cudaError_t rc = allow_smem(kernel, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  kernel<<<(unsigned)blocks, wide ? kQuantThreadsWide : kQuantThreads, smem,
+           s>>>(rows, w, mask, mean, codes, scales, P, N);
   return (int)cudaGetLastError();
 }
 
-SealedRows sealed_rows(const uint32_t* y, long long N, const long long* seeds,
-                       const long long* signs, int R) {
-  return SealedRows{y, N, seeds, signs, R, nullptr, nullptr};
+template <bool STAGED>
+SealedRows<STAGED> sealed_rows(const uint32_t* y, long long N,
+                               const long long* seeds,
+                               const long long* signs, int R) {
+  return SealedRows<STAGED>{y, N, seeds, signs, R, nullptr};
 }
 
 }  // namespace
@@ -389,8 +567,7 @@ extern "C" {
 int fused_agg_launch(const float* x, const float* w,
                      const unsigned char* mask, float* out, int P,
                      long long N, void* stream) {
-  return launch_agg(PlainRows{x, N}, x, w, mask, out, P, N, 0,
-                    static_cast<cudaStream_t>(stream));
+  return launch_agg(x, w, mask, out, P, N, static_cast<cudaStream_t>(stream));
 }
 
 int fused_agg_quant_launch(const float* x, const float* w,
@@ -405,6 +582,8 @@ int fused_mask_launch(const uint32_t* x, const long long* seeds,
                       const long long* signs, int R, uint32_t* out,
                       long long N, void* stream) {
   if (N <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t rc = allow_smem(fused_mask_kernel, staged_bytes(R));
+  if (rc != cudaSuccess) return (int)rc;
   const long long blocks = (N + kThreads - 1) / kThreads;
   fused_mask_kernel<<<(unsigned)blocks, kThreads, staged_bytes(R),
                       static_cast<cudaStream_t>(stream)>>>(x, seeds, signs,
@@ -417,9 +596,24 @@ int fused_unmask_agg_launch(const uint32_t* y, const float* w,
                             const long long* seeds, const long long* signs,
                             int R, float* out, int P, long long N,
                             void* stream) {
-  if (R <= 0) return (int)cudaErrorInvalidValue;
-  return launch_agg(sealed_rows(y, N, seeds, signs, R), y, w, mask, out, P,
-                    N, staged_bytes(P * R), static_cast<cudaStream_t>(stream));
+  if (N <= 0 || P <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = staged_bytes(P * R);
+  if (unmask_by_rows(N)) {
+    const cudaError_t rc = allow_smem(fused_unmask_rows_kernel, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    fused_unmask_rows_kernel<<<(unsigned)((N + 31) / 32), kRowsThreads, smem,
+                               s>>>(y, w, mask, seeds, signs, R, out, P, N);
+  } else {
+    const cudaError_t rc =
+        allow_smem(fused_agg_kernel<SealedRows<true>, false>, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    const int threads = lane_threads(N);
+    fused_agg_kernel<SealedRows<true>, false>
+        <<<(unsigned)((N + threads - 1) / threads), threads, smem, s>>>(
+            sealed_rows<true>(y, N, seeds, signs, R), w, mask, out, P, N);
+  }
+  return (int)cudaGetLastError();
 }
 
 int fused_unmask_agg_quant_launch(const uint32_t* y, const float* w,
@@ -429,8 +623,9 @@ int fused_unmask_agg_quant_launch(const uint32_t* y, const float* w,
                                   signed char* codes, float* scales, int P,
                                   long long N, void* stream) {
   if (R <= 0) return (int)cudaErrorInvalidValue;
-  return launch_agg_quant(sealed_rows(y, N, seeds, signs, R), y, w, mask,
-                          mean, codes, scales, P, N, staged_bytes(P * R),
+  return launch_agg_quant(sealed_rows<false>(y, N, seeds, signs, R), y, w,
+                          mask, mean, codes, scales, P, N,
+                          staged_bytes(P * R),
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -35,7 +35,9 @@ forms are bounded by the PRG's integer operations (P·R words a lane). The
 design (a grid over lanes with 16-byte loads; for the quantised form one
 block per subtile with the means held in registers across the absmax
 reduction; for the masked forms the same kernels reading rows through an
-unsealing reader) is described at the top of the source.
+unsealing reader, at one lane a thread with a block size chosen from N,
+and for a model too small to fill the card a kernel that spreads its rows
+over warps) is described at the top of the source.
 
 Dispatch is by where the tensors live: a CUDA tensor launches the kernel or
 raises — there is no fallback — and a CPU tensor takes the plain PyTorch
@@ -235,8 +237,8 @@ def _check_args(x, w, int_mask):
     return x, w, int_mask
 
 
-# Seeds and signs are staged in the kernels' shared memory as two uint32
-# words each: P·R of them must fit the 48 KB a block gets without opt-in.
+# Seeds and signs are staged in the kernels' shared memory, 16 bytes a
+# term (96 KB at this limit; the launchers opt in above 48 KB).
 MAX_MASK_TERMS = 6144
 
 

@@ -262,7 +262,10 @@ def test_cpu_calls_launch_no_kernel_and_registry_is_complete():
 
 def test_cuda_source_keeps_its_exactness_contract():
     """What the CPU can check of the CUDA source: IEEE division and
-    half-to-even rounding intrinsics, one shared mean, no fast-math."""
+    half-to-even rounding intrinsics, one definition of the mean's per-row
+    step and of its finish (shared by B1, B2, B4 and B5 through
+    ``weighted_mean_lane`` and by B4's kernel for few lanes), no
+    fast-math."""
     import os
 
     from repro_torch.kernels import build
@@ -270,15 +273,63 @@ def test_cuda_source_keeps_its_exactness_contract():
     for needle in ("__fdiv_rn", "rintf", "__fmaf_rn", "weighted_mean_lane",
                    'extern "C"', "cudaGetLastError",
                    # the masked kernels: uint32 ring arithmetic, the PRG's
-                   # constants, and B1's mean reached through SealedRows
+                   # constants, B4's and B5's means reached through
+                   # SealedRows, B4's kernel for few lanes, and the staged
+                   # terms' shared-memory opt-in
                    "uint32_t", "0x7FEB352Du", "0x846CA68Bu", "SealedRows",
-                   "__uint_as_float", "fused_mask_launch",
-                   "fused_unmask_agg_launch",
+                   "__uint_as_float", "fused_unmask_rows_kernel",
+                   "cudaFuncAttributeMaxDynamicSharedMemorySize",
+                  "attr.sharedSizeBytes + smem",
+                   "fused_mask_launch", "fused_unmask_agg_launch",
                    "fused_unmask_agg_quant_launch"):
         assert needle in src, needle
-    # one definition of the mean, shared by all four aggregation kernels
+    # one definition of the per-row step and of the finish, so every
+    # aggregation kernel's mean is the same bit for bit
+    assert src.count("float mean_step(") == 1
+    assert src.count("float finish_lane(") == 1
+    assert src.count("__fmaf_rn(") == 1          # inside mean_step only
     assert src.count("float weighted_mean_lane(") == 1
     assert "roundf" not in src.replace("never `roundf`", "")
     assert "-use_fast_math" not in " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.library_path("fused_agg").name.startswith("libfused_agg_")
+
+
+def _fused_c_params(src, name):
+    """Kinds of the parameters of ``int name(...)`` in ``fused_agg.cu``'s
+    ``extern "C"`` block: pointer, int or long long."""
+    head = src[src.index(f"int {name}("):]
+    kinds = []
+    for param in head[head.index("(") + 1:head.index(")")].split(","):
+        kinds.append("pointer" if "*" in param else
+                     "long long" if "long long" in param else
+                     param.split()[0])
+    return kinds
+
+
+def test_fused_ctypes_binding_matches_the_c_entry_points(monkeypatch):
+    """The wrappers' ctypes argument types follow the C parameters of the
+    five launch entry points one for one (a pointer or a 64-bit count in
+    an int's place is cut or misread silently)."""
+    import ctypes
+    import os
+    import types
+
+    from repro_torch.kernels import build
+    names = ("fused_agg_launch", "fused_agg_quant_launch", "fused_mask_launch",
+             "fused_unmask_agg_launch", "fused_unmask_agg_quant_launch")
+    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
+                                    for n in names})
+    monkeypatch.setattr(build, "load", lambda name: fake)
+    monkeypatch.setattr(fused, "_LIB", None)
+    fused._lib()
+    src = open(os.path.join(build.CSRC, "fused_agg.cu")).read()
+    block = src[src.index('extern "C" {'):]
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+             ctypes.c_longlong: "long long"}
+    for name in names:
+        fn = getattr(fake, name)
+        assert [kinds[t] for t in fn.argtypes] == _fused_c_params(
+            block, name), name
+        assert fn.restype is ctypes.c_int
+        assert _fused_c_params(block, name)[-1] == "pointer"   # stream, out

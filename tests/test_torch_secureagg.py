@@ -117,6 +117,98 @@ def test_prg_equals_reference_bit_for_bit():
     np.testing.assert_array_equal(np.asarray(dev).astype(np.int64), want)
 
 
+def _kernel_form_prg(seeds, lanes):
+    """The PRG as ``kernels/csrc/fused_agg.cu`` runs it, on int64 tensors
+    that hold uint32 values: each term staged with its key xs16(seed *
+    MIX1), each lane with its key xs16(ctr), a word starting from the xor
+    of the two keys (a logical shift distributes over xor)."""
+    mix1, mix2 = fused._PRG_MIX1, fused._PRG_MIX2
+
+    def xs(x, k):
+        return x ^ (x >> k)
+
+    x = fused._mul32(xs(lanes, 16) ^ xs(fused._mul32(seeds, mix1), 16), mix1)
+    x = fused._mul32(xs(x, 15), mix2)
+    x = (xs(x, 16) + seeds) & fused.MASK32
+    x = fused._mul32(xs(x, 16), mix1)
+    x = fused._mul32(xs(x, 15), mix2)
+    return xs(x, 16)
+
+
+_EDGE_U32 = [0, 1, 2**15, 2**16 - 1, 2**16, 2**31, 2**32 - 1]
+
+
+def test_kernel_form_of_the_prg_equals_both_packages_bit_for_bit():
+    """The staged form of the PRG that the CUDA kernels run, against
+    ``repro_torch.secureagg.prg.prg_word`` and the reference's
+    ``prg_word``, at seeds and counters on the edges of the uint32 range
+    and of the shifts' halves, and at seeded random ones."""
+    rng = np.random.default_rng(1)
+    seeds = _EDGE_U32 + [int(v) for v in rng.integers(0, 2**32, 40,
+                                                      dtype=np.uint64)]
+    lanes = _EDGE_U32 + [int(v) for v in rng.integers(0, 2**32, 40,
+                                                      dtype=np.uint64)]
+    got = _kernel_form_prg(_t(seeds)[:, None], _t(lanes)[None, :])
+    assert got.dtype == torch.int64
+    want = [[jprg.prg_word(s, c) for c in lanes] for s in seeds]
+    assert got.tolist() == want
+    assert got.tolist() == [[prg.prg_word(s, c) for c in lanes]
+                            for s in seeds]
+
+
+def _kernel_form_mask_sum(seeds, signs, lanes):
+    """``mask_sum`` as the CUDA kernels run it over R terms: a -1 sign as
+    0xFFFFFFFF, four terms at a time into four sums, the rest into the
+    first, and the sums added pairwise at the end (mod 2^32)."""
+    seeds, signs = seeds & fused.MASK32, signs & fused.MASK32
+    m = [torch.zeros_like(lanes) for _ in range(4)]
+
+    def add(i, j):
+        word = _kernel_form_prg(seeds[j], lanes)
+        m[i] = (m[i] + fused._mul32(word, signs[j])) & fused.MASK32
+
+    R, j = seeds.shape[0], 0
+    while j + 3 < R:
+        for i in range(4):
+            add(i, j + i)
+        j += 4
+    for j in range(j, R):
+        add(0, j)
+    return ((m[0] + m[1]) + (m[2] + m[3])) & fused.MASK32
+
+
+@pytest.mark.parametrize("R", [1, 3, 4, 5, 17])
+def test_kernel_form_of_the_mask_sum_equals_both_packages_bit_for_bit(R):
+    """The kernels' sum of R signed words (across the four-term unroll and
+    its tail) against the port's plain mask words and the reference's
+    ``prg_word`` summed with its signs, mod 2^32."""
+    seeds, signs = _terms(R, seed=40 + R)
+    lanes = _EDGE_U32 + list(range(2, 9))
+    got = _kernel_form_mask_sum(_t(seeds), _t(signs), _t(lanes))
+    plain = fused._plain_mask_words(_t(seeds)[None], _t(signs)[None],
+                                    _t(lanes))[0]
+    assert got.tolist() == plain.tolist()
+    assert got.tolist() == [sum(int(g) * jprg.prg_word(int(s), c)
+                                for s, g in zip(seeds, signs)) % 2**32
+                            for c in lanes]
+
+
+def test_cuda_prg_keeps_the_staged_form():
+    """The CUDA source stages each term's key xs16(seed * kPrgMix1) and
+    starts a word from the xor of the lane's key and the term's: the form
+    ``_kernel_form_prg`` holds against both packages."""
+    import os
+
+    from repro_torch.kernels import build
+    src = open(os.path.join(build.CSRC, "fused_agg.cu")).read()
+    for needle in ("xs<16>(seed * kPrgMix1)", "(lkey ^ t[i].key) * kPrgMix1",
+                   "xs<15>(x[i]) * kPrgMix2", "xs<16>(x[i]) + t[i].seed",
+                   "xs<16>(x[i]) * kPrgMix1", "x[i] = xs<16>(x[i]);",
+                   "return t.sign * x[0];", "m[i] += t[i].sign * x[i];",
+                   "return xs<16>(ctr);"):
+        assert needle in src, needle
+
+
 def test_mul32_keeps_the_low_bits_near_the_top_of_the_range():
     a = _t([0xFFFFFFFF, 0xFFFFFFFE, 0x80000001, 12345, 0])
     for b in (0xFFFFFFFF, 0x846CA68B, 0x7FEB352D, 1):
