@@ -46,10 +46,19 @@ integer leaf, at a streaming shape (P = 16, N = 2^24), ragged, and at the MF
 session's stack (P = 10, N = 11,173), next to the launch floor (a
 one-element ``fill_``). The masked kernels' rows carry ``pipe_bound_ms``,
 their least time on the integer pipes: the PRG's own instructions a mask
-word, read from the SASS of the library this run built (``fused_sass``);
-``masked_edges`` holds the masked kernels bit for bit at edge shapes, and
-``fused_ptxas`` prints the registers and spills of every kernel of
-``fused_agg.cu``, each of which must be built for sm_90a.
+word, read from the SASS of the library this run built (``fused_sass``),
+and every B1-B5 row names the kernel and grid its launcher chose
+(``form``). A call of B2 and of B5 after the timed graph replays must
+give what the first call gave, bit for bit, with the arrival counts and
+absmax words of the quantised forms' workspace back at 0. ``masked_edges`` holds the
+masked kernels bit for bit at edge shapes; ``quant_edges`` holds B1, B2,
+B4 and B5 to one another and B2 and B5's codes and scales to the plain
+quantiser at the edges of the quantised forms (subtiles, the rows
+kernel's limit, every block size a launcher can choose, P·R = 6144);
+``nonfinite`` holds B2, B5 and B7 to the reference's quantisation of a
+NaN and an Inf lane (scale NaN or Inf, codes 0). ``fused_ptxas`` prints
+the registers and spills of every kernel of ``fused_agg.cu``, each of
+which must be built for sm_90a with no spill.
 
 It needs a CUDA device and fails without one (non-zero exit, nothing is
 caught). Each phase prints one JSON line. The last three lines are: the
@@ -60,9 +69,12 @@ every kernel's numbers from this run, and
 Tolerances: kernel mean against the plain version ``rtol = atol = 1e-6``
 (summation order and fused multiply-add differ); int8 codes and scales are
 compared bit for bit against the plain quantiser applied to the kernel's
-own mean; the two kernels' means are compared bit for bit. The seal is
-compared with its plain version bit for bit; the masked kernels' mean,
-codes and scales with the plain kernels' on the unsealed rows bit for bit.
+own mean (a NaN scale equals a NaN: its bits are not the format's); the
+two kernels' means are compared bit for bit. A NaN or Inf lane is held to
+the reference's quantisation as the plain quantiser gives it on the CPU.
+The seal is compared with its plain version bit for bit; the masked
+kernels' mean, codes and scales with the plain kernels' on the unsealed
+rows bit for bit.
 Flash attention against its plain version (the full softmax in fp32):
 ``rtol = atol = 3e-5`` in fp32, the reference's own kernel-test tolerance;
 in bf16 ``rtol = 1e-2, atol = 1e-4``. Both versions round an fp32 result
@@ -268,13 +280,23 @@ def make_inputs(P: int, N: int, n_int: int, seed: int, dev):
     return x, w, mask
 
 
+def same(a, b) -> bool:
+    """Equal shapes, types and values, a NaN equal to a NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
 def check_quant(mean, codes, scales, fused):
     """Codes and scales bit for bit against the plain quantiser applied to
     the kernel's own mean."""
     ref_codes, ref_scales = fused._plain_quantize(mean)
     if codes.dtype != torch.int8 or codes.shape != mean.shape:
         raise AssertionError(f"codes {codes.dtype} {tuple(codes.shape)}")
-    if not torch.equal(scales, ref_scales):
+    if not same(scales, ref_scales):
         raise AssertionError("scales differ from the plain quantiser's")
     if not torch.equal(codes, ref_codes):
         bad = int((codes != ref_codes).sum())
@@ -298,6 +320,8 @@ def kernel_phase(dev, word_pipes):
 
     rows = fused_rows(dev, fused, word_pipes)
     masked_edges(dev, fused)
+    quant_edges(dev, fused)
+    nonfinite_check(dev)
     flash_rows(rows, dev)
     tile_rows(rows, dev)
     emit("kernels", tolerance={"mean_rtol_atol": TOL, "codes": "bit-identical",
@@ -309,7 +333,9 @@ def kernel_phase(dev, word_pipes):
                                "unmask_vs_plain_kernels_on_unsealed_rows":
                                    "bit-identical",
                                "per_leaf_mean_bf16": "at most one bf16 step",
-                               "quantize_and_dequantize": "bit-identical"},
+                               "quantize_and_dequantize": "bit-identical",
+                               "nan_inf_lanes": "the reference's codes and "
+                                                "scales"},
          launch_floor_ms=launch_floor_ms(dev), kernels=rows)
     return rows
 
@@ -367,12 +393,16 @@ def fused_rows(dev, fused, word_pipes):
             b, by = bound_ms(kname, P, N, 0, mask is not None)
             rows[kname].append({
                 "shape": name, "P": P, "N": N, "int_lanes": n_int,
+                "form": plan_label(fused, kname, N),
                 "max_abs_err": err, "ms": time_ms(kernel, iters),
                 "plain_ms": time_ms(plain_fn, iters),
                 "bound_ms": b, "bound_by": by,
                 "library_ms": time_ms(library, iters) if library else None,
                 "eager_ms": eager_ms(kernel, iters),
                 "eager_plain_ms": eager_ms(plain_fn, iters)})
+        check_again(fused, f"{name}: fused.agg_quant",
+                    lambda: fused.aggregate_quantize_flat(x, w, mask),
+                    (mean_q, codes, scales))
         masked_rows(rows, name, x, w, mask, n_int, iters, seed=200 + i,
                     fused=fused, word_pipes=word_pipes)
         del x, w, mask, mean, mean_q, codes, scales, plain_mean
@@ -383,6 +413,39 @@ def fused_rows(dev, fused, word_pipes):
 def bits(t):
     """A bit view for comparing arbitrary fp32 bit patterns (NaN != NaN)."""
     return t.view(torch.int32)
+
+
+def plan_label(fused, kname, N: int, terms: int = 0) -> str:
+    """The kernel and grid the launcher of ``kname`` picks at N lanes (and
+    ``terms`` staged mask terms), as ``lanes x4 64x534 together`` (form,
+    four lanes a thread, threads x blocks; for a quantised form on the
+    mean's grid, whether its blocks wait for the subtile or its last block
+    writes the codes)."""
+    if kname not in fused._PLAN_OPS:
+        return "lanes 256"                       # the seal's one grid
+    p = fused.launch_plan(kname, N, terms)
+    mode = ""
+    if kname.endswith("quant"):
+        mode = " together" if p["together"] else " last block"
+    return "{} {}{}x{}{}".format(p["form"], "x4 " if p["vec"] else "",
+                                 p["threads"], p["blocks"], mode)
+
+
+def check_again(fused, what, call, first):
+    """A quantised call after the timed graph replays gives what ``first``
+    gave, bit for bit, and leaves every arrival count and absmax word of
+    the workspace at 0."""
+    again = call()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int8), b.view(torch.int8))
+               for a, b in zip(again, first)):
+        raise AssertionError(f"{what}: a call after the graph replays "
+                             "differs from the first")
+    for ws in fused._WORKSPACE.values():
+        for words in (ws.words, *ws.kept):
+            if words[:2].any():
+                raise AssertionError(f"{what}: workspace words left at "
+                                     f"{words[:2].nonzero().tolist()[:4]}")
 
 
 def mask_terms(P: int, seed: int, dev):
@@ -449,6 +512,7 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused,
         b, by = bound_ms(kname, P, N, P, mask is not None)
         rows.setdefault(kname, []).append({
             "shape": name, "P": P, "R": P, "N": N, "int_lanes": n_int,
+            "form": plan_label(fused, kname, N, P * P),
             "pipe_bound_ms": pipe_bound_ms(kname, P, N, P, word_pipes),
             "max_abs_err": 0.0 if kname == "fused.mask" else err,
             "ms": time_ms(kernel, iters),
@@ -458,15 +522,19 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused,
             "eager_ms": eager_ms(kernel, iters),
             "eager_plain_ms": eager_ms(plain_fn, pi, warmup=1)})
         torch.cuda.empty_cache()
+    check_again(fused, f"{name}: fused.unmask_agg_quant",
+                lambda: fused.unmask_aggregate_quantize_flat(y, w, mask, **kw),
+                (qmean, codes, scales))
 
 
 # The masked kernels' edges, checked, not timed: rows across the mean's
 # unroll (P), terms across the four-term unroll (R), lanes across blocks
 # and groups of 32, and both of B4's kernels (N); rows across the row
-# chunks of B4's kernel for few lanes (``EDGE_MANY_ROWS``, at N where that
+# chunks of the kernel for few lanes (``EDGE_MANY_ROWS``, at N where that
 # kernel runs); staged terms at and past 48 KB of shared memory, with the
-# static shared memory of B4's rows kernel (N 11,173) and of B5's wide
-# blocks (N 136,672) on top; a sealed NaN payload and a subnormal lane.
+# static shared memory of the rows kernel (N 11,173) and of the lane
+# kernel's reduction (N 136,672) on top; a sealed NaN payload and a
+# subnormal lane.
 EDGE_P = (1, 3, 7, 17)
 EDGE_R = (1, 3, 17)
 EDGE_N = ((1, 0), (5, 0), (11173, 0), (136676, 4))      # (N, integer lanes)
@@ -516,6 +584,143 @@ def masked_edges(dev, fused):
          N=[n for n, _ in EDGE_N], many_rows=EDGE_MANY_ROWS,
          many_terms=EDGE_MANY_TERMS,
          vs_plain="bit-identical")
+
+
+# The quantised forms' edges: N on both sides of a subtile, of three and
+# of B5's rows kernel's limit (67,552 on 132 SMs), and many subtiles in
+# grids too large to be resident at once (2 M lanes and 4.3 M: the last
+# block writes the codes); then, scanned upward from
+# 67,553, the first N at which B4 (compared here too) picks each block
+# size it can choose; P·R = 6144 in the rows kernel and the lane kernel;
+# integer lanes.
+QUANT_EDGE_N = (16383, 16384, 16385, 3 * 16384 + 1, 67552, 67553,
+                2_000_000, 2_000_001, 264 * 16384 + 1)
+QUANT_EDGE_TERMS = ((3, 2048, 16385), (48, 128, 67553))  # (P, R, N)
+
+
+def b4_edge_scan(fused):
+    """{block size: the first N >= 67,553 where B4's launcher picks it}."""
+    found = {}
+    for N in range(67553, 67553 + 40000):
+        p = fused.launch_plan("fused.unmask_agg", N)
+        found.setdefault(p["threads"], N)
+        if len(found) == 4:
+            break
+    return found
+
+
+def quant_edges(dev, fused):
+    """B1, B2, B4 and B5 at the quantised forms' edges: the four means bit
+    for bit one another, B1 within TOL of the plain version, B2 and B5's
+    codes and scales bit for bit one another and the plain quantiser of
+    their own mean. Fails unless the cases reach every form and block
+    size the two quantised launchers can choose, both ways of writing the
+    codes on the mean's grid, and each block size of B4."""
+    scanned = b4_edge_scan(fused)
+    cases = [(3, 3, N, 0) for N in QUANT_EDGE_N + tuple(sorted(
+        scanned.values()))]
+    cases += [(P, R, N, 0) for P, R, N in QUANT_EDGE_TERMS]
+    cases += [(4, 3, 136676, 4), (4, 3, 67553, 3)]          # integer lanes
+    seen = set()
+    for i, (P, R, N, n_int) in enumerate(cases):
+        x, w, mask = make_inputs(P, N, n_int, seed=1000 + i, dev=dev)
+        g = torch.Generator(device=dev).manual_seed(1100 + i)
+        seeds = torch.randint(0, 1 << 32, (P, R), generator=g, device=dev,
+                              dtype=torch.int64)
+        signs = torch.where(torch.rand((P, R), generator=g, device=dev)
+                            < 0.5, -1, 1).to(torch.int64)
+        kw = dict(seeds=seeds, signs=signs)
+        y = torch.stack([fused.apply_mask_flat(x[p], seeds[p], signs[p])
+                         for p in range(P)])
+        m1 = fused.aggregate_flat_onepass(x, w, mask)
+        m2, c2, s2 = fused.aggregate_quantize_flat(x, w, mask)
+        m4 = fused.unmask_aggregate_flat(y, w, mask, **kw)
+        m5, c5, s5 = fused.unmask_aggregate_quantize_flat(y, w, mask, **kw)
+        torch.cuda.synchronize()
+        name = f"quant edge P={P} R={R} N={N}"
+        for kname, terms in (("fused.agg_quant", 0),
+                             ("fused.unmask_agg_quant", P * R)):
+            form, grid = plan_label(fused, kname, N, terms).rsplit("x", 1)
+            seen.add((kname, form))
+            seen.update((kname, mode) for mode in ("together", "last block")
+                        if grid.endswith(mode))
+        if not all(torch.equal(bits(m1), bits(m)) for m in (m2, m4, m5)):
+            raise AssertionError(f"{name}: B1, B2, B4, B5 means differ")
+        plain = fused._plain_onepass(x, w, mask)
+        if not torch.allclose(m1, plain, rtol=TOL, atol=TOL):
+            raise AssertionError(f"{name}: B1 off its plain version by "
+                                 f"{float((m1 - plain).abs().max())}")
+        if not (torch.equal(c2, c5) and torch.equal(bits(s2), bits(s5))):
+            raise AssertionError(f"{name}: B2 and B5 codes or scales differ")
+        check_quant(m2, c2, s2, fused)
+    want = {("fused.agg_quant", f) for f in ("lanes x4 256", "lanes 256")}
+    want |= {("fused.unmask_agg_quant", f) for f in ("lanes 256", "rows 128")}
+    want |= {(k, mode) for k in ("fused.agg_quant", "fused.unmask_agg_quant")
+             for mode in ("together", "last block")}
+    if not want <= seen or sorted(scanned) != [64, 128, 192, 256]:
+        raise AssertionError(f"quant_edges reached {sorted(seen)}, the "
+                             f"launchers choose {sorted(want)}")
+    emit("quant_edges", cases=len(cases), N=[c[2] for c in cases],
+         terms=QUANT_EDGE_TERMS, forms=sorted(f"{k}: {f}" for k, f in seen),
+         b4_threads=scanned,
+         vs_plain="bit-identical")
+
+
+def nonfinite_readings(dev, fused, qz, N: int) -> dict:
+    """B2, B5 and B7 with a NaN at lane 1000 of subtile 0, +Inf of subtile
+    1 and -Inf of subtile 2 (row 0 of a P = 3 stack; B7 quantises that row
+    alone): each kernel's scales of those subtiles, its codes at those
+    lanes, how many codes of each subtile are not 0, and whether all its
+    codes and scales are the plain quantiser's on the CPU (the reference's
+    values); the card's plain quantiser is read the same way."""
+    S = 16384
+    x, w, _ = make_inputs(3, N, 0, seed=900, dev=dev)
+    lanes = [s * S + 1000 for s in range(3)]
+    for lane, v in zip(lanes, (float("nan"), float("inf"), float("-inf"))):
+        x[0, lane] = v
+    seeds, signs = mask_terms(3, 901, dev)
+    y = torch.stack([fused.apply_mask_flat(x[p], seeds[p], signs[p])
+                     for p in range(3)])
+    outs = {"fused.agg_quant": fused.aggregate_quantize_flat(x, w),
+            "fused.unmask_agg_quant": fused.unmask_aggregate_quantize_flat(
+                y, w, seeds=seeds, signs=signs),
+            "quantize.quant": (x[0], *qz.quantize_tiles(x[0]))}
+    plain_mean = outs["fused.agg_quant"][0]
+    outs["plain_on_card"] = (plain_mean, *fused._plain_quantize(plain_mean))
+    torch.cuda.synchronize()
+    readings = {}
+    for name, (v, codes, scales) in outs.items():
+        want_codes, want_scales = fused._plain_quantize(v.cpu())
+        readings[name] = {
+            "scales": [repr(float(s)) for s in scales[:3].tolist()],
+            "codes_at_lanes": [int(codes[lane]) for lane in lanes],
+            "nonzero_codes": [int(codes[s * S:(s + 1) * S].count_nonzero())
+                              for s in range(3)],
+            "as_reference": same(scales.cpu(), want_scales)
+                            and torch.equal(codes.cpu(), want_codes)}
+    return readings
+
+
+def nonfinite_check(dev):
+    """``nonfinite_readings`` where B2 and B5 run each of their forms (the
+    rows kernel, the lane kernel whose blocks wait for their subtile, and
+    the lane kernel whose last block writes the codes): every
+    kernel gives the reference's scale NaN, Inf, Inf and codes 0 in the
+    three subtiles. The card's plain quantiser is reported, not gated."""
+    from repro_torch.kernels import fused
+    from repro_torch.kernels import quantize as qz
+
+    out = {}
+    want = {"scales": ["nan", "inf", "inf"], "codes_at_lanes": [0, 0, 0],
+            "nonzero_codes": [0, 0, 0], "as_reference": True}
+    for N in (3 * 16384 + 5, 136672, 264 * 16384):
+        out[N] = nonfinite_readings(dev, fused, qz, N)
+        for name, got in out[N].items():
+            if name != "plain_on_card" and got != want:
+                raise AssertionError(f"N={N}: {name} quantises NaN and Inf "
+                                     f"lanes as {got}, the reference as "
+                                     f"{want}")
+    emit("nonfinite", want=want, readings=out)
 
 
 def tile_bound_ms(kind: str, P: int, N: int, in_size: int, out_size: int):
@@ -701,12 +906,12 @@ def flash_label(mangled: str) -> str:
 
 
 def fused_label(mangled: str) -> str:
-    """``fused_agg_quant_kernel<SealedRows<0>,1,1024>`` from its mangled
-    name (template arguments: row reader, bools, ints)."""
+    """``fused_agg_kernel<SealedRows,0,1>`` from its mangled name
+    (template arguments: row reader, bools, ints)."""
     name = re.search(r"\d(fused_[a-z_]*kernel)", mangled)
     if not name:
         return mangled
-    targs = re.search(r"kernelI(.*?)EvT_", mangled)
+    targs = re.search(r"kernelI(.*?)Ev", mangled)
     if not targs:
         return name.group(1)
     t = re.sub(r"NS_\d+(PlainRows|SealedRows)(?:ILb(\d)EE)?",
@@ -1776,9 +1981,12 @@ FMA_OPS = ("IMAD", "FFMA", "FMUL", "FADD")
 PRG_MIX = ("0x7feb352d", "0x846ca68b", "-0x7b935975")   # kPrgMix1, kPrgMix2
 # the SASS functions of each masked kernel (labels from ``fused_label``)
 PRG_KERNELS = {"fused.mask": ("fused_mask_kernel",),
-               "fused.unmask_agg": ("fused_agg_kernel<SealedRows",
-                                    "fused_unmask_rows_kernel"),
-               "fused.unmask_agg_quant": ("fused_agg_quant_kernel<SealedRows",)}
+               "fused.unmask_agg": ("fused_agg_kernel<SealedRows,0,0>",
+                                    "fused_unmask_rows_kernel<0>"),
+               "fused.unmask_agg_quant": ("fused_agg_kernel<SealedRows,0,1>",
+                                          "fused_agg_kernel<SealedRows,0,2>",
+                                          "fused_unmask_rows_kernel<1>",
+                                          "fused_unmask_rows_kernel<2>")}
 
 
 def sass_functions(sass: str):
@@ -1969,9 +2177,10 @@ def main() -> int:
     fused_kernels = ptxas_kernels(build.build_log("fused_agg"), fused_label)
     emit("fused_ptxas", kernels=fused_kernels)
     if not fused_kernels or {k["target"] for k in fused_kernels} != {
-            "sm_90a"}:
+            "sm_90a"} or any(k.get("spill_stores") or k.get("spill_loads")
+                             for k in fused_kernels):
         raise AssertionError(f"fused_agg.cu's kernels not all built for "
-                             f"sm_90a: {fused_kernels}")
+                             f"sm_90a without spills: {fused_kernels}")
     word_pipes, sass_counts = prg_word_pipes(
         dump_sass(build.library_path("fused_agg")))
     emit("fused_sass", prg=word_pipes, kernels=sass_counts)

@@ -1,9 +1,10 @@
 """Times B1-B5 (``repro_torch.kernels.fused``) of the checkout this script
 is in, on the card, at the kernels phase's shapes of ``chip_smoke.py``:
 each kernel checked against its plain version and timed beside it
-(CUDA-graph replay), with the launch floor, the ptxas lines of
-``fused_agg.cu`` and the instructions a mask word in its SASS. Prints one
-JSON line.
+(CUDA-graph replay), with the launch floor, the kernel and grid each
+launcher chose (``form``), ``torch.matmul`` at B1's shapes, the ptxas
+lines of ``fused_agg.cu`` and the instructions a mask word in its SASS.
+Prints one JSON line.
 
     python3 fused_times.py
 
@@ -42,6 +43,9 @@ def main() -> int:
                                    cs.fused_label),
             sass=sass_counts,
             ms={k: {r["shape"]: r["ms"] for r in v} for k, v in rows.items()},
+            form={k: {r["shape"]: r["form"] for r in v}
+                  for k, v in rows.items()},
+            matmul_ms={r["shape"]: r["library_ms"] for r in rows["fused.agg"]},
             pipe_bound_ms={k: {r["shape"]: r["pipe_bound_ms"] for r in v}
                            for k, v in rows.items() if k in word_pipes})
     return 0

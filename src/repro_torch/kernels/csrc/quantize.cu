@@ -36,9 +36,11 @@
 // Exactness: both divisions are IEEE (`__fdiv_rn`; PyTorch's and XLA's
 // jitted `x / 127.0` is a reciprocal multiply, see ROADMAP C1), rounding is
 // `rintf` (half to even, as jnp.round and torch.round), the product is one
-// `__fmul_rn`, and bf16 is stored by round-to-nearest-even. Codes and
-// scales equal the plain `quantize_ref` bit for bit, the dequantised values
-// `dequantize_ref`'s. Build without -use_fast_math.
+// `__fmul_rn`, and bf16 is stored by round-to-nearest-even. A NaN or +-Inf
+// lane quantises as the reference's does (common.cuh: the absmax keeps a
+// NaN, a NaN quotient is code 0). Codes and scales equal the plain
+// `quantize_ref` bit for bit, the dequantised values `dequantize_ref`'s.
+// Build without -use_fast_math.
 //
 // Plain C interface for ctypes: each launcher enqueues on the given stream,
 // does not synchronise, allocates nothing, and returns cudaGetLastError().
@@ -97,14 +99,14 @@ quant_kernel(const T* __restrict__ x, signed char* __restrict__ codes,
         for (int e = 0; e < V; ++e) v[j * V + e] = 0.0f;
       }
 #pragma unroll
-      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[j * V + e]));
+      for (int e = 0; e < V; ++e) amax = max_nan(amax, fabsf(v[j * V + e]));
     }
   } else {
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       const long long lane = base + (long long)i * kQuantThreads + threadIdx.x;
       v[i] = lane < N ? to_f32(x[lane]) : 0.0f;
-      amax = fmaxf(amax, fabsf(v[i]));
+      amax = max_nan(amax, fabsf(v[i]));
     }
   }
 

@@ -8,9 +8,8 @@ aggregation is ONE kernel launch:
   the kernel, so optimizer counters survive aggregation exactly without a
   second pass.
 * :func:`aggregate_quantize_flat` — the fused aggregate→quantize variant:
-  emits the fp32 mean *and* int8 codes + per-subtile scales straight from
-  registers, saving the extra device-memory round trip of a separate
-  quantize call.
+  emits the fp32 mean *and* int8 codes + per-subtile scales in the same
+  launch, saving a separate quantize call.
 
 Secure aggregation (``repro_torch.secureagg``) adds three more, over
 *sealed* rows whose fp32 bit patterns were shifted in the uint32 ring by a
@@ -32,12 +31,15 @@ CUDA C++ for Hopper, ``csrc/fused_agg.cu``. The plain forms are bounded by
 bytes on the card: a stream of ``(P+1)·N`` words in and ``N`` out; at the
 session's shape the stack sits in L2 and the launch dominates. The masked
 forms are bounded by the PRG's integer operations (P·R words a lane). The
-design (a grid over lanes with 16-byte loads; for the quantised form one
-block per subtile with the means held in registers across the absmax
-reduction; for the masked forms the same kernels reading rows through an
-unsealing reader, at one lane a thread with a block size chosen from N,
-and for a model too small to fill the card a kernel that spreads its rows
-over warps) is described at the top of the source.
+design (a grid over lanes with 16-byte loads; the masked forms the same
+kernel reading rows through an unsealing reader, with a block size chosen
+from N, or for a model too small to fill the card a kernel that spreads
+its rows over warps; the quantised forms on the same grids, where every
+block of a subtile waits for the subtile's absmax and quantises its own
+means when the whole grid fits on the card at once, or else the last block
+of a subtile to finish writes its codes) is described at the top of the
+source. The quantised forms count arrivals in a workspace that the
+wrappers own (``_workspace``).
 
 Dispatch is by where the tensors live: a CUDA tensor launches the kernel or
 raises — there is no fallback — and a CPU tensor takes the plain PyTorch
@@ -84,15 +86,18 @@ def _lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fused_agg_launch.argtypes = [p, p, p, p, i, ll, p]
         lib.fused_agg_launch.restype = ctypes.c_int
-        lib.fused_agg_quant_launch.argtypes = [p, p, p, p, p, p, i, ll, p]
+        lib.fused_agg_quant_launch.argtypes = [p, p, p, p, p, p, p, p, p, i,
+                                               ll, p]
         lib.fused_agg_quant_launch.restype = ctypes.c_int
         lib.fused_mask_launch.argtypes = [p, p, p, i, p, ll, p]
         lib.fused_mask_launch.restype = ctypes.c_int
         lib.fused_unmask_agg_launch.argtypes = [p, p, p, p, p, i, p, i, ll, p]
         lib.fused_unmask_agg_launch.restype = ctypes.c_int
         lib.fused_unmask_agg_quant_launch.argtypes = [p, p, p, p, p, i, p, p,
-                                                      p, i, ll, p]
+                                                      p, p, p, p, i, ll, p]
         lib.fused_unmask_agg_quant_launch.restype = ctypes.c_int
+        lib.fused_plan.argtypes = [i, ll, i, p, p, p, p, p]
+        lib.fused_plan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -274,6 +279,88 @@ def _raise_on(rc: int, name: str) -> None:
                            f"{rc} (cudaGetLastError)")
 
 
+class _Workspace:
+    """The quantised kernels' workspace on one device: three rows of a
+    uint32 word a subtile (arrival counts, the absmax's bits, generations),
+    which every launch leaves ready for the next (the first two rows at 0).
+    ``words`` is the tensor the next launch uses, ``kept`` the smaller ones
+    it replaced, ``stream`` the stream of the last launch issued outside a
+    graph capture."""
+
+    __slots__ = ("words", "kept", "stream")
+
+    def __init__(self, words):
+        self.words, self.kept, self.stream = words, [], None
+
+
+_WORKSPACE = {}
+
+
+def _workspace(device, n):
+    """The workspace's three rows' addresses for ``n`` lanes on ``device``
+    (the current CUDA device), made with ``torch.zeros`` on the first call
+    and grown to at least twice its size when a call needs more; the C
+    entries allocate nothing.
+
+    * Growing never frees: a CUDA graph captured before holds the old
+      tensor's address, so the old tensor is kept in ``kept`` and the
+      graph's replays go on using it, left ready by each replay.
+    * Growing inside a graph capture raises, because the zeros would be
+      written only when the graph replays: make one call at that size (or
+      more) before capturing.
+    * A call on another stream than the last call's first waits for that
+      stream (``wait_stream``), so calls issued on two streams never use
+      the words at once. A graph replay is not ordered so: replay a graph
+      that holds these kernels on the stream of the other calls, or when
+      none is running.
+    """
+    need = -(-n // SUBTILE)
+    ws = _WORKSPACE.get(device)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if ws is None or ws.words.shape[1] < need:
+        if capturing:
+            raise RuntimeError(
+                f"the quantised kernels' workspace must grow to {need} "
+                "subtiles inside a CUDA graph capture: make one call at "
+                "this size before capturing")
+        words = torch.zeros(
+            (3, need if ws is None else max(need, 2 * ws.words.shape[1])),
+            dtype=torch.int32, device=device)
+        if ws is None:
+            ws = _WORKSPACE[device] = _Workspace(words)
+        else:
+            ws.kept.append(ws.words)
+            ws.words = words
+    if not capturing:
+        stream = torch.cuda.current_stream(device)
+        if ws.stream is not None and ws.stream != stream:
+            stream.wait_stream(ws.stream)
+        ws.stream = stream
+    return [row.data_ptr() for row in ws.words]
+
+
+_PLAN_OPS = ("fused.agg", "fused.agg_quant", "fused.unmask_agg",
+             "fused.unmask_agg_quant")
+_PLAN_FORMS = ("lanes", "rows")
+
+
+def launch_plan(name: str, n: int, terms: int = 0) -> dict:
+    """The kernel that the launcher of ``name`` (one of ``_PLAN_OPS``) runs
+    at ``n`` lanes of 16-byte aligned rows on the current CUDA device, with
+    ``terms`` (P·R) staged mask terms for the masked ones: its form (one
+    lane a thread, or rows over warps), whether a thread takes four lanes,
+    its grid, and for a quantised form whether
+    every block waits for its subtile's scale (``together``) or the last
+    block of a subtile writes its codes."""
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong(),
+           ctypes.c_int()]
+    _raise_on(_lib().fused_plan(_PLAN_OPS.index(name), n, terms,
+                                *map(ctypes.byref, out)), "fused_plan")
+    form, vec, threads, blocks, together = (v.value for v in out)
+    return {"form": _PLAN_FORMS[form], "vec": bool(vec), "threads": threads,
+            "blocks": blocks, "together": bool(together)}
+
+
 def aggregate_flat_onepass(x, w, int_mask=None):
     """x: (P, N) flat fp32 models; w: (P,). One kernel launch → mean (N,).
 
@@ -318,10 +405,11 @@ def aggregate_quantize_flat(x, w, int_mask=None):
     scales = torch.empty((-(-N // SUBTILE),), dtype=torch.float32,
                          device=x.device)
     with torch.cuda.device(x.device):
+        words = _workspace(x.device, N)
         rc = lib.fused_agg_quant_launch(
             x.data_ptr(), w.data_ptr(), None if m is None else m.data_ptr(),
-            mean.data_ptr(), codes.data_ptr(), scales.data_ptr(), P, N,
-            _stream(x))
+            mean.data_ptr(), codes.data_ptr(), scales.data_ptr(), *words, P,
+            N, _stream(x))
     _raise_on(rc, "fused.agg_quant")
     aggregate_quantize_flat.launches += 1
     return mean, codes, scales
@@ -397,11 +485,12 @@ def unmask_aggregate_quantize_flat(y, w, int_mask=None, *, seeds, signs):
     scales = torch.empty((-(-N // SUBTILE),), dtype=torch.float32,
                          device=y.device)
     with torch.cuda.device(y.device):
+        words = _workspace(y.device, N)
         rc = lib.fused_unmask_agg_quant_launch(
             y.data_ptr(), w.data_ptr(), None if m is None else m.data_ptr(),
             seeds.data_ptr(), signs.data_ptr(), seeds.shape[1],
-            mean.data_ptr(), codes.data_ptr(), scales.data_ptr(), P, N,
-            _stream(y))
+            mean.data_ptr(), codes.data_ptr(), scales.data_ptr(), *words, P,
+            N, _stream(y))
     _raise_on(rc, "fused.unmask_agg_quant")
     unmask_aggregate_quantize_flat.launches += 1
     return mean, codes, scales

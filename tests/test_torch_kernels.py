@@ -103,6 +103,79 @@ def test_reference_mean_through_port_quantiser_is_bit_identical(N):
         np.asarray(jref.dequantize_ref(want_q, want_s)))
 
 
+# A NaN, a +Inf and a -Inf mean planted at one lane of subtiles 0, 1 and 2
+# (as many as N has): the reference (jnp.max, then an int8 cast of a NaN
+# quotient) gives a NaN subtile scale NaN and every code 0, an Inf subtile
+# scale Inf and every code 0 (finite / Inf is 0, Inf / Inf is NaN).
+NONFINITE = (np.nan, np.inf, -np.inf)
+
+
+def _plant_nonfinite(x):
+    """Row 0 of ``x`` gets NONFINITE's values at lane 1000 of each subtile
+    (the last lane where a subtile is shorter); returns the subtiles."""
+    N = x.shape[1]
+    planted = []
+    for s, v in enumerate(NONFINITE):
+        if s * fused.SUBTILE < N:
+            x[0, min(s * fused.SUBTILE + 1000, N - 1)] = v
+            planted.append(s)
+    return planted
+
+
+def _quantised(masked, x, w, seed):
+    """(mean, codes, scales) of the port's and of the reference's Pallas
+    kernel (interpret mode) on the stack ``x``, sealed first if
+    ``masked``."""
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    if not masked:
+        return (fused.aggregate_quantize_flat(tx, tw),
+                jfused.aggregate_quantize_flat(jnp.asarray(x), jnp.asarray(w),
+                                               None, interpret=True))
+    P = x.shape[0]
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, 2**32, (P, 2), dtype=np.uint64).astype(np.uint32)
+    signs = np.where(rng.random((P, 2)) < 0.5, -1, 1).astype(np.int32)
+    ts, tg = (torch.from_numpy(a.astype(np.int64)) for a in (seeds, signs))
+    ty = torch.stack([fused.apply_mask_flat(tx[p], ts[p], tg[p])
+                      for p in range(P)])
+    return (fused.unmask_aggregate_quantize_flat(ty, tw, seeds=ts, signs=tg),
+            jfused.unmask_aggregate_quantize_flat(
+                jnp.asarray(ty.numpy()), jnp.asarray(w), None, seeds=seeds,
+                signs=signs, interpret=True))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("N,nonfinite", [(16385, False), (16385, True),
+                                         (3 * 16384 + 5, True)])
+def test_quantised_kernels_at_a_subtile_edge_and_nonfinite_lanes(
+        N, nonfinite, masked):
+    """B2 and B5's CPU versions against the reference's Pallas kernels at
+    one lane past a subtile, and with NaN and +-Inf means: the planted
+    subtiles' scales NaN or Inf and their codes 0 in both packages; the
+    other subtiles as in ``test_quantize_matches_pallas_interpret_and_jnp``
+    (ROADMAP C1); codes and scales bit for bit the port's oracle on its own
+    mean."""
+    x, w, _ = _inputs(3, N, seed=N + nonfinite)
+    planted = _plant_nonfinite(x) if nonfinite else []
+    (mean, codes, scales), (jm, jq, js) = _quantised(masked, x, w, seed=N)
+    jm, jq, js = np.asarray(jm), np.asarray(jq), np.asarray(js)
+    np.testing.assert_allclose(mean.numpy(), jm, **TOL)     # NaN, Inf equal
+    oq, os_ = fused._plain_quantize(mean)
+    assert torch.equal(codes, oq)
+    np.testing.assert_array_equal(scales.numpy(), os_.numpy())
+    S = fused.SUBTILE
+    for s in range(-(-N // S)):
+        got_q, want_q = codes.numpy()[s * S:(s + 1) * S], jq[s * S:(s + 1) * S]
+        if s in planted:
+            want = np.nan if s == 0 else np.inf
+            np.testing.assert_array_equal(scales.numpy()[s], want)
+            np.testing.assert_array_equal(js[s], want)
+            assert not got_q.any() and not want_q.any()
+        else:
+            np.testing.assert_allclose(scales.numpy()[s], js[s], rtol=3e-7)
+            assert np.abs(got_q.astype(np.int32) - want_q).max() <= 1
+
+
 def test_pad_lanes_are_exact_zeros():
     """A ragged last subtile quantises as if padded with zeros: its scale
     comes from the real lanes only."""
@@ -264,25 +337,44 @@ def test_cuda_source_keeps_its_exactness_contract():
     """What the CPU can check of the CUDA source: IEEE division and
     half-to-even rounding intrinsics, one definition of the mean's per-row
     step and of its finish (shared by B1, B2, B4 and B5 through
-    ``weighted_mean_lane`` and by B4's kernel for few lanes), no
+    ``weighted_mean_lane`` and by the kernel for few lanes), the quantised
+    forms' last-block phase and the absmax that keeps a NaN, no
     fast-math."""
     import os
 
     from repro_torch.kernels import build
     src = open(os.path.join(build.CSRC, "fused_agg.cu")).read()
+    common = open(os.path.join(build.CSRC, "common.cuh")).read()
     for needle in ("__fdiv_rn", "rintf", "__fmaf_rn", "weighted_mean_lane",
                    'extern "C"', "cudaGetLastError",
                    # the masked kernels: uint32 ring arithmetic, the PRG's
                    # constants, B4's and B5's means reached through
-                   # SealedRows, B4's kernel for few lanes, and the staged
+                   # SealedRows, the kernel for few lanes, and the staged
                    # terms' shared-memory opt-in
                    "uint32_t", "0x7FEB352Du", "0x846CA68Bu", "SealedRows",
                    "__uint_as_float", "fused_unmask_rows_kernel",
                    "cudaFuncAttributeMaxDynamicSharedMemorySize",
                   "attr.sharedSizeBytes + smem",
                    "fused_mask_launch", "fused_unmask_agg_launch",
-                   "fused_unmask_agg_quant_launch"):
+                   "fused_unmask_agg_quant_launch",
+                   # the quantised forms' second phase: the means are made
+                   # visible before the arrival is counted, read back
+                   # coherently, and the count and absmax are left at 0;
+                   # blocks wait for their subtile only in a cooperative
+                   # launch of a grid that fits on the card
+                   '#include "common.cuh"', "__threadfence();",
+                   "atomicMax(q.absmax + t.s, __float_as_uint(amax))",
+                   "atomicAdd(q.arrived + t.s, 1u)", "q.arrived[t.s] = 0u;",
+                   "atomicExch(q.absmax + t.s, 0u)", "__ldcg(", "max_nan(",
+                   "cudaLaunchAttributeCooperative",
+                   "cudaOccupancyMaxActiveBlocksPerMultiprocessor"):
         assert needle in src, needle
+    # the absmax keeps a NaN and a NaN quotient is code 0, as the
+    # reference's jnp.max and int8 cast give them
+    for needle in ("max.NaN.f32", "__fdiv_rn(max_nan(absmax, 1e-12f), 127.0f)",
+                   "if (isnan(q)) return 0;"):
+        assert needle in common, needle
+    assert "fmaxf(amax" not in src + common
     # one definition of the per-row step and of the finish, so every
     # aggregation kernel's mean is the same bit for bit
     assert src.count("float mean_step(") == 1
@@ -309,15 +401,16 @@ def _fused_c_params(src, name):
 
 def test_fused_ctypes_binding_matches_the_c_entry_points(monkeypatch):
     """The wrappers' ctypes argument types follow the C parameters of the
-    five launch entry points one for one (a pointer or a 64-bit count in
-    an int's place is cut or misread silently)."""
+    five launch entry points and the launch plan's one for one (a pointer
+    or a 64-bit count in an int's place is cut or misread silently)."""
     import ctypes
     import os
     import types
 
     from repro_torch.kernels import build
     names = ("fused_agg_launch", "fused_agg_quant_launch", "fused_mask_launch",
-             "fused_unmask_agg_launch", "fused_unmask_agg_quant_launch")
+             "fused_unmask_agg_launch", "fused_unmask_agg_quant_launch",
+             "fused_plan")
     fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
                                     for n in names})
     monkeypatch.setattr(build, "load", lambda name: fake)
@@ -333,3 +426,58 @@ def test_fused_ctypes_binding_matches_the_c_entry_points(monkeypatch):
             block, name), name
         assert fn.restype is ctypes.c_int
         assert _fused_c_params(block, name)[-1] == "pointer"   # stream, out
+
+
+class _FakeStream:
+    """Stands in for a CUDA stream: records the streams it waited for."""
+
+    def __init__(self, name):
+        self.name, self.waited = name, []
+
+    def wait_stream(self, other):
+        self.waited.append(other.name)
+
+
+def test_quant_workspace_keeps_what_a_graph_holds_and_orders_streams(
+        monkeypatch):
+    """The quantised kernels' workspace (its logic, on CPU tensors): made
+    at zero, grown to at least twice its size with the smaller tensor kept
+    (a graph captured before holds its address), never grown inside a
+    graph capture, and a call on another stream than the last waits for
+    that stream; calls inside a capture neither wait nor move it."""
+    state = {"stream": _FakeStream("a"), "capturing": False}
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: state["stream"])
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: state["capturing"])
+    monkeypatch.setattr(fused, "_WORKSPACE", {})
+    dev = torch.device("cpu")
+    S = fused.SUBTILE
+
+    first = fused._workspace(dev, 3 * S)
+    ws = fused._WORKSPACE[dev]
+    assert ws.words.shape == (3, 3) and not ws.words.any()
+    assert first == [row.data_ptr() for row in ws.words]
+    assert fused._workspace(dev, 2 * S + 1) == first        # no growth
+    old = ws.words
+    grown = fused._workspace(dev, 4 * S)
+    assert ws.words.shape == (3, 6) and not ws.words.any()
+    assert ws.kept == [old] and grown != first
+    assert fused._workspace(dev, 7 * S) != grown and ws.words.shape[1] == 12
+    assert len(ws.kept) == 2
+
+    a, b, c = state["stream"], _FakeStream("b"), _FakeStream("c")
+    state["stream"] = b
+    fused._workspace(dev, S)
+    assert b.waited == ["a"] and ws.stream is b
+    fused._workspace(dev, S)
+    assert b.waited == ["a"]                                # same stream
+    state.update(stream=c, capturing=True)
+    fused._workspace(dev, S)
+    assert c.waited == [] and ws.stream is b
+    with pytest.raises(RuntimeError, match="before capturing"):
+        fused._workspace(dev, 13 * S)
+    assert ws.words.shape[1] == 12 and len(ws.kept) == 2
+    state.update(stream=a, capturing=False)
+    fused._workspace(dev, S)
+    assert a.waited == ["b"] and ws.stream is a

@@ -194,6 +194,40 @@ def test_quantize_flat_bit_exact_to_oracle_within_a_step_of_kernel(N):
     assert steps.max() <= 1
 
 
+@pytest.mark.parametrize("N", [TILE + 1, 3 * TILE + 5])
+def test_quantize_flat_nonfinite_lanes_match_reference(N):
+    """A NaN at a lane of tile 0, +Inf of tile 1 and -Inf of tile 2 (as
+    many as N has): scale NaN, Inf, Inf and every code of those tiles 0, in
+    the port as in the reference's oracle and its Pallas kernel (interpret
+    mode); the other tiles as in the test above."""
+    x = _delta(N, seed=N + 1)
+    planted = []
+    for t, v in enumerate((np.nan, np.inf, -np.inf)):
+        if t * TILE < N:
+            x[min(t * TILE + 1000, N - 1)] = v
+            planted.append(t)
+    codes, scales = quantize_flat(torch.from_numpy(x))
+    pad = (-N) % TILE
+    want_q, want_s = jref.quantize_ref(jnp.pad(jnp.asarray(x), (0, pad)))
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want_q)[:N])
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(want_s))
+    kq, ks = j_quantize_tiles(jnp.pad(jnp.asarray(x), (0, pad)),
+                              interpret=True)
+    kq, ks = np.asarray(kq)[:N], np.asarray(ks)
+    for t in range(-(-N // TILE)):
+        got_q = codes.numpy()[t * TILE:(t + 1) * TILE]
+        if t in planted:
+            want = np.nan if t == 0 else np.inf
+            np.testing.assert_array_equal(scales.numpy()[t], want)
+            np.testing.assert_array_equal(ks[t], want)
+            assert not got_q.any() and not kq[t * TILE:(t + 1) * TILE].any()
+        else:
+            assert abs(int(scales.numpy().view(np.int32)[t])
+                       - int(ks.view(np.int32)[t])) <= 1
+            assert np.abs(got_q.astype(np.int32)
+                          - kq[t * TILE:(t + 1) * TILE]).max() <= 1
+
+
 def test_quantize_bf16_input_is_its_fp32_widening():
     x = _delta(TILE + 77, seed=4)
     tb, jb = _pair(x, "bfloat16")
@@ -377,7 +411,7 @@ def test_cuda_sources_keep_their_exactness_contract(source):
     if source == "aggregate":
         needles += ["__fdiv_rn", "__fmaf_rn", "__fadd_rn"]
     else:
-        needles += ["__fdiv_rn(fmaxf(absmax, 1e-12f), 127.0f)", "rintf",
+        needles += ["__fdiv_rn(max_nan(absmax, 1e-12f), 127.0f)", "rintf",
                     "__fmul_rn", "int dequantize_launch("]
     for needle in needles:
         assert needle in src, needle
