@@ -35,7 +35,22 @@ two main paths and checks that each really went through its kernels:
   aggregating through ``fused.agg``, then ``fused.agg_quant`` over its last
   cohort), and the same session with ``secure_agg="masked"`` built
   directly (``fused.mask``, ``fused.unmask_agg``, then
-  ``fused.unmask_agg_quant`` over its last sealed cohort).
+  ``fused.unmask_agg_quant`` over its last sealed cohort);
+* served: the CNN session of the plain path with a serving deployment
+  (``ServeConfig(n_replicas=2, publish_every=1, spool_dir=...)``), each
+  published round saved by ``checkpoint.save`` and installed on both
+  replicas by ``checkpoint.restore`` onto the card (``fused.agg`` at every
+  aggregation); every install ``torch.equal`` to the params the fabric was
+  handed at its round, and the same session without the spool giving the
+  same ``serving`` dict and round times; wall seconds of both, and the
+  spool's seconds per save and per install;
+* ckpt_lm: one TinyLlama-1.1B tree at full width and depth (bf16, 12
+  leaves, 2.2 GB) saved to a temporary directory and restored onto the
+  card, every leaf ``torch.equal``; seconds and GB/s of each;
+* mf_ckpt: the MF session through the training launcher again, with
+  ``--ckpt PATH --ckpt-every 1``; the last file, restored into the MF
+  template on the card, equals the last params saved, bit for bit, and its
+  meta the last save's.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -1038,7 +1053,7 @@ def flash_rows(rows, dev):
 
 
 def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
-                secure_agg=None):
+                secure_agg=None, serve=None):
     from repro_torch.config import ModestConfig, TrainConfig
     from repro_torch.data.synthetic import make_classification_task
     from repro_torch.models.tasks import cnn_task
@@ -1053,7 +1068,7 @@ def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
         task=task or cnn_task(),
         data=make_classification_task(n_nodes, samples_per_node=100,
                                       iid=False, alpha=0.5, seed=0),
-        seed=0, eval_every_rounds=5, engine=engine)
+        seed=0, eval_every_rounds=5, engine=engine, serve=serve)
 
 
 def record_aggregate_inputs(session):
@@ -1081,12 +1096,18 @@ def read_counts():
     return {n: k["wrapper"].launches for n, k in KERNELS.items()}
 
 
-def run_session(session, sim_seconds: float):
+def synced_seconds(fn, *args):
+    """``(fn(*args), seconds)`` on the host clock, synchronising the card
+    before and after."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = session.run(sim_seconds)
+    out = fn(*args)
     torch.cuda.synchronize()
-    return result, time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def run_session(session, sim_seconds: float):
+    return synced_seconds(session.run, sim_seconds)
 
 
 def check_session(session, result, metric="accuracy"):
@@ -2112,6 +2133,226 @@ def prg_word_pipes(sass: str):
     return by_kind, per_kernel
 
 
+# ---------------------------------------------------------------------------
+# the checkpoint and serving paths
+# ---------------------------------------------------------------------------
+
+
+def served_session(sim_seconds: float, spool_dir):
+    """The session of ``session_phase`` with ``ServeConfig(n_replicas=2,
+    publish_every=1, spool_dir=spool_dir)``, run once. Records, in both
+    forms alike, the training-side params the fabric is handed at each
+    round (a copy on the card), every install's params and the seconds of
+    each spool save and install (synchronised)."""
+    from repro_torch.engine.flat import as_tree
+    from repro_torch.serve import ServeConfig
+    from repro_torch.utils.pytree import tree_map
+
+    session = cnn_session(32, 10, "batched", serve=ServeConfig(
+        n_replicas=2, publish_every=1, spool_dir=spool_dir))
+    fabric = session.serving
+    rec = {"handed": {}, "installed": [], "save": [], "restore": []}
+    on_round, save, load = (fabric.on_round, fabric._spool_save,
+                            fabric.load_snapshot)
+
+    def record(k, params, src):
+        if params is not None and k not in rec["handed"]:
+            rec["handed"][k] = tree_map(torch.clone, as_tree(params))
+        on_round(k, params, src)
+
+    def timed_save(k, params):
+        rec["save"].append(synced_seconds(save, k, params)[1])
+
+    def timed_load(msg):
+        payload, seconds = synced_seconds(load, msg)
+        rec["restore"].append(seconds)
+        rec["installed"].append((msg.round_k, payload.params))
+        return payload
+
+    fabric.on_round = record
+    fabric._spool_save = timed_save
+    fabric.load_snapshot = timed_load
+    reset_counts()                         # counts of this path only
+    result, wall = run_session(session, sim_seconds)
+    return session, result, wall, rec, read_counts()
+
+
+def same_tree(got, want, what: str) -> None:
+    """Every leaf of ``got`` on the card and ``torch.equal`` to ``want``'s,
+    dtype and shape included."""
+    from repro_torch.engine.flat import as_tree
+    from repro_torch.utils.pytree import tree_leaves
+
+    a, b = tree_leaves(as_tree(got)), tree_leaves(want)
+    if len(a) != len(b) or not a:
+        raise AssertionError(f"{what}: {len(a)} leaves against {len(b)}")
+    for x, y in zip(a, b):
+        if x.device.type != "cuda" or x.dtype != y.dtype or \
+                not torch.equal(x, y):
+            raise AssertionError(f"{what}: a leaf {tuple(x.shape)} "
+                                 f"{x.dtype} on {x.device} differs")
+
+
+def check_served(session, result, rec, launches, spooled):
+    """What every run of the served session must show: ``fused.agg`` at
+    each aggregation, something installed and served, one file a
+    publication where there is a spool, and every install (and each
+    replica's last) equal on the card to what the fabric was handed."""
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    if launches["fused.agg"] != n_agg or n_agg == 0:
+        raise AssertionError(f"{launches['fused.agg']} fused.agg launches "
+                             f"for {n_agg} aggregations")
+    check_session(session, result)
+    serving = result.serving
+    if not serving["snapshots_installed"] > 0 or not serving["served"] > 0:
+        raise AssertionError(f"nothing installed or served: {serving}")
+    if spooled is not None and spooled != serving["snapshots_published"]:
+        raise AssertionError(f"{spooled} files for {serving}")
+    if len(rec["installed"]) != serving["snapshots_installed"] or \
+            bool(rec["save"]) != (spooled is not None):
+        raise AssertionError(f"{len(rec['installed'])} installs, "
+                             f"{len(rec['save'])} saves for {serving}")
+    for k, params in rec["installed"]:
+        same_tree(params, rec["handed"][k], f"install of round {k}")
+    for replica in session.serving.replicas:
+        same_tree(replica.params.params, rec["handed"][replica.round],
+                  f"replica {replica.node_id}")
+    return n_agg
+
+
+def served_phase(sim_seconds: float):
+    """The paper-CNN session with a serving deployment whose snapshots
+    spool through ``checkpoint.save`` / ``checkpoint.restore``, and the
+    same session without the spool, in turns (spool, none, none, spool),
+    each counted and checked by ``check_served``; every run must give the
+    first one's ``serving`` dict and round times."""
+    walls = {"spool": [], "no_spool": []}
+    timers = {"save": [], "restore": []}
+    first = None
+    for turn in ("spool", "no_spool", "no_spool", "spool"):
+        with tempfile.TemporaryDirectory() as tmp:
+            session, result, wall, rec, launches = served_session(
+                sim_seconds, tmp if turn == "spool" else None)
+            files = sorted(Path(tmp).glob("round_*.npz"))
+            snapshot_bytes = files[0].stat().st_size if files else None
+        n_agg = check_served(session, result, rec, launches,
+                             len(files) if turn == "spool" else None)
+        walls[turn].append(wall)
+        if turn == "spool":
+            timers["save"] += rec["save"]
+            timers["restore"] += rec["restore"]
+            file_bytes = snapshot_bytes
+        if first is None:
+            first = (result.serving, result.round_times, launches, n_agg,
+                     result.rounds_completed, session.task.flat_spec.n)
+        elif (result.serving, result.round_times) != first[:2]:
+            raise AssertionError(f"the {turn} run differs: "
+                                 f"{result.serving} against {first[0]}")
+        del session, rec
+    serving, _, launches, n_agg, rounds, n_params = first
+    spool_mean = float(np.mean(walls["spool"]))
+    gap = spool_mean - float(np.mean(walls["no_spool"]))
+    timed = (sum(timers["save"]) + sum(timers["restore"])) / 2
+    emit("served", model="paper-cnn", n_params=n_params, n_nodes=32,
+         sample_size=10, sim_seconds=sim_seconds, n_replicas=2,
+         publish_every=1, rounds=rounds, aggregations=n_agg,
+         launches=launches, wall_seconds=walls["spool"],
+         wall_seconds_no_spool=walls["no_spool"],
+         spool_wall_gap_seconds=gap, spool_wall_gap_share=gap / spool_mean,
+         publications=serving["snapshots_published"],
+         installs=serving["snapshots_installed"],
+         spool_save_seconds_per_publication=float(np.mean(timers["save"])),
+         spool_restore_seconds_per_install=float(
+             np.mean(timers["restore"])),
+         spool_timed_seconds_per_run=timed,
+         spool_timed_share=timed / spool_mean,
+         snapshot_file_bytes=file_bytes,
+         serving={k: serving[k] for k in (
+             "requests", "served", "lost", "p50_latency_s", "p99_latency_s",
+             "staleness_mean_rounds", "snapshots_published",
+             "snapshots_installed", "snapshot_bytes", "frontier_round")})
+
+
+def ckpt_lm_phase(dev):
+    """One TinyLlama-1.1B tree at full width and depth (bf16, 12 leaves)
+    saved to a temporary directory and restored onto the card: every leaf
+    ``torch.equal`` to the saved one, in bf16; seconds and GB/s of each."""
+    from repro_torch import checkpoint, configs
+    from repro_torch.models import build
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = configs.get_config("tinyllama-1.1b")
+    tree = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    leaves = tree_leaves(tree)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    if len(leaves) != 12 or {x.dtype for x in leaves} != {torch.bfloat16}:
+        raise AssertionError(f"tinyllama tree changed: {len(leaves)} leaves")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tinyllama-1.1b")
+        _, save_s = synced_seconds(checkpoint.save, path, tree,
+                                   {"arch": cfg.name})
+        file_bytes = os.path.getsize(path + ".npz")
+        (back, meta), restore_s = synced_seconds(checkpoint.restore, path,
+                                                 tree)
+    if meta != {"arch": cfg.name}:
+        raise AssertionError(f"meta {meta}")
+    same_tree(back, tree, "tinyllama-1.1b checkpoint")
+    del back
+    # the copies alone, for the files' share of the times above
+    host, d2h_s = synced_seconds(lambda: [x.cpu() for x in leaves])
+    _, h2d_s = synced_seconds(lambda: [x.to(dev) for x in host])
+    emit("ckpt_lm", model=cfg.name, leaves=len(leaves), bytes=nbytes,
+         file_bytes=file_bytes, save_seconds=save_s,
+         restore_seconds=restore_s, save_gb_per_s=nbytes / save_s / 1e9,
+         restore_gb_per_s=nbytes / restore_s / 1e9,
+         device_to_host_seconds=d2h_s, host_to_device_seconds=h2d_s)
+
+
+def mf_ckpt_phase(sim_seconds: float):
+    """The MF session through ``launch.train.main`` with ``--ckpt PATH
+    --ckpt-every 1``, counted, apart from ``mf_session``'s timed call: the
+    last save, restored into the MF template on the card, equals the last
+    params the launcher's hook saved, bit for bit, with its meta."""
+    from repro_torch import checkpoint
+    from repro_torch.engine.flat import as_tree
+    from repro_torch.launch import train
+    from repro_torch.models.tasks import mf_task
+    from repro_torch.utils.pytree import tree_map
+
+    saves = []
+    save = checkpoint.save
+
+    def keep(path, tree, meta=None):
+        saves.append((tree_map(torch.clone, as_tree(tree)), dict(meta)))
+        save(path, tree, meta)
+
+    checkpoint.save = keep
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "mf.npz")
+            reset_counts()                 # counts of this path only
+            result, wall = synced_seconds(train.main, mf_args(sim_seconds) + [
+                "--ckpt", path, "--ckpt-every", "1",
+                "--out", os.path.join(tmp, "mf.csv")])
+            launches = read_counts()
+            template = mf_task(mf_users=32, mf_items=500).init_params(0)
+            (back, meta), restore_s = synced_seconds(checkpoint.restore,
+                                                     path, template)
+    finally:
+        checkpoint.save = save
+    if not saves or launches["fused.agg"] <= 0:
+        raise AssertionError(f"{len(saves)} saves, launches {launches}")
+    rounds = [m["round"] for _, m in saves]
+    if rounds != sorted(set(rounds)) or meta != saves[-1][1] or \
+            meta != {"round": rounds[-1], "algo": "modest", "task": "mf"}:
+        raise AssertionError(f"meta {meta} after saves of rounds {rounds}")
+    same_tree(back, saves[-1][0], "the MF launcher's last checkpoint")
+    emit("mf_ckpt", model="paper-mf", sim_seconds=sim_seconds,
+         rounds=result.rounds_completed, saves=len(saves),
+         last_round=rounds[-1], launches=launches, wall_seconds=wall,
+         restore_seconds=restore_s)
+
+
 def engines_phase():
     from repro_torch.models.tasks import cnn_task
 
@@ -2237,6 +2478,10 @@ def main() -> int:
     breakdown_phase(sim_seconds=40.0, secure_agg="masked")
     profile_phase(sim_seconds=20.0)
     engines_phase()
+    served_phase(sim_seconds=40.0)
+    ckpt_lm_phase(dev)
+    torch.cuda.empty_cache()
+    mf_ckpt_phase(sim_seconds=40.0)
 
     kernels = []
     for name, meta in KERNELS.items():

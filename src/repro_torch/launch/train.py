@@ -8,12 +8,15 @@ paper's CNN or MF task, on the card unless ``--device`` names another.
         --algo modest --task mf --nodes 50 --duration 300 [--device cpu]
 
 The session's evaluation history is written as CSV to ``--out`` (stdout
-when omitted), one row per evaluated round. The options that ``--mode
-sim`` reads keep the reference launcher's names and defaults. Not part of
-this package yet, and raising ``NotImplementedError``: ``--task lm``
-(ROADMAP A11a), ``--ckpt`` (ROADMAP A9) and ``--mode mesh`` (ROADMAP A12);
-the options that only those read (``--arch``, ``--lr``, ``--full-size``,
-...) are left out until then, so the parser rejects them.
+when omitted), one row per evaluated round. With ``--ckpt PATH`` a MoDeST
+or FedAvg session saves its latest aggregated model there
+(``repro_torch.checkpoint``, meta ``{"round", "algo", "task"}``) whenever
+``--ckpt-every`` rounds have passed since the last save. The options that
+``--mode sim`` reads keep the reference launcher's names and defaults.
+Not part of this package yet, and raising ``NotImplementedError``:
+``--task lm`` (ROADMAP A11a) and ``--mode mesh`` (ROADMAP A12); the
+options that only those read (``--arch``, ``--lr``, ``--full-size``, ...)
+are left out until then, so the parser rejects them.
 """
 
 from __future__ import annotations
@@ -27,10 +30,6 @@ def run_sim(args):
     if args.task == "lm":
         raise NotImplementedError("--task lm: training the dense LMs is not "
                                   "part of this package yet (ROADMAP A11a)")
-    if args.ckpt and args.algo in ("modest", "fedavg"):
-        raise NotImplementedError("--ckpt: checkpoints are not part of this "
-                                  "package yet (ROADMAP A9)")
-
     from repro_torch.config import ModestConfig, TrainConfig
     from repro_torch.data import make_classification_task, make_mf_task
     from repro_torch.models.tasks import cnn_task, mf_task
@@ -61,6 +60,25 @@ def run_sim(args):
         session = fedavg_session(mcfg=mcfg, **common)
     else:
         session = ModestSession(mcfg=mcfg, **common)
+
+    if args.ckpt and args.algo in ("modest", "fedavg"):
+        # persist the latest aggregated model periodically
+        from repro_torch import checkpoint
+
+        orig_hook = session._on_aggregate
+        state = {"last": 0}
+
+        def hook(k, params, node):
+            orig_hook(k, params, node)
+            if params is not None and k - state["last"] >= args.ckpt_every:
+                state["last"] = k
+                checkpoint.save(args.ckpt, params,
+                                meta={"round": k, "algo": args.algo,
+                                      "task": args.task})
+
+        session._on_aggregate = hook
+        for node in session.nodes.values():
+            node.on_aggregate = hook
 
     res = session.run(args.duration)
     log = CSVLogger(args.out)
@@ -96,6 +114,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint path for the aggregated global model")
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)

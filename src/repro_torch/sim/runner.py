@@ -25,6 +25,7 @@ from repro_torch.core.node import ModestNode
 from repro_torch.core.tasks import AbstractTask, LearningTask
 from repro_torch.data.loader import FederatedData
 from repro_torch.engine.cohort import make_engine
+from repro_torch.serve import ServingFabric
 from repro_torch.sim.churn import AvailabilityDriver
 from repro_torch.sim.clock import Simulator
 from repro_torch.sim.fault import FaultInjector
@@ -41,11 +42,10 @@ def _fault_setup(session, fault):
 def _serve_setup(session, serve, speeds, seed):
     """Attach a serving deployment (None = no fabric at all: no replica or
     client endpoints, no events, no RNG draws — the golden trajectories
-    stay byte-identical by construction). The serving subsystem is not
-    part of this package yet: a deployment raises."""
+    stay byte-identical by construction)."""
     if serve is None:
         return None
-    raise NotImplementedError("serve= deployments: later slice")
+    return ServingFabric(session, serve, speeds, seed)
 
 
 def _speeds(n: int, seed: int, base: float = 0.05, spread: float = 3.0):
@@ -115,7 +115,7 @@ class SessionResult:
     # including compute burned by trainings that were cancelled/crashed
     train_node_seconds: float = 0.0
     trainings_completed: int = 0
-    # query-plane summary; None unless the
+    # query-plane summary (repro_torch.serve); None unless the
     # session ran with a serve= deployment attached
     serving: Optional[dict] = None
 
@@ -149,9 +149,10 @@ class ModestSession:
     ``device``: where the session computes; None means the card (and
     raises without one), ``"cpu"`` the CPU. The task must live there.
 
-    ``serve`` would attach a serving deployment; that subsystem is not
-    part of this package yet, so anything but ``None`` raises
-    ``NotImplementedError``.
+    ``serve`` attaches a :class:`~repro_torch.serve.ServeConfig`
+    deployment: completed rounds fan out as snapshots to serving replicas
+    and query traffic is answered alongside training on the same fabric.
+    ``None`` (default) builds no serving state at all.
 
     ``mcfg.secure_agg="masked"`` turns on pairwise-mask secure aggregation
     (``repro_torch.secureagg``): trainers seal their models before pushing

@@ -1,15 +1,23 @@
 """Pytree arithmetic used by optimizers, aggregation and the protocol core.
 
-A pytree here is a nesting of ``dict`` / ``list`` / ``tuple`` / ``None``
-around leaves (tensors, arrays, scalars). Flattening reproduces the order
-of ``jax.tree.flatten``: dict entries by sorted key, sequences in order,
-``None`` holding no leaf — so the flat-buffer layout built on it
-(:mod:`repro_torch.engine.flat`) is interchangeable with the reference's.
+A pytree here is a nesting of ``dict`` / ``list`` / ``tuple`` /
+namedtuple / ``None`` around leaves (tensors, arrays, scalars). Flattening
+reproduces the order of ``jax.tree.flatten``: dict entries by sorted key,
+sequences and namedtuple fields in order, ``None`` holding no leaf — so the
+flat-buffer layout built on it (:mod:`repro_torch.engine.flat`) is
+interchangeable with the reference's. A namedtuple keeps its type: mapping
+over an optimizer state gives back the same state class.
+
+:func:`tree_flatten_with_path` names every leaf by the key parts that
+``jax.tree_util.tree_flatten_with_path`` gives it (a dict entry by its key,
+a sequence element by its index, a namedtuple field by its name), which is
+what checkpoint files are keyed by.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+from dataclasses import dataclass
+from typing import Any, Hashable, List, Tuple
 
 import numpy as np
 import torch
@@ -51,12 +59,37 @@ class TreeDef:
         return f"TreeDef({self.num_leaves} leaves)"
 
 
+@dataclass(frozen=True)
+class DictKey:
+    """Path part of a dict entry (``jax.tree_util.DictKey``)."""
+    key: Hashable
+
+
+@dataclass(frozen=True)
+class SequenceKey:
+    """Path part of a list or tuple element (``jax.tree_util.SequenceKey``)."""
+    idx: int
+
+
+@dataclass(frozen=True)
+class GetAttrKey:
+    """Path part of a namedtuple field (``jax.tree_util.GetAttrKey``)."""
+    name: str
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def _structure(tree, leaves: list):
     if tree is None:
         return _NONE
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
         return ("dict", keys, tuple(_structure(tree[k], leaves) for k in keys))
+    if _is_namedtuple(tree):
+        return ("namedtuple", type(tree),
+                tuple(_structure(t, leaves) for t in tree))
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
         return (kind, tuple(_structure(t, leaves) for t in tree))
@@ -76,6 +109,12 @@ def _flatten_up_to(node, tree, out: list) -> None:
             raise ValueError("tree structure mismatch: dict keys differ")
         for k, child in zip(node[1], node[2]):
             _flatten_up_to(child, tree[k], out)
+    elif kind == "namedtuple":
+        if type(tree) is not node[1]:
+            raise ValueError(f"tree structure mismatch: expected "
+                             f"{node[1].__name__}")
+        for child, sub in zip(node[2], tree):
+            _flatten_up_to(child, sub, out)
     else:
         if not isinstance(tree, (list, tuple)) or len(tree) != len(node[1]):
             raise ValueError("tree structure mismatch: sequence differs")
@@ -91,6 +130,8 @@ def _unflatten(node, it):
         return None
     if kind == "dict":
         return {k: _unflatten(child, it) for k, child in zip(node[1], node[2])}
+    if kind == "namedtuple":
+        return node[1](*[_unflatten(child, it) for child in node[2]])
     seq = [_unflatten(child, it) for child in node[1]]
     return seq if kind == "list" else tuple(seq)
 
@@ -99,6 +140,30 @@ def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
     node = _structure(tree, leaves)
     return leaves, TreeDef(node, len(leaves))
+
+
+def _paths(node, prefix: tuple, out: list) -> None:
+    kind = node[0]
+    if kind == "leaf":
+        out.append(prefix)
+    elif kind == "dict":
+        for k, child in zip(node[1], node[2]):
+            _paths(child, prefix + (DictKey(k),), out)
+    elif kind == "namedtuple":
+        for name, child in zip(node[1]._fields, node[2]):
+            _paths(child, prefix + (GetAttrKey(name),), out)
+    elif kind != "none":
+        for i, child in enumerate(node[1]):
+            _paths(child, prefix + (SequenceKey(i),), out)
+
+
+def tree_flatten_with_path(tree) -> Tuple[List[Tuple[tuple, Any]], TreeDef]:
+    """``([(path, leaf), ...], treedef)`` in leaf order; a path is a tuple
+    of :class:`DictKey` / :class:`SequenceKey` / :class:`GetAttrKey`."""
+    leaves, treedef = tree_flatten(tree)
+    paths: list = []
+    _paths(treedef.node, (), paths)
+    return list(zip(paths, leaves)), treedef
 
 
 def tree_unflatten(treedef: TreeDef, leaves):

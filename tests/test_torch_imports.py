@@ -86,6 +86,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     from repro_torch.config import ModestConfig
     from repro_torch.core.tasks import AbstractTask
     from repro_torch.engine.cohort import make_engine
+    from repro_torch.eval import Scenario, run_scenario, scenario_matrix
     from repro_torch.kernels.ops import aggregate_flatmodel
     from repro_torch.models.tasks import cnn_task
     from repro_torch.sim.runner import ModestSession
@@ -101,3 +102,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="CUDA"):
         ModestSession(n_nodes=4, mcfg=ModestConfig(n_nodes=4),
                       task=AbstractTask(1000))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario(Scenario(algo="modest", regime="diurnal", n=4,
+                              duration=1.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scenario_matrix(algos=("dsgd",), regimes=("homogeneous",), n=4,
+                        duration=1.0)

@@ -10,6 +10,7 @@ stacked lowering against per-model autograd in the port ``1e-6``.
 """
 
 import csv
+import json
 import sys
 
 import jax
@@ -252,9 +253,57 @@ def test_train_launcher_csv_equals_reference(algo, tmp_path, monkeypatch):
         assert np.isfinite(float(a["mse"]))
 
 
+@pytest.mark.parametrize("algo,every", [("modest", "1"), ("fedavg", "3"),
+                                        ("dsgd", "1")])
+def test_train_launcher_ckpt_equals_reference(algo, every, tmp_path,
+                                               monkeypatch):
+    """``--ckpt PATH --ckpt-every K`` writes the reference launcher's file at
+    the same argv and seed, both sessions starting from the reference's
+    initial weights: the same npz keys, shapes and dtypes, the same meta
+    (``round``, ``algo``, ``task``), values within ``rtol = atol = 1e-5``.
+    D-SGD has no aggregate to save, in either launcher."""
+    import repro_torch.models.tasks as tasks_mod
+
+    init = jax.tree.map(np.asarray, jax_mf_task(
+        mf_users=12, mf_items=500).init_params(0))
+    make = tasks_mod.mf_task
+
+    def mf_task_from_reference_init(**kw):
+        task = make(**kw)
+        task.init_params = lambda seed=0: params_from_numpy(init, "cpu")
+        return task
+
+    monkeypatch.setattr(tasks_mod, "mf_task", mf_task_from_reference_init)
+    argv = ["--task", "mf", "--algo", algo, "--nodes", "12", "--duration",
+            "15", "--eval-every", "4", "--sample-size", "4",
+            "--ckpt-every", every]
+    ref, port = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    monkeypatch.setattr(sys, "argv", ["train"] + argv + [
+        "--ckpt", ref, "--out", str(tmp_path / "ref.csv")])
+    jtrain.main()
+    got = train.main(argv + ["--ckpt", port, "--device", "cpu", "--out",
+                             str(tmp_path / "port.csv")])
+    assert got.rounds_completed > 3
+    if algo == "dsgd":
+        assert not any(tmp_path.glob("*.npz"))
+        return
+    with np.load(ref) as a, np.load(port) as b:
+        assert sorted(a.files) == sorted(b.files) == sorted(init)
+        for k in a.files:
+            assert (a[k].dtype, a[k].shape) == (b[k].dtype, b[k].shape)
+            np.testing.assert_allclose(b[k], a[k], **TOL)
+        assert any(not np.array_equal(b[k], init[k]) for k in b.files)
+    metas = []
+    for path in (ref, port):
+        with open(path[:-4] + ".meta.json") as fh:
+            metas.append(json.load(fh))
+    assert metas[0] == metas[1]
+    assert metas[1]["algo"] == algo and metas[1]["task"] == "mf"
+    assert metas[1]["round"] >= int(every)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--task", "lm"], "A11a"),
-    (["--task", "mf", "--ckpt", "x.npz"], "A9"),
     (["--mode", "mesh"], "A12")])
 def test_train_launcher_refuses_what_the_package_lacks(argv, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,7 +1,8 @@
 """Sessions of the PyTorch package: the host-side copies of the simulator
 and the protocol core reproduce the reference's pinned golden trajectories
-byte for byte, the CNN session agrees with the reference's, and the seams
-into subsystems that the package does not hold yet are closed loudly.
+byte for byte, the CNN session agrees with the reference's, a serving
+deployment attaches its fabric, and the seam into the sharded engine,
+which the package does not hold yet, is closed loudly.
 Secure aggregation is held in ``test_torch_secureagg.py``."""
 
 import hashlib
@@ -164,11 +165,19 @@ def test_cnn_session_matches_reference_and_engines_agree():
 
 
 @pytest.mark.parametrize("name", sorted(SESSIONS))
-def test_serve_and_sharded_are_refused(name):
+def test_serve_attaches_a_fabric_and_sharded_is_refused(name):
+    """A ``ServeConfig`` attaches a ``ServingFabric`` (replica and client
+    endpoints on the session's network), ``serve=None`` builds nothing,
+    and the sharded engine is still refused (ROADMAP A7)."""
+    from repro_torch.serve import ServeConfig, ServingFabric
+
     cls = SESSIONS[name]
     kw = dict(profile=diurnal_profile(n=8, seed=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="serve"):
-        cls(serve=object(), **kw)
+    sess = cls(serve=ServeConfig(n_replicas=3), **kw)
+    assert isinstance(sess.serving, ServingFabric)
+    assert [r.node_id for r in sess.serving.replicas] == ["8", "9", "10"]
+    assert len(sess.net.nodes) == 8 + 3 + 8     # population, replicas, clients
     with pytest.raises(NotImplementedError, match="sharded"):
         cls(engine="sharded", **kw)
-    assert cls(serve=None, **kw).serving is None
+    plain = cls(serve=None, **kw)
+    assert plain.serving is None and len(plain.net.nodes) == 8
