@@ -50,7 +50,24 @@ two main paths and checks that each really went through its kernels:
 * mf_ckpt: the MF session through the training launcher again, with
   ``--ckpt PATH --ckpt-every 1``; the last file, restored into the MF
   template on the card, equals the last params saved, bit for bit, and its
-  meta the last save's.
+  meta the last save's;
+* sharded: the sharded FlatModel path on the one card, its mesh the card
+  named k times. ``make_engine("sharded")`` falls back to the batched
+  engine and ``engine="sharded"`` runs the batched session (rounds and
+  bytes). B1, B2, B4 and B5 through the sharded entry points at 1, 2, 4
+  and 8 chunks (pad to ``shard_align``, one launch a chunk, B4 and B5 at
+  the chunk's lane base against the global ``n_valid``, gather) at the
+  CNN stack with an integer leaf, the MF stack and the ragged streaming
+  stack: mean, codes and scales bit for bit one launch's, each chunk's B4
+  and B5 output the matching slice of one launch's (pad lanes zeros), the
+  form each chunk's launcher picks, times at 1 and 4 chunks, and B4 and B5
+  at a lane base (rows sealed at that base: bit for bit the plain
+  kernels) against base 0, in turns. Then ``engine="sharded"`` with the
+  mesh as 4 chunks of the card (``MeshEngine``), plain and masked, against
+  the same session on the batched engine, both with cuDNN's deterministic
+  algorithms: rounds and bytes equal, accuracy within 0.02 at every
+  evaluated round, every aggregation 4 launches, and each re-aggregated in
+  one launch over its inputs bit for bit.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -2000,14 +2017,17 @@ ALU_OPS = ("LOP3", "SHF", "ISETP", "IADD3", "LEA", "SEL", "PRMT", "MOV",
            "IMNMX", "VIADD", "IABS", "PLOP3", "BMSK", "SGXT")
 FMA_OPS = ("IMAD", "FFMA", "FMUL", "FADD")
 PRG_MIX = ("0x7feb352d", "0x846ca68b", "-0x7b935975")   # kPrgMix1, kPrgMix2
-# the SASS functions of each masked kernel (labels from ``fused_label``)
+# the SASS functions of each masked kernel (labels from ``fused_label``),
+# in the forms over whole rows (no lane of padding: ``SealedRows<0>``, the
+# rows kernel's second argument 0) that the main path launches
 PRG_KERNELS = {"fused.mask": ("fused_mask_kernel",),
-               "fused.unmask_agg": ("fused_agg_kernel<SealedRows,0,0>",
-                                    "fused_unmask_rows_kernel<0>"),
-               "fused.unmask_agg_quant": ("fused_agg_kernel<SealedRows,0,1>",
-                                          "fused_agg_kernel<SealedRows,0,2>",
-                                          "fused_unmask_rows_kernel<1>",
-                                          "fused_unmask_rows_kernel<2>")}
+               "fused.unmask_agg": ("fused_agg_kernel<SealedRows<0>,0,0>",
+                                    "fused_unmask_rows_kernel<0,0>"),
+               "fused.unmask_agg_quant": (
+                   "fused_agg_kernel<SealedRows<0>,0,1>",
+                   "fused_agg_kernel<SealedRows<0>,0,2>",
+                   "fused_unmask_rows_kernel<1,0>",
+                   "fused_unmask_rows_kernel<2,0>")}
 
 
 def sass_functions(sass: str):
@@ -2381,6 +2401,321 @@ def engines_phase():
          sequential_wall_seconds=res["sequential_wall"])
 
 
+# ---------------------------------------------------------------------------
+# the sharded path: the flat axis split into chunks of the one card
+# ---------------------------------------------------------------------------
+
+SHARD_CHUNKS = (1, 2, 4, 8)
+SHARD_SHAPES = [
+    # name, P (= R), N, integer lanes, timing iterations
+    ("session_int_leaf", 10, 136672, 4, 200),   # the CNN session's stack
+    ("mf_session", 10, 11173, 0, 200),          # the MF session's
+    ("stream_ragged", 16, (1 << 24) - 1003, 1000, 10),
+]
+SHARD_TIMED = (1, 4)            # chunk counts timed beside one launch
+SHARD_BASE = 1 << 20            # a lane base (64 subtiles) for B4/B5's time
+
+
+@contextlib.contextmanager
+def chunk_mesh(dev, k: int):
+    """``make_engine_mesh`` giving k chunks of ``dev``: the mesh that
+    ``engine="sharded"`` builds where there are k cards."""
+    import repro_torch.launch.mesh as lm
+
+    inner = lm.make_engine_mesh
+    lm.make_engine_mesh = lambda device=None: (dev,) * k
+    try:
+        yield
+    finally:
+        lm.make_engine_mesh = inner
+
+
+def shard_slices_check(fused, name, y, w, mask, kw, whole, k, dev):
+    """Each chunk's B4 and B5 output, launched alone at its ``base`` with
+    the global ``n_valid``, equals the matching slice of one launch over
+    the whole rows; its pad lanes are zeros and its pad subtiles have the
+    scale of zeros."""
+    N = y.shape[1]
+    zero_scale = fused._plain_quantize(torch.zeros((1,), device=dev))[1]
+    mean1, (qmean1, codes1, scales1) = whole
+    for base, yr, mr in fused._pad_sharded(y.view(torch.int32), mask,
+                                           (dev,) * k):
+        yr = yr.view(torch.float32)
+        live = max(0, min(yr.shape[1], N - base))
+        mean = fused.unmask_aggregate_flat(yr, w, mr, base=base, n_valid=N,
+                                           **kw)
+        qmean, codes, scales = fused.unmask_aggregate_quantize_flat(
+            yr, w, mr, base=base, n_valid=N, **kw)
+        torch.cuda.synchronize()
+        s0, s_live = base // fused.SUBTILE, -(-live // fused.SUBTILE)
+        if not (torch.equal(mean[:live], mean1[base:base + live])
+                and torch.equal(qmean, mean)
+                and torch.equal(codes[:live], codes1[base:base + live])
+                and torch.equal(scales[:s_live],
+                                scales1[s0:s0 + s_live])):
+            raise AssertionError(f"{name}: chunk at lane {base} of {k} "
+                                 "differs from the whole launch's slice")
+        if (mean[live:].any() or codes[live:].any()
+                or not torch.equal(scales[s_live:],
+                                   zero_scale.expand(len(scales) - s_live))):
+            raise AssertionError(f"{name}: chunk at lane {base} of {k}: "
+                                 "pad lanes not zeros")
+
+
+def sealed_at(fused, x, seeds, signs, base: int):
+    """The rows of ``x`` sealed as lanes ``base + l`` of longer rows (the
+    plain PRG, row by row: the seal kernel starts at lane 0)."""
+    N = x.shape[1]
+    lanes = torch.arange(base, base + N, dtype=torch.int64, device=x.device)
+    return torch.stack([fused._from_bits(
+        (fused._bits(x[p]) + fused._plain_mask_words(seeds[p], signs[p],
+                                                     lanes)) & fused.MASK32)
+        for p in range(x.shape[0])])
+
+
+def shard_rows(dev, fused):
+    """B1, B2, B4 and B5 at 1, 2, 4 and 8 chunks of the card (``dev``
+    named k times as the mesh) against one launch over the whole stack,
+    bit for bit, at ``SHARD_SHAPES``; the form each chunk's launcher
+    picks; the sharded entry points (pad, split, k launches, gather)
+    timed at ``SHARD_TIMED`` beside one launch; B4 and B5 at a lane base
+    against base 0 over the same rows."""
+    out = []
+    for i, (name, P, N, n_int, iters) in enumerate(SHARD_SHAPES):
+        x, w, mask = make_inputs(P, N, n_int, seed=300 + i, dev=dev)
+        seeds, signs = mask_terms(P, seed=400 + i, dev=dev)
+        y = torch.stack([fused.apply_mask_flat(x[p], seeds[p], signs[p])
+                         for p in range(P)])
+        kw = dict(seeds=seeds, signs=signs)
+        one = {"fused.agg": lambda: fused.aggregate_flat_onepass(x, w, mask),
+               "fused.agg_quant":
+                   lambda: fused.aggregate_quantize_flat(x, w, mask),
+               "fused.unmask_agg":
+                   lambda: fused.unmask_aggregate_flat(y, w, mask, **kw),
+               "fused.unmask_agg_quant":
+                   lambda: fused.unmask_aggregate_quantize_flat(y, w, mask,
+                                                                **kw)}
+        want = {kname: call() for kname, call in one.items()}
+        torch.cuda.synchronize()
+        plain = (want["fused.agg"],) + tuple(want["fused.agg_quant"])
+        if not (torch.equal(want["fused.unmask_agg"], plain[0])
+                and all(torch.equal(a, b) for a, b in
+                        zip(want["fused.unmask_agg_quant"], plain[1:]))
+                and torch.equal(plain[0], plain[1])):
+            raise AssertionError(f"{name}: one launch: masked != plain")
+        row = {"shape": name, "P": P, "R": P, "N": N, "int_lanes": n_int,
+               "form": {}, "ms": {}}
+        for k in SHARD_CHUNKS:
+            mesh = (dev,) * k
+            sharded = {
+                "fused.agg": lambda: fused.aggregate_flat_onepass_sharded(
+                    x, w, mask, mesh=mesh),
+                "fused.agg_quant":
+                    lambda: fused.aggregate_quantize_flat_sharded(
+                        x, w, mask, mesh=mesh),
+                "fused.unmask_agg":
+                    lambda: fused.unmask_aggregate_flat_sharded(
+                        y, w, mask, mesh=mesh, **kw),
+                "fused.unmask_agg_quant":
+                    lambda: fused.unmask_aggregate_quantize_flat_sharded(
+                        y, w, mask, mesh=mesh, **kw)}
+            local_n = fused.shard_align(N, k) // k
+            for kname, call in sharded.items():
+                got = call()
+                torch.cuda.synchronize()
+                same_out = (torch.equal(got, want[kname])
+                            if isinstance(got, torch.Tensor) else
+                            all(torch.equal(a, b)
+                                for a, b in zip(got, want[kname])))
+                if not same_out:
+                    raise AssertionError(f"{name}: {kname} at {k} chunks "
+                                         "differs from one launch")
+                terms = P * P if "unmask" in kname else 0
+                row["form"].setdefault(kname, {})[k] = plan_label(
+                    fused, kname, local_n, terms)
+                if k in SHARD_TIMED:
+                    row["ms"].setdefault(kname, {})[k] = time_ms(call, iters)
+            shard_slices_check(fused, name, y, w, mask, kw,
+                               (want["fused.unmask_agg"],
+                                want["fused.unmask_agg_quant"]), k, dev)
+            check_again(fused, f"{name}: {k} chunks",
+                        sharded["fused.unmask_agg_quant"],
+                        want["fused.unmask_agg_quant"])
+        row["one_launch_ms"] = {kname: time_ms(call, iters)
+                                for kname, call in one.items()}
+        row["one_launch_form"] = {kname: plan_label(
+            fused, kname, N, P * P if "unmask" in kname else 0)
+            for kname in one}
+        # B4 and B5 at a lane base: the rows sealed at counters base + l
+        # (by the plain PRG) unmask to the plain results bit for bit, and
+        # are timed against base 0 over the rows sealed at 0, in turns
+        yb = sealed_at(fused, x, seeds, signs, SHARD_BASE)
+        based = dict(kw, base=SHARD_BASE, n_valid=SHARD_BASE + N)
+        at_base = (fused.unmask_aggregate_flat(yb, w, mask, **based),
+                   fused.unmask_aggregate_quantize_flat(yb, w, mask,
+                                                        **based))
+        torch.cuda.synchronize()
+        if not (torch.equal(at_base[0], plain[0]) and all(
+                torch.equal(a, b) for a, b in zip(at_base[1], plain[1:]))):
+            raise AssertionError(f"{name}: B4/B5 at lane base {SHARD_BASE}"
+                                 " differ from the plain kernels")
+        del at_base
+        turns = {"fused.unmask_agg": (
+                     one["fused.unmask_agg"],
+                     lambda: fused.unmask_aggregate_flat(yb, w, mask,
+                                                         **based)),
+                 "fused.unmask_agg_quant": (
+                     one["fused.unmask_agg_quant"],
+                     lambda: fused.unmask_aggregate_quantize_flat(
+                         yb, w, mask, **based))}
+        row["base_turns_ms"] = {
+            kname: [time_ms(f, iters) for f in (at0, at_base, at_base, at0)]
+            for kname, (at0, at_base) in turns.items()}
+        bound = {kname: bound_ms(kname, P, N, P if "unmask" in kname else 0,
+                                 mask is not None)[0] for kname in one}
+        row["bound_ms"] = bound
+        out.append(row)
+        del x, w, mask, y, yb, seeds, signs, want, plain, one, turns
+        torch.cuda.empty_cache()
+    return out
+
+
+def batched_reference(sim_seconds: float, secure_agg=None):
+    """What a MeshEngine session is held to: the rounds, bytes, accuracy
+    history and wall seconds of the same session on the batched engine."""
+    session = cnn_session(32, 10, "batched", secure_agg=secure_agg)
+    result, wall = run_session(session, sim_seconds)
+    return {"rounds": result.rounds_completed,
+            "total_bytes": result.usage["total_bytes"], "wall": wall,
+            "accuracy": check_session(session, result),
+            "history": result.history}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: two runs of one session then
+    train alike, so a difference between engines is the engines'."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def mesh_session_check(session, result, calls, ref, masked: bool):
+    """A MeshEngine session against the batched session ``ref`` (its
+    rounds, bytes and accuracy history): rounds and bytes equal, accuracy
+    within 0.02 at every evaluated round, and every aggregation of the
+    session re-aggregated in one launch over the same inputs, bit for
+    bit."""
+    task = session.task
+    if result.rounds_completed != ref["rounds"]:
+        raise AssertionError(f"{result.rounds_completed} rounds, batched "
+                             f"{ref['rounds']}")
+    if result.usage["total_bytes"] != ref["total_bytes"]:
+        raise AssertionError("sharded and batched sessions disagree on "
+                             "total bytes")
+    acc = check_session(session, result)
+    got, want = dict(acc), dict(ref["accuracy"])
+    if got.keys() != want.keys():
+        raise AssertionError(f"accuracy rounds differ: {got} {want}")
+    gap = max(abs(got[r] - want[r]) for r in got)
+    if gap >= 0.02:
+        raise AssertionError(f"sharded accuracy off the batched by {gap}")
+    for args, out in calls:
+        again = (task.aggregate_masked(*args) if masked
+                 else task.aggregate(*args))
+        if not torch.equal(again.buffer, out.buffer):
+            raise AssertionError("a sharded aggregation differs from one "
+                                 "launch over its inputs")
+    return gap
+
+
+def mesh_session(dev, sim_seconds: float, ref, k: int, secure_agg=None):
+    """The CNN session of ``session_phase`` (or the masked one) through
+    ``engine="sharded"`` on a mesh of k chunks of the card, counted."""
+    from repro_torch.engine import MeshEngine
+
+    with chunk_mesh(dev, k):
+        session = cnn_session(32, 10, "sharded", secure_agg=secure_agg)
+    eng = session.engine
+    if not isinstance(eng, MeshEngine) or eng.shardings.n_shards != k:
+        raise AssertionError(f"engine {type(eng).__name__}, not a "
+                             f"{k}-chunk MeshEngine")
+    calls = []
+    name = "aggregate_masked" if secure_agg else "aggregate"
+    inner = getattr(eng, name)
+
+    def record(*args):
+        out = inner(*args)
+        calls.append((args, out))
+        return out
+
+    setattr(eng, name, record)
+    reset_counts()                         # counts of this path only
+    result, wall = run_session(session, sim_seconds)
+    launches = read_counts()
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    kname = "fused.unmask_agg" if secure_agg else "fused.agg"
+    if not (launches[kname] == k * len(calls) == k * n_agg > 0):
+        raise AssertionError(f"{launches[kname]} {kname} launches for "
+                             f"{len(calls)} aggregations in {k} chunks")
+    if secure_agg and launches["fused.mask"] != result.trainings_completed:
+        raise AssertionError(f"{launches['fused.mask']} fused.mask launches "
+                             f"for {result.trainings_completed} trainings")
+    gap = mesh_session_check(session, result, calls, ref,
+                             masked=secure_agg is not None)
+    return {"secure_agg": secure_agg, "chunks": k,
+            "history_equal": result.history == ref["history"],
+            "rounds": result.rounds_completed,
+            "total_bytes": result.usage["total_bytes"],
+            "wall_seconds": wall, "batched_wall_seconds": ref["wall"],
+            "aggregations": n_agg, "max_accuracy_gap": gap,
+            "launches": launches,
+            "reaggregated_in_one_launch": "bit-identical"}
+
+
+def sharded_phase(dev, sim_seconds: float):
+    """The sharded path on the one card: (a) ``make_engine("sharded")``
+    falls back to the batched engine and its session is the batched one;
+    (b) B1, B2, B4 and B5 in 1-8 chunks against one launch
+    (``shard_rows``); (c) MeshEngine CNN sessions, plain and masked, on
+    4 chunks of the card against the same sessions on the batched engine,
+    both with cuDNN's deterministic algorithms."""
+    from repro_torch.engine import BatchedEngine, make_engine
+    from repro_torch.kernels import fused
+    from repro_torch.models.tasks import cnn_task
+
+    t0 = time.perf_counter()
+    task = cnn_task()
+    eng = make_engine("sharded", task)
+    if type(eng) is not BatchedEngine:
+        raise AssertionError(f"make_engine('sharded') on one card gave "
+                             f"{type(eng).__name__}")
+    fallback = {e: cnn_session(6, 3, e, task=task).run(25.0)
+                for e in ("sharded", "batched")}
+    if (fallback["sharded"].rounds_completed
+            != fallback["batched"].rounds_completed
+            or fallback["sharded"].usage["total_bytes"]
+            != fallback["batched"].usage["total_bytes"]):
+        raise AssertionError("engine='sharded' on one card is not the "
+                             "batched session")
+    rows = shard_rows(dev, fused)
+    sessions = []
+    with deterministic_cudnn():
+        for secure_agg in (None, "masked"):
+            ref = batched_reference(sim_seconds, secure_agg)
+            sessions.append(mesh_session(dev, sim_seconds, ref, 4,
+                                         secure_agg=secure_agg))
+    emit("sharded", fallback={"engine": type(eng).__name__,
+                              "rounds": fallback["sharded"].rounds_completed,
+                              "total_bytes":
+                                  fallback["sharded"].usage["total_bytes"]},
+         chunks=SHARD_CHUNKS, vs_one_launch="bit-identical", shapes=rows,
+         sessions=sessions, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
@@ -2482,6 +2817,7 @@ def main() -> int:
     ckpt_lm_phase(dev)
     torch.cuda.empty_cache()
     mf_ckpt_phase(sim_seconds=40.0)
+    sharded_phase(dev, sim_seconds=40.0)
 
     kernels = []
     for name, meta in KERNELS.items():

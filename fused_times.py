@@ -3,8 +3,10 @@ is in, on the card, at the kernels phase's shapes of ``chip_smoke.py``:
 each kernel checked against its plain version and timed beside it
 (CUDA-graph replay), with the launch floor, the kernel and grid each
 launcher chose (``form``), ``torch.matmul`` at B1's shapes, the ptxas
-lines of ``fused_agg.cu`` and the instructions a mask word in its SASS.
-Prints one JSON line.
+lines of ``fused_agg.cu`` and the instructions a mask word in its SASS;
+then B1, B2, B4 and B5 in 1-8 chunks of the card against one launch
+(``chip_smoke.shard_rows``: bit for bit, forms, times at 1 and 4 chunks,
+B4/B5 at a lane base). Prints one JSON line.
 
     python3 fused_times.py
 
@@ -47,7 +49,8 @@ def main() -> int:
                   for k, v in rows.items()},
             matmul_ms={r["shape"]: r["library_ms"] for r in rows["fused.agg"]},
             pipe_bound_ms={k: {r["shape"]: r["pipe_bound_ms"] for r in v}
-                           for k, v in rows.items() if k in word_pipes})
+                           for k, v in rows.items() if k in word_pipes},
+            sharded=cs.shard_rows(dev, fused))
     return 0
 
 

@@ -20,9 +20,9 @@ copied to the host to be written.
 
 ``restore`` places every leaf on a device: by default the device of its
 template leaf (a numpy template leaf gives a CPU tensor); ``shardings=``
-names one device for every leaf, or a pytree of devices matching the
-template. The reference's third form, a ``FlatShardings`` over a device
-mesh, is not part of this package yet (ROADMAP A7) and raises.
+names one device for every leaf, a pytree of devices matching the
+template, or a :class:`repro_torch.sharding.FlatShardings`, whose
+``replicated`` placement (the mesh's first device) takes every leaf.
 """
 
 from __future__ import annotations
@@ -106,10 +106,19 @@ def save(path: str, tree, meta: Optional[dict] = None) -> None:
         json.dump(meta or {}, fh)
 
 
+def _is_flat_shardings(shardings) -> bool:
+    # duck-typed, as in the reference: the flat layouts of a mesh
+    return hasattr(shardings, "replicated") and hasattr(shardings, "mesh")
+
+
 def _leaf_devices(shardings, like_leaves):
     """One device (or None: the template leaf's own) per template leaf."""
     if shardings is None:
         return [None] * len(like_leaves)
+    if _is_flat_shardings(shardings):
+        # pytree leaves load replicated; the flat (N,) layouts apply to
+        # packed buffers, not to individual leaves
+        return [shardings.replicated.home] * len(like_leaves)
     if isinstance(shardings, (torch.device, str)):
         return [torch.device(shardings)] * len(like_leaves)
     sh_leaves = tree_leaves(shardings)
@@ -134,18 +143,20 @@ def restore(path: str, like, *, shardings=None) -> Tuple[Any, dict]:
 
     ``shardings`` places the leaves: None puts each on its template leaf's
     device (a numpy leaf's is the CPU), a ``torch.device`` or string puts
-    all of them there, a pytree of devices matching the template one each.
+    all of them there, a pytree of devices matching the template one each,
+    a ``FlatShardings`` all of them on its ``replicated`` placement.
 
     ``like`` may be a :class:`~repro_torch.engine.flat.FlatModel`: the
-    checkpoint restores into its pytree and re-packs.
+    checkpoint restores into its pytree and re-packs, and with a
+    ``FlatShardings`` the packed buffer lands on the flat ``vec`` layout's
+    device.
     """
-    if hasattr(shardings, "replicated") and hasattr(shardings, "mesh"):
-        raise NotImplementedError(
-            "restore onto a FlatShardings device mesh: the sharded path is "
-            "not part of this package yet (ROADMAP A7)")
     if isinstance(like, FlatModel):
         tree, meta = restore(path, like.tree, shardings=shardings)
-        return FlatModel.pack(tree, like.spec), meta
+        model = FlatModel.pack(tree, like.spec)
+        if _is_flat_shardings(shardings):
+            model = FlatModel(model.buffer.to(shardings.vec.home), like.spec)
+        return model, meta
 
     paths, treedef = tree_flatten_with_path(like)
     devices = _leaf_devices(shardings, [leaf for _, leaf in paths])

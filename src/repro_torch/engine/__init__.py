@@ -5,7 +5,8 @@ Models live as single contiguous fp32 buffers inside the hot loop:
 * :mod:`repro_torch.engine.flat`    — FlatSpec / FlatModel (pack once,
   unpack at task boundaries: eval, wire)
 * :mod:`repro_torch.engine.cohort`  — batched cohort training (S·B
-  per-node steps → B) + the sequential reference engine
+  per-node steps → B), its mesh-sharded aggregation (``MeshEngine``) +
+  the sequential reference engine
 * :mod:`repro_torch.engine.optim_flat` — row-wise optimizers on ``(S, N)``
 * :mod:`repro_torch.engine.lowering`  — per-family masked-loss lowerings
 
@@ -16,6 +17,7 @@ and is surfaced as :func:`repro_torch.kernels.aggregate_flatmodel`.
 
 from repro_torch.engine.cohort import (  # noqa: F401
     BatchedEngine,
+    MeshEngine,
     SequentialEngine,
     make_engine,
 )

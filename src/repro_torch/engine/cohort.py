@@ -363,6 +363,39 @@ class BatchedEngine:
         return alt
 
 
+class MeshEngine(BatchedEngine):
+    """BatchedEngine whose aggregations split the flat parameter axis N over
+    a device mesh (a tuple of devices, see :mod:`repro_torch.sharding`).
+
+    Aggregation takes the per-shard one-pass path
+    (:meth:`FlatSpec.sharding`, ``kernels.fused.*_sharded``): shard r runs
+    on ``mesh[r]`` and the result is gathered on the mesh's first device,
+    where the task lives, its mean, codes and scales bit-identical to the
+    batched engine's. Cohort training runs on that first device as in
+    ``batched``: the reference's step partitioned over the mesh's devices
+    (GSPMD) needs collectives across cards, which this package does not
+    have yet. Event semantics are untouched — same simulated rounds,
+    durations and byte accounting as ``batched``.
+    """
+
+    name = "sharded"
+
+    def __init__(self, task, mesh):
+        super().__init__(task)
+        self.shardings = task.flat_spec.sharding(mesh)
+        self.mesh = self.shardings.mesh
+        if self.mesh[0] != task.device:
+            raise ValueError(f"mesh starts at {self.mesh[0]}, the task lives "
+                             f"on {task.device}")
+
+    def aggregate(self, models, weights=None):
+        return self.task.aggregate(models, weights,
+                                   shardings=self.shardings)
+
+    def aggregate_masked(self, models, seeds, signs, weights=None):
+        return self.task.aggregate_masked(models, seeds, signs, weights,
+                                          shardings=self.shardings)
+
 
 def _cohort_ops(task):
     """(flat optimizer, per-batch step) for ``task``, cached on it.
@@ -399,13 +432,16 @@ def _cohort_ops(task):
 
 
 def make_engine(kind: Optional[str], task, device=None):
-    """``kind``: "batched" | "sequential" | None (auto).
+    """``kind``: "batched" | "sharded" | "sequential" | None (auto).
 
     Auto picks batched for tasks that expose the flat/cohort surface
     (:class:`~repro_torch.models.tasks.TorchTask`) and sequential otherwise
     (e.g. :class:`~repro_torch.core.tasks.AbstractTask` byte-only runs,
-    where there is nothing to compute). "sharded" (flat buffers sharded
-    over several devices) is not part of this package yet and raises.
+    where there is nothing to compute). "sharded" runs the batched engine
+    with its aggregations split over the local cards
+    (:func:`repro_torch.launch.mesh.make_engine_mesh`); with fewer than two
+    (one card, or the CPU) it falls back to "batched" (sharding would be a
+    no-op).
 
     ``device``: None means the card, like every entry point; a task that
     lives on another device than the one asked for raises.
@@ -419,7 +455,13 @@ def make_engine(kind: Optional[str], task, device=None):
         kind = "batched" if getattr(task, "supports_cohort", False) \
             else "sequential"
     if kind == "sharded":
-        raise NotImplementedError("sharded engine: later slice")
+        if not getattr(task, "supports_cohort", False):
+            return SequentialEngine(task)
+        from repro_torch.launch.mesh import make_engine_mesh
+        mesh = make_engine_mesh(device)
+        if mesh is None:
+            return BatchedEngine(task)
+        return MeshEngine(task, mesh)
     if kind == "batched":
         if not getattr(task, "supports_cohort", False):
             return SequentialEngine(task)
@@ -427,8 +469,8 @@ def make_engine(kind: Optional[str], task, device=None):
     if kind == "sequential":
         return SequentialEngine(task)
     raise ValueError(f"unknown engine {kind!r} "
-                     "(expected 'batched' or 'sequential')")
+                     "(expected 'batched', 'sharded' or 'sequential')")
 
 
-__all__ = ["BatchedEngine", "SequentialEngine", "make_engine",
+__all__ = ["BatchedEngine", "MeshEngine", "SequentialEngine", "make_engine",
            "FlatModel", "as_tree"]

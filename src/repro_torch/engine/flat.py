@@ -136,6 +136,22 @@ class FlatSpec:
         """(S, n) -> pytree whose every leaf has a leading S axis."""
         return self.treedef.unflatten(self._leaf_views(buf, (buf.shape[0],)))
 
+    # -------------------------------------------------------------- sharding
+
+    def sharding(self, mesh, *, model_axis: str = "model",
+                 row_axis: Optional[str] = None):
+        """This spec's flat layouts on ``mesh`` (a sequence of devices).
+
+        Returns a :class:`repro_torch.sharding.FlatShardings`: the
+        parameter axis N of the ``(N,)`` / ``(S, N)`` / ``(P, N)`` buffers
+        is split over ``model_axis``; leading S/P axes are not. The layouts
+        do not depend on ``n`` — the kernels pad each shard to a SUBTILE
+        multiple (see :func:`repro_torch.kernels.fused.shard_align`) so
+        per-subtile quantization stays bit-identical to one device.
+        """
+        from repro_torch.sharding import flat_shardings
+        return flat_shardings(mesh, model_axis=model_axis, row_axis=row_axis)
+
     def __eq__(self, other):
         return (isinstance(other, FlatSpec)
                 and self.treedef == other.treedef

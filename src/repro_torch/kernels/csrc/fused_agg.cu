@@ -50,7 +50,12 @@
 // is the same call with the signs negated, a -1 sign is 0xFFFFFFFF, ring
 // negation by multiplication, no branch). The aggregator reads the rows
 // through `SealedRows`, which regenerates row p's mask from its R staged
-// terms, subtracts it and reads the restored bits as fp32. What bounds the
+// terms, subtracts it and reads the restored bits as fp32. B4 and B5 take
+// the reference's lane `base` and a global `n_valid`, so one launch can
+// unmask one shard of a longer row: lane l of the launch is the row's lane
+// base + l, the PRG's counter, and a lane whose counter is at or past
+// n_valid is padding that was never sealed, read as it is (zeros). One
+// launch over a whole row has base 0 and n_valid N. What bounds the
 // masked kernels is the PRG on the integer ALU pipe, not bytes: P*R*N words
 // (R*N for the seal) of 11 ALU-pipe instructions each (see the PRG below),
 // against (P+1)*N words of traffic. A sealed row is arbitrary bits (NaNs
@@ -219,6 +224,12 @@ struct PlainRows {                  // x: (P, N) fp32
   }
 };
 
+// PAD: some lanes of the launch are padding (lane >= n_live), read as
+// they are. Without it no lane is tested: on an H100 a per-lane test in
+// the hot path made B4 and B5 slower at the sessions' shapes (most at the
+// MF session's, the rows kernel), so launches over whole rows (every lane
+// sealed) take the form without it.
+template <bool PAD>
 struct SealedRows {                 // y: (P, N) sealed bits; (P, R) terms
   static constexpr bool kPlain = false;
   const uint32_t* y;
@@ -226,6 +237,8 @@ struct SealedRows {                 // y: (P, N) sealed bits; (P, R) terms
   const long long* seeds;           // device memory, until bound
   const long long* signs;
   int R;
+  uint32_t base;                    // lane l's PRG counter is base + l
+  long long n_live;                 // lanes from here on: padding (PAD)
   const MaskTerm* terms;            // shared memory, after bind
 
   __device__ __forceinline__ SealedRows bind(uint4* staged, int P) const {
@@ -238,8 +251,9 @@ struct SealedRows {                 // y: (P, N) sealed bits; (P, R) terms
   }
   __device__ __forceinline__ float row(int p, long long lane) const {
     const uint32_t bits = __ldg(y + (long long)p * N + lane);
-    return __uint_as_float(
-        bits - mask_sum(terms + p * R, R, lane_key((uint32_t)lane)));
+    if (PAD && lane >= n_live) return __uint_as_float(bits);  // never sealed
+    return __uint_as_float(bits - mask_sum(terms + p * R, R,
+                                           lane_key(base + (uint32_t)lane)));
   }
 };
 
@@ -477,13 +491,14 @@ constexpr int kRowsChunk = 64;                // rows a chunk
 
 // (Its rows come as pointers, not as a SealedRows: with the struct it ran
 // 5-10 % slower at the MF session on an H100, `fused_times.py`.)
-template <int QUANT>
+template <int QUANT, bool PAD>
 __global__ void __launch_bounds__(kRowsThreads)
 fused_unmask_rows_kernel(const uint32_t* __restrict__ y,
                          const float* __restrict__ w,
                          const unsigned char* __restrict__ mask,
                          const long long* __restrict__ seeds,
                          const long long* __restrict__ signs, int R,
+                         uint32_t base, long long n_live,
                          float* __restrict__ out, int P, long long N,
                          QuantOut q) {
   extern __shared__ MaskTerm terms[];           // (P, R)
@@ -496,7 +511,8 @@ fused_unmask_rows_kernel(const uint32_t* __restrict__ y,
   const int warp = threadIdx.x >> 5, l32 = threadIdx.x & 31;
   const long long lane = (long long)blockIdx.x * 32 + l32;
   const bool live = lane < N;
-  const uint32_t lkey = lane_key((uint32_t)lane);
+  const bool sealed = !PAD || lane < n_live;      // else padding, as it is
+  const uint32_t lkey = lane_key(base + (uint32_t)lane);
   // the warps that take a row more than the others differ by block
   const int first = (warp + kWarps - (int)(blockIdx.x % kWarps)) % kWarps;
   float acc = 0.0f;
@@ -505,8 +521,9 @@ fused_unmask_rows_kernel(const uint32_t* __restrict__ y,
     if (live) {
       for (int c = first; c < n; c += kWarps) {
         const int r = r0 + c;
-        unsealed[c][l32] = __ldg(y + (long long)r * N + lane) -
-                           mask_sum(terms + r * R, R, lkey);
+        uint32_t bits = __ldg(y + (long long)r * N + lane);
+        if (sealed) bits -= mask_sum(terms + r * R, R, lkey);
+        unsealed[c][l32] = bits;
       }
     }
     __syncthreads();
@@ -685,34 +702,65 @@ int run_plain(int op, const float* x, const float* w,
                 p, 0, s, PlainRows{x, N}, w, mask, mean, P, N, q);
 }
 
-template <int QUANT>
-auto* rows_kernel() { return fused_unmask_rows_kernel<QUANT>; }
+template <bool PAD>
+auto* rows_kernel(int quant) {
+  return quant == kTogether    ? fused_unmask_rows_kernel<kTogether, PAD>
+         : quant == kLastBlock ? fused_unmask_rows_kernel<kLastBlock, PAD>
+                               : fused_unmask_rows_kernel<kMeanOnly, PAD>;
+}
 
-// B4 and B5. With `plan` set, only plans.
+template <bool PAD>
+void choose_sealed(size_t smem, Plan* p) {
+  if (p->form == kRows)
+    choose_quant(rows_kernel<PAD>(kTogether), smem, p);
+  else
+    choose_quant(lane_kernel<SealedRows<PAD>, false>(kTogether), smem, p);
+}
+
+template <bool PAD>
+int launch_sealed(const Plan& p, size_t smem, cudaStream_t s,
+                  const uint32_t* y, const float* w,
+                  const unsigned char* mask, const long long* seeds,
+                  const long long* signs, int R, uint32_t base,
+                  long long n_live, float* mean, const QuantOut& q, int P,
+                  long long N) {
+  if (p.form == kRows)
+    return launch(rows_kernel<PAD>(p.quant), p, smem, s, y, w, mask, seeds,
+                  signs, R, base, n_live, mean, P, N, q);
+  return launch(lane_kernel<SealedRows<PAD>, false>(p.quant), p, smem, s,
+                SealedRows<PAD>{y, N, seeds, signs, R, base, n_live, nullptr},
+                w, mask, mean, P, N, q);
+}
+
+// B4 and B5, lane l at PRG counter base + l, counters from n_valid on
+// padding. With `plan` set, only plans (the plan does not depend on base
+// or n_valid).
 int run_sealed(int op, const uint32_t* y, const float* w,
                const unsigned char* mask, const long long* seeds,
-               const long long* signs, int R, float* mean, const QuantOut& q,
-               int P, long long N, cudaStream_t s, Plan* plan = nullptr) {
-  if (N <= 0 || P <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+               const long long* signs, int R, long long base,
+               long long n_valid, float* mean, const QuantOut& q, int P,
+               long long N, cudaStream_t s, Plan* plan = nullptr) {
+  if (N <= 0 || P <= 0 || R <= 0 || base < 0 || n_valid < 0 ||
+      base + N > (1LL << 32))
+    return (int)cudaErrorInvalidValue;
+  // the lanes of this launch below n_valid are sealed, the rest padding
+  const long long n_live = n_valid - base < 0 ? 0 : n_valid - base;
+  const bool pad = n_live < N;
   const size_t smem = staged_bytes(P * R);
   Plan p = grid(op, N, false);
-  if (p.form == kRows)
-    choose_quant(rows_kernel<kTogether>(), smem, &p);
+  if (pad)
+    choose_sealed<true>(smem, &p);
   else
-    choose_quant(lane_kernel<SealedRows, false>(kTogether), smem, &p);
+    choose_sealed<false>(smem, &p);
   if (plan != nullptr) {
     *plan = p;
     return 0;
   }
-  if (p.form == kRows) {
-    auto* k = p.quant == kTogether    ? rows_kernel<kTogether>()
-              : p.quant == kLastBlock ? rows_kernel<kLastBlock>()
-                                      : rows_kernel<kMeanOnly>();
-    return launch(k, p, smem, s, y, w, mask, seeds, signs, R, mean, P, N, q);
-  }
-  return launch(lane_kernel<SealedRows, false>(p.quant), p, smem, s,
-                SealedRows{y, N, seeds, signs, R, nullptr}, w, mask, mean, P,
-                N, q);
+  if (pad)
+    return launch_sealed<true>(p, smem, s, y, w, mask, seeds, signs, R,
+                               (uint32_t)base, n_live, mean, q, P, N);
+  return launch_sealed<false>(p, smem, s, y, w, mask, seeds, signs, R,
+                              (uint32_t)base, N, mean, q, P, N);
 }
 
 }  // namespace
@@ -754,27 +802,33 @@ int fused_mask_launch(const uint32_t* x, const long long* seeds,
   return (int)cudaGetLastError();
 }
 
+// B4 and B5 take the PRG counter of their first lane (`base`) and the
+// count of the row's real lanes (`n_valid`): a lane whose counter is at or
+// past it is padding and has no mask subtracted.
+
 int fused_unmask_agg_launch(const uint32_t* y, const float* w,
                             const unsigned char* mask,
                             const long long* seeds, const long long* signs,
-                            int R, float* out, int P, long long N,
-                            void* stream) {
-  return run_sealed(kUnmaskAgg, y, w, mask, seeds, signs, R, out, QuantOut{},
-                    P, N, static_cast<cudaStream_t>(stream));
+                            int R, long long base, long long n_valid,
+                            float* out, int P, long long N, void* stream) {
+  return run_sealed(kUnmaskAgg, y, w, mask, seeds, signs, R, base, n_valid,
+                    out, QuantOut{}, P, N, static_cast<cudaStream_t>(stream));
 }
 
 int fused_unmask_agg_quant_launch(const uint32_t* y, const float* w,
                                   const unsigned char* mask,
                                   const long long* seeds,
-                                  const long long* signs, int R, float* mean,
-                                  signed char* codes, float* scales,
-                                  unsigned int* arrived, unsigned int* absmax,
+                                  const long long* signs, int R,
+                                  long long base, long long n_valid,
+                                  float* mean, signed char* codes,
+                                  float* scales, unsigned int* arrived,
+                                  unsigned int* absmax,
                                   unsigned int* generation, int P, long long N,
                                   void* stream) {
-  return run_sealed(kUnmaskAggQuant, y, w, mask, seeds, signs, R, mean,
+  return run_sealed(kUnmaskAggQuant, y, w, mask, seeds, signs, R, base,
+                    n_valid, mean,
                     QuantOut{codes, scales, arrived, absmax, generation}, P,
-                    N,
-                    static_cast<cudaStream_t>(stream));
+                    N, static_cast<cudaStream_t>(stream));
 }
 
 // What the launcher of `op` (0 agg, 1 agg_quant, 2 unmask_agg,
@@ -798,8 +852,8 @@ int fused_plan(int op, long long N, int terms, int* form, int* vec,
                       QuantOut{op == kAggQuant ? codes : nullptr}, 1, N,
                       nullptr, &p)
           : run_sealed(op, nullptr, row, nullptr, nullptr, nullptr,
-                       terms > 0 ? terms : 1, row, QuantOut{}, 1, N, nullptr,
-                       &p);
+                       terms > 0 ? terms : 1, 0, N, row, QuantOut{}, 1, N,
+                       nullptr, &p);
   if (rc != 0) return rc;
   *form = p.form;
   *vec = p.vec ? 1 : 0;

@@ -24,6 +24,12 @@ counter-based PRG mask (lane index = counter):
 * :func:`unmask_aggregate_quantize_flat` — the same, then the quantise tail
   of :func:`aggregate_quantize_flat`.
 
+The two masked kernels take the reference's lane ``base`` and a global
+``n_valid``, so one launch can unmask one shard of longer rows. The four
+``*_sharded`` entry points split N over a mesh of devices (one device may
+stand in it k times) and launch one kernel a shard; their results equal
+one call's bit for bit.
+
 These replace the reference package's Pallas kernels ``_agg_kernel``,
 ``_agg_quant_kernel``, ``_unmask_agg_kernel``, ``_unmask_agg_quant_kernel``
 and its jitted ``apply_mask_flat`` (``kernels/fused.py``) with hand-written
@@ -68,6 +74,7 @@ for CPU tensors; on the card they do not (it would force a synchronise).
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 
@@ -91,10 +98,12 @@ def _lib():
         lib.fused_agg_quant_launch.restype = ctypes.c_int
         lib.fused_mask_launch.argtypes = [p, p, p, i, p, ll, p]
         lib.fused_mask_launch.restype = ctypes.c_int
-        lib.fused_unmask_agg_launch.argtypes = [p, p, p, p, p, i, p, i, ll, p]
+        lib.fused_unmask_agg_launch.argtypes = [p, p, p, p, p, i, ll, ll, p,
+                                                i, ll, p]
         lib.fused_unmask_agg_launch.restype = ctypes.c_int
-        lib.fused_unmask_agg_quant_launch.argtypes = [p, p, p, p, p, i, p, p,
-                                                      p, p, p, p, i, ll, p]
+        lib.fused_unmask_agg_quant_launch.argtypes = [p, p, p, p, p, i, ll, ll,
+                                                      p, p, p, p, p, p, i, ll,
+                                                      p]
         lib.fused_unmask_agg_quant_launch.restype = ctypes.c_int
         lib.fused_plan.argtypes = [i, ll, i, p, p, p, p, p]
         lib.fused_plan.restype = ctypes.c_int
@@ -189,21 +198,33 @@ def _plain_mask(buf, seeds, signs):
                       & MASK32)
 
 
-def _plain_unmask_stack(y, seeds, signs):
+def _plain_unmask_stack(y, seeds, signs, base=0, n_valid=None):
     """Sealed rows ``y (P, N)`` and their ``(P, R)`` seeds/signs -> the
-    unsealed rows, exactly (ring subtraction)."""
-    lanes = torch.arange(y.shape[1], dtype=torch.int64, device=y.device)
-    return _from_bits((_bits(y) - _plain_mask_words(seeds, signs, lanes))
-                      & MASK32)
+    unsealed rows, exactly (ring subtraction). Lane ``l`` of ``y`` is lane
+    ``base + l`` of the sealed row, its PRG counter; lanes whose counter is
+    at or past ``n_valid`` (None: N) are padding that was never sealed and
+    pass as they are, as in the reference's ``_unmask_bits``."""
+    N = y.shape[1]
+    n_valid = N if n_valid is None else n_valid
+    live = max(0, min(N, n_valid - base))      # the counters below n_valid
+    out = _bits(y)
+    lanes = torch.arange(base, base + live, dtype=torch.int64,
+                         device=y.device)
+    out[:, :live] = (out[:, :live] - _plain_mask_words(seeds, signs, lanes)
+                     ) & MASK32
+    return _from_bits(out)
 
 
-def _plain_unmask_onepass(y, w, int_mask, seeds, signs):
-    return _plain_onepass(_plain_unmask_stack(y, seeds, signs), w, int_mask)
+def _plain_unmask_onepass(y, w, int_mask, seeds, signs, base=0,
+                          n_valid=None):
+    return _plain_onepass(_plain_unmask_stack(y, seeds, signs, base, n_valid),
+                          w, int_mask)
 
 
-def _plain_unmask_onepass_quant(y, w, int_mask, seeds, signs):
-    return _plain_onepass_quant(_plain_unmask_stack(y, seeds, signs), w,
-                                int_mask)
+def _plain_unmask_onepass_quant(y, w, int_mask, seeds, signs, base=0,
+                                n_valid=None):
+    return _plain_onepass_quant(
+        _plain_unmask_stack(y, seeds, signs, base, n_valid), w, int_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +288,24 @@ def _check_mask_args(seeds, signs, rows, device):
     if (rows or 1) * R > MAX_MASK_TERMS:
         raise ValueError(f"{rows or 1} x {R} mask terms exceed "
                          f"{MAX_MASK_TERMS}")
+
+
+def _check_lanes(base, n_valid, N):
+    """``(base, n_valid)`` of a masked launch over N lanes, n_valid None
+    meaning N; raises on what the kernels do not take. ``base`` is a
+    multiple of SUBTILE, as ``shard_align`` makes every shard's, so the
+    quantisers' subtiles are the row's; the PRG's counter is 32 bits."""
+    base = operator.index(base)
+    n_valid = N if n_valid is None else operator.index(n_valid)
+    if base < 0 or base % SUBTILE:
+        raise ValueError(f"base must be a non-negative multiple of {SUBTILE}"
+                         f", got {base}")
+    if n_valid < 0:
+        raise ValueError(f"n_valid must be >= 0, got {n_valid}")
+    if base + N > 1 << 32:
+        raise ValueError(f"lanes {base}..{base + N - 1} pass the PRG's "
+                         "32-bit counter")
+    return base, n_valid
 
 
 def _stream(x) -> int:
@@ -347,7 +386,8 @@ _PLAN_FORMS = ("lanes", "rows")
 def launch_plan(name: str, n: int, terms: int = 0) -> dict:
     """The kernel that the launcher of ``name`` (one of ``_PLAN_OPS``) runs
     at ``n`` lanes of 16-byte aligned rows on the current CUDA device, with
-    ``terms`` (P·R) staged mask terms for the masked ones: its form (one
+    ``terms`` (P·R) staged mask terms for the masked ones (rows with no
+    lane of padding): its form (one
     lane a thread, or rows over warps), whether a thread takes four lanes,
     its grid, and for a quantised form whether
     every block waits for its subtile's scale (``together``) or the last
@@ -443,42 +483,53 @@ def apply_mask_flat(buf, seeds, signs):
     return out
 
 
-def unmask_aggregate_flat(y, w, int_mask=None, *, seeds, signs):
+def unmask_aggregate_flat(y, w, int_mask=None, *, seeds, signs, base=0,
+                          n_valid=None):
     """Fused unmask→aggregate: ``y (P, N)`` sealed rows, ``seeds``/``signs``
     int64 ``(P, R)`` -> mean (N,) in one kernel launch, bit for bit
-    :func:`aggregate_flat_onepass` on the unsealed rows."""
+    :func:`aggregate_flat_onepass` on the unsealed rows.
+
+    ``y`` may be one shard of longer rows, as the reference's kernel takes
+    it: lane ``l`` is the rows' lane ``base + l`` (its PRG counter; a
+    multiple of SUBTILE), and lanes at or past ``n_valid`` of the whole rows
+    (None: N) are padding, never sealed, aggregated as they are."""
     y, w, m = _check_args(y, w, int_mask)
     _check_mask_args(seeds, signs, y.shape[0], y.device)
+    P, N = y.shape
+    base, n_valid = _check_lanes(base, n_valid, N)
     if y.device.type == "cpu":
         check_aggregation_weights(w)
-        return _plain_unmask_onepass(y, w, m, seeds, signs)
+        return _plain_unmask_onepass(y, w, m, seeds, signs, base, n_valid)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    P, N = y.shape
     lib = _lib()
     out = torch.empty((N,), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         rc = lib.fused_unmask_agg_launch(
             y.data_ptr(), w.data_ptr(), None if m is None else m.data_ptr(),
-            seeds.data_ptr(), signs.data_ptr(), seeds.shape[1],
+            seeds.data_ptr(), signs.data_ptr(), seeds.shape[1], base, n_valid,
             out.data_ptr(), P, N, _stream(y))
     _raise_on(rc, "fused.unmask_agg")
     unmask_aggregate_flat.launches += 1
     return out
 
 
-def unmask_aggregate_quantize_flat(y, w, int_mask=None, *, seeds, signs):
+def unmask_aggregate_quantize_flat(y, w, int_mask=None, *, seeds, signs,
+                                   base=0, n_valid=None):
     """Fused unmask→aggregate→quantize: one kernel launch -> (mean, int8
     codes, scales), bit for bit :func:`aggregate_quantize_flat` on the
-    unsealed rows."""
+    unsealed rows. ``base`` and ``n_valid`` as for
+    :func:`unmask_aggregate_flat`."""
     y, w, m = _check_args(y, w, int_mask)
     _check_mask_args(seeds, signs, y.shape[0], y.device)
+    P, N = y.shape
+    base, n_valid = _check_lanes(base, n_valid, N)
     if y.device.type == "cpu":
         check_aggregation_weights(w)
-        return _plain_unmask_onepass_quant(y, w, m, seeds, signs)
+        return _plain_unmask_onepass_quant(y, w, m, seeds, signs, base,
+                                           n_valid)
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
-    P, N = y.shape
     lib = _lib()
     mean = torch.empty((N,), dtype=torch.float32, device=y.device)
     codes = torch.empty((N,), dtype=torch.int8, device=y.device)
@@ -488,12 +539,153 @@ def unmask_aggregate_quantize_flat(y, w, int_mask=None, *, seeds, signs):
         words = _workspace(y.device, N)
         rc = lib.fused_unmask_agg_quant_launch(
             y.data_ptr(), w.data_ptr(), None if m is None else m.data_ptr(),
-            seeds.data_ptr(), signs.data_ptr(), seeds.shape[1],
-            mean.data_ptr(), codes.data_ptr(), scales.data_ptr(), *words, P,
-            N, _stream(y))
+            seeds.data_ptr(), signs.data_ptr(), seeds.shape[1], base,
+            n_valid, mean.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            *words, P, N, _stream(y))
     _raise_on(rc, "fused.unmask_agg_quant")
     unmask_aggregate_quantize_flat.launches += 1
     return mean, codes, scales
+
+
+# ---------------------------------------------------------------------------
+# Sharded variants: the same one-pass aggregation per model-axis shard
+# ---------------------------------------------------------------------------
+#
+# The reference runs these under ``shard_map`` over a jax mesh, with a VMEM
+# tile chosen per shard (``tile_for``, a TPU budget that has no counterpart
+# here: the launchers pick their grids from N). Here a mesh is a tuple of
+# devices (``repro_torch.sharding``; one device may stand in it k times): N
+# is padded to ``shard_align(N, k)`` and cut into k contiguous
+# ``(P, local_n)`` shards, shard r is copied to ``mesh[r]`` and aggregated
+# there by the one-shard kernels (the masked ones at ``base = r·local_n``
+# with the global ``n_valid``), and the shards' outputs are gathered on the
+# mesh's first device. Each output lane is the same function of the same
+# inputs as on one device, and every shard is whole subtiles, so means,
+# codes and scales equal one call's bit for bit.
+
+
+def shard_align(n: int, shards: int) -> int:
+    """Padded total length so each of ``shards`` equal contiguous
+    model-axis shards is a SUBTILE multiple.
+
+    Padding only at the global tail would misalign per-shard subtile
+    boundaries; aligning every shard keeps the global SUBTILE grid
+    identical to the single-device layout, so per-SUBTILE quantization
+    scales — and therefore int8 codes — stay bit-identical."""
+    per = -(-n // (shards * SUBTILE)) * SUBTILE
+    return shards * per
+
+
+def _mesh_devices(mesh):
+    """The devices of a mesh: a ``FlatShardings`` (its ``mesh``) or a
+    sequence of devices."""
+    return tuple(torch.device(d) for d in getattr(mesh, "mesh", mesh))
+
+
+def _pad_sharded(x, int_mask, devices):
+    """``[(base, x_r, mask_r)]``: the ``(P, N)`` stack (and its mask) padded
+    with zeros to ``shard_align(N, k)`` and cut into k contiguous
+    ``(P, local_n)`` shards, shard r on ``devices[r]`` starting at lane
+    ``base = r·local_n``. Only bits are copied (a sealed stack comes as its
+    int32 view)."""
+    P, N = x.shape
+    local_n = shard_align(N, len(devices)) // len(devices)
+    shards = []
+    for r, dev in enumerate(devices):
+        lo = min(N, r * local_n)
+        hi = min(N, lo + local_n)
+        xr = torch.zeros((P, local_n), dtype=x.dtype, device=dev)
+        xr[:, :hi - lo] = x[:, lo:hi]
+        mr = None
+        if int_mask is not None:
+            mr = torch.zeros((local_n,), dtype=int_mask.dtype, device=dev)
+            mr[:hi - lo] = int_mask[lo:hi]
+        shards.append((r * local_n, xr, mr))
+    return shards
+
+
+def _on(t, devices):
+    """``t`` on each distinct device of ``devices``, copied once each."""
+    out = {}
+    for d in devices:
+        if d not in out:
+            out[d] = t.to(d)
+    return out
+
+
+def _gather(outs, devices, N):
+    """The shards' ``mean`` (or ``(mean, codes, scales)``) gathered on the
+    mesh's first device and trimmed to N lanes and ceil(N/SUBTILE)
+    subtiles."""
+    home = devices[0]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat([o.to(home) for o in outs])[:N]
+    mean, codes, scales = (torch.cat([o[i].to(home) for o in outs])
+                           for i in range(3))
+    return mean[:N], codes[:N], scales[:-(-N // SUBTILE)]
+
+
+def _sharded_onepass(x, w, int_mask, mesh, quantize):
+    x, w, m = _check_args(x, w, int_mask)
+    devices = _mesh_devices(mesh)
+    ws = _on(w, devices)
+    agg = aggregate_quantize_flat if quantize else aggregate_flat_onepass
+    outs = [agg(xr, ws[xr.device], mr)
+            for _, xr, mr in _pad_sharded(x, m, devices)]
+    return _gather(outs, devices, x.shape[1])
+
+
+def aggregate_flat_onepass_sharded(x, w, int_mask=None, *, mesh):
+    """Sharded :func:`aggregate_flat_onepass` over ``mesh`` (a
+    ``FlatShardings`` or a sequence of devices): one launch a shard, the
+    mean (N,) gathered on the mesh's first device, bit for bit one call's
+    (the weighted mean is elementwise over N)."""
+    return _sharded_onepass(x, w, int_mask, mesh, quantize=False)
+
+
+def aggregate_quantize_flat_sharded(x, w, int_mask=None, *, mesh):
+    """Sharded fused aggregate→quantize.
+
+    Per-shard lengths are SUBTILE-aligned (:func:`shard_align`), so the
+    global subtile grid — and with it codes and scales — is bit-identical
+    to :func:`aggregate_quantize_flat` on one device; trailing pad
+    subtiles are sliced off before returning.
+    """
+    return _sharded_onepass(x, w, int_mask, mesh, quantize=True)
+
+
+def _sharded_unmask(y, w, int_mask, seeds, signs, mesh, quantize):
+    y, w, m = _check_args(y, w, int_mask)
+    _check_mask_args(seeds, signs, y.shape[0], y.device)
+    devices = _mesh_devices(mesh)
+    N = y.shape[1]
+    ws, sd, sg = (_on(t, devices) for t in (w, seeds, signs))
+    agg = (unmask_aggregate_quantize_flat if quantize
+           else unmask_aggregate_flat)
+    outs = []
+    for base, yr, mr in _pad_sharded(y.view(torch.int32), m, devices):
+        dev = yr.device
+        outs.append(agg(yr.view(torch.float32), ws[dev], mr, seeds=sd[dev],
+                        signs=sg[dev], base=base, n_valid=N))
+    return _gather(outs, devices, N)
+
+
+def unmask_aggregate_flat_sharded(y, w, int_mask=None, *, seeds, signs,
+                                  mesh):
+    """Sharded :func:`unmask_aggregate_flat`: shard r holds the rows' lanes
+    ``[r·local_n, (r+1)·local_n)`` and unmasks them at ``base = r·local_n``
+    against the global ``n_valid = N``, so it subtracts exactly the words
+    the one-device sealer added, and its zero padding stays zeros. Mean
+    bit for bit the plain sharded path's and one call's."""
+    return _sharded_unmask(y, w, int_mask, seeds, signs, mesh,
+                           quantize=False)
+
+
+def unmask_aggregate_quantize_flat_sharded(y, w, int_mask=None, *, seeds,
+                                           signs, mesh):
+    """Sharded :func:`unmask_aggregate_quantize_flat`."""
+    return _sharded_unmask(y, w, int_mask, seeds, signs, mesh,
+                           quantize=True)
 
 
 aggregate_flat_onepass.launches = 0

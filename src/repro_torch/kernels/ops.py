@@ -13,10 +13,11 @@ import torch
 
 from repro_torch.engine.flat import FlatModel, FlatSpec, _is_int, as_buffer
 from repro_torch.kernels.aggregate import aggregate_tiles
-from repro_torch.kernels.fused import (aggregate_flat_onepass,
-                                       aggregate_quantize_flat,
-                                       unmask_aggregate_flat,
-                                       unmask_aggregate_quantize_flat)
+from repro_torch.kernels.fused import (
+    aggregate_flat_onepass, aggregate_flat_onepass_sharded,
+    aggregate_quantize_flat, aggregate_quantize_flat_sharded,
+    unmask_aggregate_flat, unmask_aggregate_flat_sharded,
+    unmask_aggregate_quantize_flat, unmask_aggregate_quantize_flat_sharded)
 from repro_torch.kernels.quantize import (TILE, dequantize_tiles, n_tiles,
                                           quantize_tiles)
 from repro_torch.utils.device import resolve_device
@@ -120,8 +121,20 @@ def quantized_delta_pull(codes, scales, theta_ref):
     return treedef.unflatten(out)
 
 
+def _sharded(shardings, device):
+    """True where ``shardings`` splits the aggregation (more than one
+    shard); its mesh must start at ``device``, where the models live and
+    the result lands."""
+    if shardings is None or shardings.n_shards <= 1:
+        return False
+    if shardings.replicated.home != device:
+        raise ValueError(f"mesh starts at {shardings.replicated.home}, "
+                         f"aggregation on {device}")
+    return True
+
+
 def aggregate_flatmodel(models, weights=None, *, spec=None, quantize=False,
-                        device=None):
+                        device=None, shardings=None):
     """Whole-model one-pass aggregation over FlatModels (or pytrees).
 
     ``models``: list of :class:`~repro_torch.engine.flat.FlatModel` and/or
@@ -135,6 +148,12 @@ def aggregate_flatmodel(models, weights=None, *, spec=None, quantize=False,
     the card. Models on another device raise (nothing is moved behind the
     caller's back). On the card the CUDA kernels run; on the CPU their
     plain versions.
+
+    ``shardings``: a :class:`repro_torch.sharding.FlatShardings` (from
+    ``spec.sharding(mesh)``, its mesh starting at ``device``) splits the
+    parameter axis over the mesh and aggregates per shard; mean, codes and
+    scales are bit-identical to the single-device path. Ignored on a
+    1-shard mesh.
     """
     if weights is None:
         weights = [1.0] * len(models)
@@ -152,6 +171,13 @@ def aggregate_flatmodel(models, weights=None, *, spec=None, quantize=False,
     w = torch.tensor([float(v) for v in weights], dtype=torch.float32,
                      device=device)
     int_mask = spec.int_mask_on(device)
+    if _sharded(shardings, device):
+        if quantize:
+            mean, codes, scales = aggregate_quantize_flat_sharded(
+                x, w, int_mask, mesh=shardings)
+            return FlatModel(mean, spec), codes, scales
+        return FlatModel(aggregate_flat_onepass_sharded(
+            x, w, int_mask, mesh=shardings), spec)
     if quantize:
         mean, codes, scales = aggregate_quantize_flat(x, w, int_mask)
         return FlatModel(mean, spec), codes, scales
@@ -159,7 +185,8 @@ def aggregate_flatmodel(models, weights=None, *, spec=None, quantize=False,
 
 
 def masked_aggregate_flatmodel(models, weights=None, *, seeds, signs,
-                               spec=None, quantize=False, device=None):
+                               spec=None, quantize=False, device=None,
+                               shardings=None):
     """Secure-aggregation twin of :func:`aggregate_flatmodel`.
 
     ``models`` are FlatModels whose buffers hold *sealed* bit patterns
@@ -169,7 +196,8 @@ def masked_aggregate_flatmodel(models, weights=None, *, seeds, signs,
     kernel regenerates each row's mask from its seeds, removes it exactly
     in the uint32 ring and runs the identical aggregate(→quantize) math:
     mean, codes and scales are bit-identical to :func:`aggregate_flatmodel`
-    on the unsealed rows. The sealed rows are only ever copied as bits.
+    on the unsealed rows, on one device or split by ``shardings``. The
+    sealed rows are only ever copied as bits.
     """
     if weights is None:
         weights = [1.0] * len(models)
@@ -187,6 +215,14 @@ def masked_aggregate_flatmodel(models, weights=None, *, seeds, signs,
     seeds = torch.as_tensor(np.asarray(seeds, np.int64), device=device)
     signs = torch.as_tensor(np.asarray(signs, np.int64), device=device)
     int_mask = spec.int_mask_on(device)
+    if _sharded(shardings, device):
+        kw = dict(seeds=seeds, signs=signs, mesh=shardings)
+        if quantize:
+            mean, codes, scales = unmask_aggregate_quantize_flat_sharded(
+                y, w, int_mask, **kw)
+            return FlatModel(mean, spec), codes, scales
+        return FlatModel(unmask_aggregate_flat_sharded(y, w, int_mask, **kw),
+                         spec)
     if quantize:
         mean, codes, scales = unmask_aggregate_quantize_flat(
             y, w, int_mask, seeds=seeds, signs=signs)

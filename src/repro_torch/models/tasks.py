@@ -168,24 +168,31 @@ class TorchTask(LearningTask):
         return [{k: v / n for k, v in a.items()} for a in aggs]
 
     def aggregate(self, models: Sequence,
-                  weights: Optional[Sequence[float]] = None):
+                  weights: Optional[Sequence[float]] = None, *,
+                  shardings=None):
         """AVG(Θ) via the whole-model one-pass kernel; returns a FlatModel
         (unflattened lazily at task boundaries). Inputs may be FlatModels
-        or pytrees (mixed is fine)."""
+        or pytrees (mixed is fine). ``shardings`` (a
+        :class:`repro_torch.sharding.FlatShardings`) runs the kernel per
+        model-axis shard — the MeshEngine passes its mesh layout here."""
         from repro_torch.kernels.ops import aggregate_flatmodel
         return aggregate_flatmodel(list(models), weights,
-                                   spec=self.flat_spec, device=self.device)
+                                   spec=self.flat_spec, device=self.device,
+                                   shardings=shardings)
 
     def aggregate_masked(self, models: Sequence, seeds, signs,
-                         weights: Optional[Sequence[float]] = None):
+                         weights: Optional[Sequence[float]] = None, *,
+                         shardings=None):
         """Secure-agg AVG over *sealed* FlatModels (repro_torch.secureagg):
         the fused kernel regenerates each row's mask from ``seeds``/``signs``
         ``(P, R)`` matrices, removes it exactly and aggregates — bit-
-        identical to :meth:`aggregate` on the unsealed rows."""
+        identical to :meth:`aggregate` on the unsealed rows, per shard
+        with ``shardings`` as for :meth:`aggregate`."""
         from repro_torch.kernels.ops import masked_aggregate_flatmodel
         return masked_aggregate_flatmodel(list(models), weights, seeds=seeds,
                                           signs=signs, spec=self.flat_spec,
-                                          device=self.device)
+                                          device=self.device,
+                                          shardings=shardings)
 
     def aggregate_sequential(self, models: Sequence,
                              weights: Optional[Sequence[float]] = None):

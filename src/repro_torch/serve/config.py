@@ -66,8 +66,9 @@ class ServeConfig:
       ``checkpoint.save`` on publish and ``checkpoint.restore`` on
       install (the saxml servable-load path); ``restore_shardings`` is
       threaded into restore to place loaded leaves: None keeps each on
-      the device of the training-side leaf, a device or a pytree of
-      devices moves them (``repro_torch.checkpoint.restore``).
+      the device of the training-side leaf, a device, a pytree of
+      devices or a ``FlatShardings`` (its mesh's first device) moves them
+      (``repro_torch.checkpoint.restore``).
     """
 
     n_replicas: int = 2

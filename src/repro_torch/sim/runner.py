@@ -140,11 +140,12 @@ class ModestSession:
 
     ``engine`` selects the compute path: ``"batched"`` (one stacked
     flat-model batch per sampled cohort — default for tasks that support
-    it, i.e. :class:`~repro_torch.models.tasks.TorchTask`),
-    ``"sequential"`` (per-node reference path), or None for auto. Event
-    semantics are identical either way — per-node train durations still
-    come from the cost model; only wall-clock changes. ``"sharded"`` is
-    not part of this package yet and raises ``NotImplementedError``.
+    it, i.e. :class:`~repro_torch.models.tasks.TorchTask`), ``"sharded"``
+    (the batched engine with its aggregations split over the local cards;
+    falls back to batched on one card or the CPU), ``"sequential"``
+    (per-node reference path), or None for auto. Event semantics are
+    identical either way — per-node train durations still come from the
+    cost model; only wall-clock changes.
 
     ``device``: where the session computes; None means the card (and
     raises without one), ``"cpu"`` the CPU. The task must live there.

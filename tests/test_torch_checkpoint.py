@@ -189,18 +189,27 @@ def test_restore_with_sharding_pytree(tmp_path):
 
 
 def test_restore_flatmodel_with_flat_shardings(tmp_path):
-    """The reference's ``FlatShardings`` form (a mesh) is ROADMAP A7's and
-    raises here; a ``FlatModel`` template restored with a device re-packs
-    there, and without one onto its own buffer's device."""
-    class _FlatShardings:                  # the duck type restore reads
-        replicated = vec = mesh = object()
-
+    """The reference's ``FlatShardings`` form: leaves land on its
+    ``replicated`` placement, the mesh's first device, and a ``FlatModel``
+    template re-packs onto ``vec``'s; a ``FlatModel`` template restored with
+    a device re-packs there, and without one onto its own buffer's
+    device."""
     fm = FlatModel.pack({"w": torch.arange(6, dtype=torch.float32),
                          "k": torch.arange(2, dtype=torch.int32)})
     path = str(tmp_path / "fmsh")
     checkpoint.save(path, fm)
-    with pytest.raises(NotImplementedError, match="A7"):
-        checkpoint.restore(path, fm, shardings=_FlatShardings())
+    for mesh in (("cpu",) * 4, ("meta", "cpu")):
+        fs = fm.spec.sharding(mesh)
+        back, _ = checkpoint.restore(path, fm, shardings=fs)
+        assert isinstance(back, FlatModel) and back.spec == fm.spec
+        assert back.buffer.device == fs.vec.home == torch.device(mesh[0])
+        tree, _ = checkpoint.restore(path, fm.tree, shardings=fs)
+        assert {t.device for t in tree.values()} == {fs.replicated.home}
+        if fs.replicated.home.type == "cpu":
+            assert torch.equal(back.buffer, fm.buffer)
+            assert all(torch.equal(tree[k], fm.tree[k]) for k in tree)
+        else:
+            assert back.buffer.is_meta and back.buffer.shape == (8,)
     back, _ = checkpoint.restore(path, fm, shardings="cpu")
     assert isinstance(back, FlatModel) and back.spec == fm.spec
     assert torch.equal(back.buffer, fm.buffer)

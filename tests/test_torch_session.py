@@ -1,8 +1,8 @@
 """Sessions of the PyTorch package: the host-side copies of the simulator
 and the protocol core reproduce the reference's pinned golden trajectories
 byte for byte, the CNN session agrees with the reference's, a serving
-deployment attaches its fabric, and the seam into the sharded engine,
-which the package does not hold yet, is closed loudly.
+deployment attaches its fabric, and the sharded engine falls back to the
+batched session on one device, as the reference's does.
 Secure aggregation is held in ``test_torch_secureagg.py``."""
 
 import hashlib
@@ -165,10 +165,11 @@ def test_cnn_session_matches_reference_and_engines_agree():
 
 
 @pytest.mark.parametrize("name", sorted(SESSIONS))
-def test_serve_attaches_a_fabric_and_sharded_is_refused(name):
+def test_serve_attaches_a_fabric_and_sharded_runs_batched(name):
     """A ``ServeConfig`` attaches a ``ServingFabric`` (replica and client
     endpoints on the session's network), ``serve=None`` builds nothing,
-    and the sharded engine is still refused (ROADMAP A7)."""
+    and ``engine="sharded"`` on one device runs the batched session: the
+    same engine selection and the same trajectory."""
     from repro_torch.serve import ServeConfig, ServingFabric
 
     cls = SESSIONS[name]
@@ -177,7 +178,9 @@ def test_serve_attaches_a_fabric_and_sharded_is_refused(name):
     assert isinstance(sess.serving, ServingFabric)
     assert [r.node_id for r in sess.serving.replicas] == ["8", "9", "10"]
     assert len(sess.net.nodes) == 8 + 3 + 8     # population, replicas, clients
-    with pytest.raises(NotImplementedError, match="sharded"):
-        cls(engine="sharded", **kw)
+    sharded = cls(engine="sharded", **kw)
+    batched = cls(engine="batched", **kw)
+    assert type(sharded.engine) is type(batched.engine)
+    assert _got(sharded.run(60.0)) == _got(batched.run(60.0))
     plain = cls(serve=None, **kw)
     assert plain.serving is None and len(plain.net.nodes) == 8
