@@ -67,7 +67,25 @@ two main paths and checks that each really went through its kernels:
   the same session on the batched engine, both with cuDNN's deterministic
   algorithms: rounds and bytes equal, accuracy within 0.02 at every
   evaluated round, every aggregation 4 launches, and each re-aggregated in
-  one launch over its inputs bit for bit.
+  one launch over its inputs bit for bit;
+* lm_train: MoDeST sessions that train a dense LM at TinyLlama's full
+  widths (``lm_task("tinyllama-1.1b", reduce=False, n_layers=2)``: d_model
+  2048, 32 query and 4 KV heads of 64, d_ff 5632, vocab 32000, bf16
+  leaves; N = 219,162,624 lanes in 12 leaves, 438.3 MB on the wire) on the
+  batched engine, 16 nodes, cohorts of 4, batch 8 of 96 tokens, 750
+  simulated seconds, plain and with ``secure_agg="masked"``: every cohort
+  step one ``torch.func`` pass over its 4 members, ``fused.agg`` once an
+  aggregation (masked: ``fused.mask`` once a training and
+  ``fused.unmask_agg`` once an aggregation, no plaintext on the wire), and
+  ``fused.agg_quant`` (masked: ``fused.unmask_agg_quant``) over the last
+  cohort; every mean within 1e-6 of the plain version of its inputs
+  (masked: bit for bit ``fused.agg`` on the rows the plain path unseals),
+  codes and scales bit for bit the plain quantiser's on the kernel's
+  mean, every loss finite; a second, instrumented run of each for the
+  breakdown; one cohort step against ``task._step`` for one member, every
+  parameter within ``LM_STEP_BF16_SPACINGS`` bf16 steps; ``fused.agg`` and
+  ``fused.unmask_agg`` at P = 10 over that N (P·N past 2^31, 8.8 GB of
+  rows) against their plain versions; B1-B5 timed at P = 4 over that N.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -152,6 +170,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import functools
+import gc
 import json
 import os
 import re
@@ -394,52 +413,61 @@ def fused_rows(dev, fused, word_pipes):
     """B1-B5 at ``FUSED_SHAPES``: each checked against its plain version
     and timed beside it."""
     rows = {"fused.agg": [], "fused.agg_quant": []}
-    for i, (name, P, N, n_int, iters) in enumerate(FUSED_SHAPES):
-        x, w, mask = make_inputs(P, N, n_int, seed=100 + i, dev=dev)
-        mean = fused.aggregate_flat_onepass(x, w, mask)
-        mean_q, codes, scales = fused.aggregate_quantize_flat(x, w, mask)
-        torch.cuda.synchronize()
-        plain_mean = fused._plain_onepass(x, w, mask)
-        for got_mean in (mean, mean_q):
-            if got_mean.shape != (N,) or not torch.isfinite(got_mean).all():
-                raise AssertionError(f"{name}: bad mean")
-        err = float((mean - plain_mean).abs().max())
-        if not torch.allclose(mean, plain_mean, rtol=TOL, atol=TOL):
-            raise AssertionError(f"{name}: mean off by {err}")
-        if not torch.equal(mean, mean_q):
-            raise AssertionError(f"{name}: the two kernels' means differ")
-        check_quant(mean_q, codes, scales, fused)
-
-        wn = w / w.sum()
-        calls = {
-            "fused.agg": (
-                lambda: fused.aggregate_flat_onepass(x, w, mask),
-                lambda: fused._plain_onepass(x, w, mask),
-                lambda: torch.matmul(wn, x)),     # yardstick only
-            "fused.agg_quant": (
-                lambda: fused.aggregate_quantize_flat(x, w, mask),
-                lambda: fused._plain_onepass_quant(x, w, mask),
-                None),                            # no single library call
-        }
-        for kname, (kernel, plain_fn, library) in calls.items():
-            b, by = bound_ms(kname, P, N, 0, mask is not None)
-            rows[kname].append({
-                "shape": name, "P": P, "N": N, "int_lanes": n_int,
-                "form": plan_label(fused, kname, N),
-                "max_abs_err": err, "ms": time_ms(kernel, iters),
-                "plain_ms": time_ms(plain_fn, iters),
-                "bound_ms": b, "bound_by": by,
-                "library_ms": time_ms(library, iters) if library else None,
-                "eager_ms": eager_ms(kernel, iters),
-                "eager_plain_ms": eager_ms(plain_fn, iters)})
-        check_again(fused, f"{name}: fused.agg_quant",
-                    lambda: fused.aggregate_quantize_flat(x, w, mask),
-                    (mean_q, codes, scales))
-        masked_rows(rows, name, x, w, mask, n_int, iters, seed=200 + i,
-                    fused=fused, word_pipes=word_pipes)
-        del x, w, mask, mean, mean_q, codes, scales, plain_mean
-        torch.cuda.empty_cache()
+    for i, shape in enumerate(FUSED_SHAPES):
+        fused_shape_rows(rows, dev, fused, word_pipes, shape, seed=100 + i)
     return rows
+
+
+def fused_shape_rows(rows, dev, fused, word_pipes, shape, seed: int):
+    """B1-B5 at one ``(name, P, N, integer lanes, iterations)`` shape,
+    appended to ``rows``: each checked against its plain version and
+    timed beside it (the masked kernels on rows sealed from ``seed +
+    100``)."""
+    name, P, N, n_int, iters = shape
+    x, w, mask = make_inputs(P, N, n_int, seed=seed, dev=dev)
+    mean = fused.aggregate_flat_onepass(x, w, mask)
+    mean_q, codes, scales = fused.aggregate_quantize_flat(x, w, mask)
+    torch.cuda.synchronize()
+    plain_mean = fused._plain_onepass(x, w, mask)
+    for got_mean in (mean, mean_q):
+        if got_mean.shape != (N,) or not torch.isfinite(got_mean).all():
+            raise AssertionError(f"{name}: bad mean")
+    err = float((mean - plain_mean).abs().max())
+    if not torch.allclose(mean, plain_mean, rtol=TOL, atol=TOL):
+        raise AssertionError(f"{name}: mean off by {err}")
+    if not torch.equal(mean, mean_q):
+        raise AssertionError(f"{name}: the two kernels' means differ")
+    check_quant(mean_q, codes, scales, fused)
+
+    wn = w / w.sum()
+    calls = {
+        "fused.agg": (
+            lambda: fused.aggregate_flat_onepass(x, w, mask),
+            lambda: fused._plain_onepass(x, w, mask),
+            lambda: torch.matmul(wn, x)),     # yardstick only
+        "fused.agg_quant": (
+            lambda: fused.aggregate_quantize_flat(x, w, mask),
+            lambda: fused._plain_onepass_quant(x, w, mask),
+            None),                            # no single library call
+    }
+    for kname, (kernel, plain_fn, library) in calls.items():
+        b, by = bound_ms(kname, P, N, 0, mask is not None)
+        rows[kname].append({
+            "shape": name, "P": P, "N": N, "int_lanes": n_int,
+            "form": plan_label(fused, kname, N),
+            "max_abs_err": err, "ms": time_ms(kernel, iters),
+            "plain_ms": time_ms(plain_fn, iters),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": time_ms(library, iters) if library else None,
+            "eager_ms": eager_ms(kernel, iters),
+            "eager_plain_ms": eager_ms(plain_fn, iters)})
+    check_again(fused, f"{name}: fused.agg_quant",
+                lambda: fused.aggregate_quantize_flat(x, w, mask),
+                (mean_q, codes, scales))
+    masked_rows(rows, name, x, w, mask, n_int, iters, seed=seed + 100,
+                fused=fused, word_pipes=word_pipes)
+    del x, w, mask, mean, mean_q, codes, scales, plain_mean
+    torch.cuda.empty_cache()
 
 
 def bits(t):
@@ -520,13 +548,14 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused,
             and torch.equal(scales, pscales)):
         raise AssertionError(f"{name}: fused.unmask_agg_quant != "
                              "fused.agg_quant on the unsealed rows")
-    plain = fused._plain_unmask_onepass(y, w, mask, seeds, signs)
+    plain = plain_unmask_onepass(fused, y, w, mask, seeds, signs)
     err = float((mean - plain).abs().max())
     if not torch.allclose(mean, plain, rtol=TOL, atol=TOL):
         raise AssertionError(f"{name}: masked mean off by {err}")
     del plain
     # the plain masked versions move (P, N) int64 temporaries through ~30
-    # passes a term: at the streaming shape one call takes most of a second
+    # passes a term: at the streaming shape one call takes most of a second,
+    # and past PLAIN_LANES lanes they run in lane chunks (plain_unmask_*)
     slow = N > 1_000_000
     pi = 1 if slow else iters
     calls = {
@@ -534,11 +563,11 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused,
                        lambda: fused._plain_mask(x[0], seeds[0], signs[0])),
         "fused.unmask_agg": (
             lambda: fused.unmask_aggregate_flat(y, w, mask, **kw),
-            lambda: fused._plain_unmask_onepass(y, w, mask, seeds, signs)),
+            lambda: plain_unmask_onepass(fused, y, w, mask, seeds, signs)),
         "fused.unmask_agg_quant": (
             lambda: fused.unmask_aggregate_quantize_flat(y, w, mask, **kw),
-            lambda: fused._plain_unmask_onepass_quant(y, w, mask, seeds,
-                                                      signs)),
+            lambda: plain_unmask_onepass(fused, y, w, mask, seeds, signs,
+                                         quant=True)),
     }
     for kname, (kernel, plain_fn) in calls.items():
         b, by = bound_ms(kname, P, N, P, mask is not None)
@@ -547,6 +576,8 @@ def masked_rows(rows, name, x, w, mask, n_int, iters, seed, fused,
             "form": plan_label(fused, kname, N, P * P),
             "pipe_bound_ms": pipe_bound_ms(kname, P, N, P, word_pipes),
             "max_abs_err": 0.0 if kname == "fused.mask" else err,
+            "plain_lane_chunks": (1 if kname == "fused.mask"
+                                  else plain_chunks(N)),
             "ms": time_ms(kernel, iters),
             "plain_ms": time_ms(plain_fn, pi, warmup=1,
                                 replays=2 if slow else 3),
@@ -1088,18 +1119,29 @@ def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
         seed=0, eval_every_rounds=5, engine=engine, serve=serve)
 
 
-def record_aggregate_inputs(session):
-    """Keep the models of the session's most recent aggregation (the last
-    cohort's trained models) without changing what the engine does."""
-    last = {}
-    inner = session.engine.aggregate
+def record_aggregations(session, masked: bool):
+    """Every aggregation's inputs and result, recorded around the engine
+    without changing what it does."""
+    calls = []
+    if masked:
+        inner = session.engine.aggregate_masked
 
-    def aggregate(models, weights=None):
-        last["models"] = list(models)
-        return inner(models, weights)
+        def aggregate_masked(models, seeds, signs, weights=None):
+            out = inner(models, seeds, signs, weights)
+            calls.append((list(models), seeds, signs, weights, out))
+            return out
 
-    session.engine.aggregate = aggregate
-    return last
+        session.engine.aggregate_masked = aggregate_masked
+    else:
+        inner = session.engine.aggregate
+
+        def aggregate(models, weights=None):
+            out = inner(models, weights)
+            calls.append((list(models), weights, out))
+            return out
+
+        session.engine.aggregate = aggregate
+    return calls
 
 
 def reset_counts():
@@ -1127,7 +1169,7 @@ def run_session(session, sim_seconds: float):
     return synced_seconds(session.run, sim_seconds)
 
 
-def check_session(session, result, metric="accuracy"):
+def check_session(session, result, metric="accuracy", min_rounds=10):
     """What every session must show: enough rounds, batched cohorts served
     by queued jobs, finite parameters and a finite ``metric`` history."""
     from repro_torch.engine.flat import as_buffer
@@ -1135,7 +1177,7 @@ def check_session(session, result, metric="accuracy"):
     spec = session.task.flat_spec
     eng = session.engine
     acc = [(h["round"], h[metric]) for h in result.history if metric in h]
-    if result.rounds_completed < 10:
+    if result.rounds_completed < min_rounds:
         raise AssertionError(f"only {result.rounds_completed} rounds")
     if eng.jobs_run <= 0 or eng.jobs_run <= eng.flushes:
         raise AssertionError(f"cohort not batched: {eng.jobs_run} jobs in "
@@ -1148,7 +1190,8 @@ def check_session(session, result, metric="accuracy"):
             f"{eng.fallbacks} trainings fell back to training alone; "
             f"{eng.jobs_run} jobs for {result.trainings_completed} trainings")
     for b in [as_buffer(m, spec) for m in session._eval_models.values()]:
-        if b.device.type != "cuda" or b.shape != (spec.n,):
+        if b.device != session.task.device or b.device.type != "cuda" or \
+                b.shape != (spec.n,):
             raise AssertionError(f"buffer {tuple(b.shape)} on {b.device}")
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite parameters after training")
@@ -1165,7 +1208,7 @@ def session_phase(sim_seconds: float):
     spec = session.task.flat_spec
     if spec.n != 136672 or len(spec.shapes) != 7:
         raise AssertionError(f"paper-cnn layout changed: {spec}")
-    last = record_aggregate_inputs(session)
+    calls = record_aggregations(session, masked=False)
     reset_counts()                         # counts of this path only
     result, wall = run_session(session, sim_seconds)
 
@@ -1176,7 +1219,7 @@ def session_phase(sim_seconds: float):
             f"{fused.aggregate_flat_onepass.launches} fused.agg launches "
             f"for {n_agg} aggregations")
     acc = check_session(session, result)
-    models = last["models"]
+    models = calls[-1][0]
     for b in [as_buffer(m, spec) for m in models]:
         if b.device.type != "cuda" or b.shape != (spec.n,):
             raise AssertionError(f"buffer {tuple(b.shape)} on {b.device}")
@@ -1220,15 +1263,7 @@ def masked_session_phase(sim_seconds: float):
 
     session = cnn_session(32, 10, "batched", secure_agg="masked")
     leaks = arm_sniffer(session)
-    calls = []
-    inner = session.engine.aggregate_masked
-
-    def aggregate_masked(models, seeds, signs, weights=None):
-        out = inner(models, seeds, signs, weights)
-        calls.append((list(models), seeds, signs, weights, out))
-        return out
-
-    session.engine.aggregate_masked = aggregate_masked
+    calls = record_aggregations(session, masked=True)
     reset_counts()                         # counts of this path only
     result, wall = run_session(session, sim_seconds)
     launches = read_counts()
@@ -1271,29 +1306,90 @@ def unseal_plain(models, seeds, signs, weights):
     from repro_torch.kernels import fused
 
     y = torch.stack([bits(m.buffer) for m in models]).view(torch.float32)
-    x = fused._plain_unmask_stack(
-        y, torch.as_tensor(np.asarray(seeds, np.int64), device=y.device),
-        torch.as_tensor(np.asarray(signs, np.int64), device=y.device))
+    x = plain_unseal(fused, y, torch.as_tensor(np.asarray(seeds, np.int64),
+                                               device=y.device),
+                     torch.as_tensor(np.asarray(signs, np.int64),
+                                     device=y.device))
     w = torch.tensor([1.0] * len(models) if weights is None else weights,
                      dtype=torch.float32, device=y.device)
     return x, w
 
 
-def masked_means_check(session, calls, phase="masked_means"):
-    """Every masked mean of the session equals ``fused.agg`` on the same
-    rows unsealed by the plain path, bit for bit (run after the counted
-    path: these launches are comparisons)."""
+# The plain unmask holds each word in an int64 and moves (P, N) of them
+# through ~30 passes a term: past this many lanes it runs in lane chunks
+# (each at its lane base), which changes no value and keeps its
+# temporaries to a few GB
+PLAIN_LANES = 1 << 25
+
+
+def plain_chunks(N: int) -> int:
+    return -(-N // PLAIN_LANES) if N > 2 * PLAIN_LANES else 1
+
+
+def plain_unseal(fused, y, seeds, signs):
+    """``fused._plain_unmask_stack`` of the whole rows, in lane chunks
+    past ``2 * PLAIN_LANES`` lanes."""
+    N = y.shape[1]
+    if plain_chunks(N) == 1:
+        return fused._plain_unmask_stack(y, seeds, signs)
+    out = torch.empty_like(y)
+    for lo in range(0, N, PLAIN_LANES):
+        out[:, lo:lo + PLAIN_LANES] = fused._plain_unmask_stack(
+            y[:, lo:lo + PLAIN_LANES], seeds, signs, base=lo, n_valid=N)
+    return out
+
+
+def plain_unmask_onepass(fused, y, w, mask, seeds, signs, quant=False):
+    """The plain versions of B4 (B5 with ``quant``), the unmask in lane
+    chunks past ``2 * PLAIN_LANES`` lanes, the mean over the chunks'
+    rows, then (B5) the plain quantiser over the whole mean."""
+    N = y.shape[1]
+    if plain_chunks(N) == 1:
+        if quant:
+            return fused._plain_unmask_onepass_quant(y, w, mask, seeds,
+                                                     signs)
+        return fused._plain_unmask_onepass(y, w, mask, seeds, signs)
+    mean = torch.cat([fused._plain_unmask_onepass(
+        y[:, lo:lo + PLAIN_LANES], w,
+        None if mask is None else mask[lo:lo + PLAIN_LANES], seeds, signs,
+        base=lo, n_valid=N) for lo in range(0, N, PLAIN_LANES)])
+    if quant:
+        return (mean, *fused._plain_quantize(mean))
+    return mean
+
+
+def means_check(session, calls, masked: bool, phase: str):
+    """Every mean of the session recorded in ``calls`` within 1e-6 of the
+    plain version of its inputs; masked, also bit for bit ``fused.agg`` on
+    the rows the plain path unseals (run after the counted path: these
+    launches are comparisons). Returns the largest difference."""
+    from repro_torch.engine.flat import as_buffer
     from repro_torch.kernels import fused
 
-    mask = session.task.flat_spec.int_mask_on(torch.device("cuda", 0))
-    for models, seeds, signs, weights, out in calls:
-        x, w = unseal_plain(models, seeds, signs, weights)
-        if not torch.equal(out.buffer,
-                           fused.aggregate_flat_onepass(x, w, mask)):
-            raise AssertionError("a masked mean differs from fused.agg on "
-                                 "the unsealed rows")
-    emit(phase, aggregations=len(calls),
-         vs_agg_on_unsealed_rows="bit-identical")
+    spec, worst = session.task.flat_spec, 0.0
+    mask = spec.int_mask_on(torch.device("cuda", 0))
+    for call in calls:
+        if masked:
+            models, seeds, signs, weights, out = call
+            x, w = unseal_plain(models, seeds, signs, weights)
+            if not torch.equal(out.buffer,
+                               fused.aggregate_flat_onepass(x, w, mask)):
+                raise AssertionError("a masked mean differs from fused.agg "
+                                     "on the unsealed rows")
+        else:
+            models, weights, out = call
+            x = torch.stack([as_buffer(m, spec) for m in models])
+            w = torch.tensor([1.0] * len(models) if weights is None
+                             else weights, dtype=torch.float32,
+                             device=x.device)
+        plain = fused._plain_onepass(x, w, mask)
+        worst = max(worst, float((out.buffer - plain).abs().max()))
+        if not torch.allclose(out.buffer, plain, rtol=TOL, atol=TOL):
+            raise AssertionError(f"{phase}: a mean off by {worst}")
+        del x, plain
+    emit(phase, aggregations=len(calls), max_abs_err=worst,
+         **({"vs_agg_on_unsealed_rows": "bit-identical"} if masked else {}))
+    return worst
 
 
 def masked_agg_quant_phase(session, last):
@@ -1368,12 +1464,14 @@ def agg_quant_check(session, models, out, codes, scales, phase="agg_quant"):
          codes="bit-identical", scales="bit-identical")
 
 
-def breakdown_phase(sim_seconds: float, secure_agg=None):
+def breakdown_phase(sim_seconds: float, secure_agg=None, session=None,
+                    phase="breakdown"):
     """Where the session's wall time goes. A second, instrumented run of
     the same session (synchronising around each engine call and, masked,
     around each seal), kept apart from the counted run so that run stays as
-    a user would run it."""
-    session = cnn_session(32, 10, "batched", secure_agg=secure_agg)
+    a user would run it. ``session``: another session than the CNN's."""
+    if session is None:
+        session = cnn_session(32, 10, "batched", secure_agg=secure_agg)
     eng = session.engine
     spent = {"train": 0.0, "aggregate": 0.0, "evaluate": 0.0, "seal": 0.0}
 
@@ -1394,13 +1492,20 @@ def breakdown_phase(sim_seconds: float, secure_agg=None):
     for node in session.nodes.values():
         if node._masker is not None:
             node._masker.seal = timed("seal", node._masker.seal)
+    torch.cuda.reset_peak_memory_stats()
     result, wall = run_session(session, sim_seconds)
-    emit("breakdown", secure_agg=secure_agg,
-         rounds=result.rounds_completed, wall_seconds=wall,
-         train_seconds=spent["train"], aggregate_seconds=spent["aggregate"],
-         evaluate_seconds=spent["evaluate"], seal_seconds=spent["seal"],
-         host_seconds=wall - sum(spent.values()),
-         flushes=eng.flushes, jobs=eng.jobs_run)
+    host = wall - sum(spent.values())
+    out = dict(secure_agg=secure_agg, rounds=result.rounds_completed,
+               wall_seconds=wall, train_seconds=spent["train"],
+               aggregate_seconds=spent["aggregate"],
+               evaluate_seconds=spent["evaluate"],
+               seal_seconds=spent["seal"], host_seconds=host,
+               shares={k: v / wall for k, v in (*spent.items(),
+                                                ("host", host))},
+               flushes=eng.flushes, jobs=eng.jobs_run,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(phase, **out)
+    return out
 
 
 def profile_phase(sim_seconds: float):
@@ -1803,7 +1908,7 @@ def mf_session_phase(sim_seconds: float):
 
     def keep(self, duration):
         seen["session"] = self
-        seen["last"] = record_aggregate_inputs(self)
+        seen["calls"] = record_aggregations(self, masked=False)
         return run(self, duration)
 
     runner.ModestSession.run = keep
@@ -1818,7 +1923,7 @@ def mf_session_phase(sim_seconds: float):
             rows = list(csv.DictReader(fh))
     runner.ModestSession.run = run
     session = seen["session"]
-    models = seen["last"]["models"]
+    models = seen["calls"][-1][0]
     quantized = agg_quant_phase(session, models)
     launches = read_counts()
 
@@ -1876,15 +1981,7 @@ def mf_masked_session_phase(sim_seconds: float):
     unmask→aggregate→quantize over its last sealed cohort; counted."""
     session = mf_direct_session("batched", secure_agg="masked")
     leaks = arm_sniffer(session)
-    calls = []
-    inner = session.engine.aggregate_masked
-
-    def aggregate_masked(models, seeds, signs, weights=None):
-        out = inner(models, seeds, signs, weights)
-        calls.append((list(models), seeds, signs, weights, out))
-        return out
-
-    session.engine.aggregate_masked = aggregate_masked
+    calls = record_aggregations(session, masked=True)
     result, wall = run_session(session, sim_seconds)
     mout = masked_agg_quant_phase(session, calls[-1])
     launches = read_counts()
@@ -1903,7 +2000,7 @@ def mf_masked_session_phase(sim_seconds: float):
     if any(margin < 0 for _, _, _, margin in logs):
         raise AssertionError(f"unmasked below threshold: {logs}")
     mse = check_session(session, result, metric="mse")
-    masked_means_check(session, calls, phase="mf_masked_means")
+    means_check(session, calls, True, phase="mf_masked_means")
     masked_agg_quant_check(session, calls[-1], mout,
                            phase="mf_masked_agg_quant")
     emit("mf_masked_session", model="paper-mf",
@@ -2716,6 +2813,350 @@ def sharded_phase(dev, sim_seconds: float):
          sessions=sessions, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# lm_train: MoDeST sessions that train a TinyLlama-width dense LM
+# ---------------------------------------------------------------------------
+
+LM_LAYERS = 2                   # TinyLlama's 22 cut to 2 (PERF.md section 4)
+LM_N = 219_162_624              # its flat lanes at 2 layers, 12 leaves
+LM_NODES, LM_COHORT, LM_BATCH = 16, 4, 8
+LM_SIM_SECONDS = 750.0          # about 140 simulated s a round on the WAN
+LM_MIN_ROUNDS = 4
+LM_WIDE_P = 10                  # P * N past 2^31: the wide-stack check
+LM_SHAPE = ("lm_session", LM_COHORT, LM_N, 0, 10)   # B1-B5's timed shape
+# One cohort step of the stacked lowering against ``task._step`` for one
+# member. The two sum their bf16 products in different orders, so their
+# gradients differ: per leaf, the relative L2 distance of the stacked
+# step's update from ``_step``'s at most LM_GRAD_REL_L2 (the CPU tests
+# hold the package's bf16 gradients to the reference's at the same
+# bound). The engine updates in fp32 and rounds once where ``_step``
+# rounds the update to bf16 and then the sum, so each parameter may differ
+# by the two updates' difference plus LM_STEP_BF16_SPACINGS bf16 steps at
+# the largest magnitude its step touches (at most 1.5 by the roundings).
+LM_GRAD_REL_L2 = 2.0 ** -5
+LM_STEP_BF16_SPACINGS = 2.0
+
+
+def lm_task_full():
+    from repro_torch.models.tasks import lm_task
+    return lm_task("tinyllama-1.1b", reduce=False, n_layers=LM_LAYERS)
+
+
+def lm_session(task, secure_agg=None):
+    from repro_torch.config import ModestConfig, TrainConfig
+    from repro_torch.data.synthetic import make_lm_task
+    from repro_torch.sim.runner import ModestSession
+
+    return ModestSession(
+        n_nodes=LM_NODES,
+        mcfg=ModestConfig(n_nodes=LM_NODES, sample_size=LM_COHORT,
+                          n_aggregators=2, success_fraction=1.0,
+                          ping_timeout=1.0, secure_agg=secure_agg),
+        tcfg=TrainConfig(batch_size=LM_BATCH), task=task,
+        data=make_lm_task(LM_NODES, samples_per_node=24, seq_len=97,
+                          vocab=task.cfg.vocab, iid=False, seed=0),
+        seed=0, eval_every_rounds=2, engine="batched", device=task.device)
+
+
+def lm_counted_session(task, masked: bool):
+    """The session with the counts set to 0 just before it and read just
+    after, plus (B2 / B5) one quantised aggregation of its last cohort."""
+    from repro_torch.kernels import fused
+
+    session = lm_session(task, secure_agg="masked" if masked else None)
+    leaks = arm_sniffer(session) if masked else []
+    calls = record_aggregations(session, masked)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result, wall = run_session(session, LM_SIM_SECONDS)
+    if masked:
+        quant = masked_agg_quant_phase(session, calls[-1])
+    else:
+        quant = agg_quant_phase(session, calls[-1][0])
+    launches = read_counts()
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    name, qname = (("fused.unmask_agg", "fused.unmask_agg_quant") if masked
+                   else ("fused.agg", "fused.agg_quant"))
+    want = {k: 0 for k in launches}
+    want.update({name: n_agg, qname: 1})
+    if masked:
+        want["fused.mask"] = result.trainings_completed
+    if launches != want or n_agg != len(calls) or n_agg == 0:
+        raise AssertionError(f"launches {launches}, want {want}; "
+                             f"{len(calls)} aggregations recorded")
+    if leaks:
+        raise AssertionError(f"plaintext models on the wire: {leaks[:5]}")
+    loss = check_session(session, result, metric="loss",
+                         min_rounds=LM_MIN_ROUNDS)
+    return dict(session=session, result=result, wall=wall, calls=calls,
+                quant=quant, launches=launches, loss=loss,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def bf16_spacing(m):
+    """Distance between neighbouring bf16 values at magnitude ``m``."""
+    m = torch.clamp_min(m.abs(), 2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def vmap_grad_form(task):
+    """The reference's form of the stacked gradient, ``vmap(grad(loss))``,
+    timed beside the package's (vmap of the losses, one backward of their
+    sum) as a yardstick only."""
+    from repro_torch.models import transformer
+
+    cfg = task.cfg
+
+    def loss(params, tokens, labels, mask):
+        return transformer.loss_fn(params, cfg, {
+            "tokens": tokens, "labels": labels, "mask": mask})[0]
+
+    per_model = torch.func.vmap(torch.func.grad(loss))
+    return lambda ptree, xb, yb, mb: per_model(
+        ptree, xb, yb, mb[:, :, None].expand(xb.shape))
+
+
+def cuda_ms(fn, reps: int = 3):
+    """CUDA-event times of ``reps`` calls of ``fn`` after one warm-up,
+    each with the peak memory it reached."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times, peaks = [], []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        peaks.append(torch.cuda.max_memory_allocated())
+        del out
+    return times, max(peaks)
+
+
+def lm_step_check(task, data):
+    """One cohort step of the stacked lowering (the engine's step over
+    ``(S, N)``) on the first clients' first batches against ``task._step``
+    for member 0, leaf by leaf: the updates within ``LM_GRAD_REL_L2`` and
+    every parameter within the updates' difference plus
+    ``LM_STEP_BF16_SPACINGS`` bf16 steps; the step's time, and the
+    stacked gradient's beside the vmap(grad) form's."""
+    from repro_torch.engine.cohort import _cohort_ops
+    from repro_torch.engine.lowering import stacked_grads_for
+    from repro_torch.utils.pytree import tree_flatten, tree_flatten_with_path
+
+    spec = task.flat_spec
+    opt, step = _cohort_ops(task)
+    params = task.init_params(1)
+    buf = spec.pack(params)
+    bufs = torch.stack([buf] * LM_COHORT)
+    batches = [task._padded_batches(data.clients[s], LM_BATCH)[0]
+               for s in range(LM_COHORT)]
+    dev = buf.device
+    xb, yb, mb = (torch.from_numpy(np.stack([b[i] for b in batches])).to(dev)
+                  for i in range(3))
+    act = torch.ones(LM_COHORT, dtype=torch.bool, device=dev)
+    new, _ = step(bufs, opt.init(bufs), xb, yb, mb, act)
+    seen = {}
+    inner = task._opt                   # keep the gradient _step computes
+    task._opt = inner._replace(update=lambda g, state, p=None: (
+        seen.__setitem__("g", g), inner.update(g, state, p))[1])
+    try:
+        want, _, loss = task._step(params, inner.init(params),
+                                   task._to_batch(*batches[0]))
+    finally:
+        task._opt = inner
+    lr, upd = task.tcfg.lr, new[0] - buf
+    leaves, worst, worst_rel = {}, 0.0, 0.0
+    for (path, p0), off, size, got, w, gq in zip(
+            tree_flatten_with_path(params)[0], spec.offsets, spec.sizes,
+            tree_flatten(spec.unpack(new[0]))[0], tree_flatten(want)[0],
+            tree_flatten(seen["g"])[0]):
+        p0, got, w = (t.float().reshape(-1) for t in (p0, got, w))
+        us, uq = upd[off:off + size], -lr * gq.float().reshape(-1)
+        rel = float((us - uq).norm() / torch.clamp_min(uq.norm(), 1e-30))
+        big = torch.stack([p0.abs(), us.abs(), uq.abs(), got.abs(),
+                           w.abs()]).amax(0)
+        sp = bf16_spacing(big)
+        rounding = ((got - w).abs() - (us - uq).abs()) / sp
+        d = (got - w).abs() / sp
+        leaves["/".join(str(getattr(k, "key", k)) for k in path)] = {
+            "update_rel_l2": rel,
+            "rounding_bf16_spacings": float(rounding.max()),
+            "max_bf16_spacings": float(d.max()),
+            "lanes_over_one_spacing": int((d > 1).sum()), "lanes": size}
+        worst, worst_rel = max(worst, float(rounding.max())), max(worst_rel,
+                                                                  rel)
+    del new, want, upd, seen
+    ptree = spec.unpack_stacked(bufs)
+    step_ms, step_peak = cuda_ms(lambda: step(bufs, opt.init(bufs), xb, yb,
+                                              mb, act))
+    grad_ms, grad_peak = cuda_ms(lambda: stacked_grads_for(task)(
+        ptree, xb, yb, mb))
+    vg = vmap_grad_form(task)
+    vg_ms, vg_peak = cuda_ms(lambda: vg(ptree, xb, yb, mb))
+    tokens = int(mb.numel()) * xb.shape[-1]
+    out = {"update_rel_l2": worst_rel, "tolerance_update_rel_l2":
+           LM_GRAD_REL_L2, "rounding_bf16_spacings": worst,
+           "tolerance_bf16_spacings": LM_STEP_BF16_SPACINGS,
+           "loss": float(loss), "leaves": leaves,
+           "cohort_step_ms": step_ms, "cohort_step_peak_bytes": step_peak,
+           "grads_ms": grad_ms, "grads_peak_bytes": grad_peak,
+           "vmap_grad_ms": vg_ms, "vmap_grad_peak_bytes": vg_peak,
+           "tokens": tokens, "flops": 6 * spec.n * tokens,
+           "bf16_bound_ms": 6 * spec.n * tokens / BF16_FLOPS_PER_S * 1e3}
+    emit("lm_step", **out)
+    if worst_rel > LM_GRAD_REL_L2 or worst > LM_STEP_BF16_SPACINGS or \
+            not torch.isfinite(loss):
+        raise AssertionError(f"stacked step against _step: updates "
+                             f"{worst_rel} apart, parameters {worst} bf16 "
+                             "steps past the updates' difference")
+    return out
+
+
+def lm_wide_check(dev, N: int):
+    """``fused.agg`` and ``fused.unmask_agg`` at P = LM_WIDE_P over N lanes
+    (P * N past 2^31): the mean within 1e-6 of the plain version; rows
+    sealed by ``fused.mask`` unseal by the plain path to the original bits;
+    the unmask equal to ``fused.agg`` bit for bit."""
+    from repro_torch.kernels import fused
+
+    P = LM_WIDE_P
+    x, w, _ = make_inputs(P, N, 0, seed=900, dev=dev)
+    mean = fused.aggregate_flat_onepass(x, w)
+    plain = fused._plain_onepass(x, w)
+    err = float((mean - plain).abs().max())
+    if not torch.allclose(mean, plain, rtol=TOL, atol=TOL):
+        raise AssertionError(f"P = {P}: fused.agg off by {err}")
+    del plain
+    seeds, signs = mask_terms(P, seed=901, dev=dev)
+    y = torch.empty_like(x)
+    for p in range(P):
+        y[p] = fused.apply_mask_flat(x[p], seeds[p], signs[p])
+    umean = fused.unmask_aggregate_flat(y, w, seeds=seeds, signs=signs)
+    torch.cuda.synchronize()
+    if not torch.equal(umean, mean):
+        raise AssertionError(f"P = {P}: fused.unmask_agg != fused.agg on the "
+                             "unsealed rows")
+    unsealed = plain_unseal(fused, y, seeds, signs)
+    if not torch.equal(bits(unsealed), bits(x)):
+        raise AssertionError(f"P = {P}: the plain unseal does not give the "
+                             "rows back")
+    del unsealed
+    plain = plain_unmask_onepass(fused, y, w, None, seeds, signs)
+    uerr = float((umean - plain).abs().max())
+    if not torch.allclose(umean, plain, rtol=TOL, atol=TOL):
+        raise AssertionError(f"P = {P}: fused.unmask_agg off by {uerr}")
+    out = {"P": P, "N": N, "elements": P * N, "past_2_31": P * N > 2 ** 31,
+           "rows_gb": P * N * 4 / 1e9, "agg_max_abs_err": err,
+           "unmask_max_abs_err": uerr, "unmask_vs_agg": "bit-identical",
+           "plain_unseal_vs_rows": "bit-identical",
+           "agg_ms": time_ms(lambda: fused.aggregate_flat_onepass(x, w), 3),
+           "unmask_agg_ms": time_ms(lambda: fused.unmask_aggregate_flat(
+               y, w, seeds=seeds, signs=signs), 3),
+           "agg_bound_ms": bound_ms("fused.agg", P, N, 0, False)[0],
+           "unmask_agg_bound_ms": bound_ms("fused.unmask_agg", P, N, P,
+                                           False)[0]}
+    del x, y, w, mean, umean, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def release():
+    """Give the card back what finished sessions held: a session's nodes
+    and hooks refer to one another, so its tensors go only when the cycle
+    collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_row(lm, name: str) -> dict:
+    """One kernel's numbers at the TinyLlama-width session's stack (P = 4,
+    N = 219,162,624): its times and bound from the timed shape, its
+    launches in the plain and the masked counted sessions."""
+    row = lm["kernels"][name]
+    return {"P": row["P"], "N": row["N"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "max_abs_err": row["max_abs_err"],
+            "launches": {k: lm[k]["launches"][name]
+                         for k in ("plain", "masked")}}
+
+
+def lm_train_phase(dev, word_pipes):
+    """MoDeST sessions that train TinyLlama at full width (2 of its 22
+    layers, bf16 leaves, N = 219,162,624 lanes) on the batched engine,
+    plain and masked, each counted; their breakdowns; one cohort step
+    against ``task._step``; the wide-stack check; B1-B5 timed at N."""
+    from repro_torch.kernels import fused
+
+    t0 = time.perf_counter()
+    task = lm_task_full()
+    spec = task.flat_spec
+    if spec.n != LM_N or len(spec.shapes) != 12:
+        raise AssertionError(f"TinyLlama-width layout changed: {spec}")
+    out = {"model": "tinyllama-1.1b", "n_layers": LM_LAYERS, "n_params":
+           spec.n, "wire_bytes": spec.nbytes, "n_nodes": LM_NODES,
+           "sample_size": LM_COHORT, "batch_size": LM_BATCH,
+           "sim_seconds": LM_SIM_SECONDS}
+    for masked in (False, True):
+        run = lm_counted_session(task, masked)
+        key = "masked" if masked else "plain"
+        if masked:
+            masked_agg_quant_check(run["session"], run["calls"][-1],
+                                   run["quant"], phase="lm_masked_agg_quant")
+        else:
+            agg_quant_check(run["session"], run["calls"][-1][0],
+                            *run["quant"], phase="lm_agg_quant")
+        worst = means_check(run["session"], run["calls"], masked,
+                            "lm_masked_means" if masked else "lm_means")
+        res = run["result"]
+        out[key] = {"rounds": res.rounds_completed,
+                    "wall_seconds": run["wall"],
+                    "rounds_per_wall_second": res.rounds_completed
+                    / run["wall"], "loss": run["loss"],
+                    "aggregations": len(run["calls"]),
+                    "trainings": res.trainings_completed,
+                    "flushes": run["session"].engine.flushes,
+                    "jobs": run["session"].engine.jobs_run,
+                    "launches": run["launches"],
+                    "means_max_abs_err": worst,
+                    "models_per_aggregation": [len(c[0]) for c in
+                                               run["calls"]],
+                    "total_bytes": res.usage["total_bytes"],
+                    "max_memory_allocated": run["max_memory_allocated"]}
+        emit("lm_masked_session" if masked else "lm_session", **out[key])
+        data = run["session"].data
+        del run
+        release()
+        if not masked:
+            out["step"] = lm_step_check(task, data)
+            release()
+        out[key]["breakdown"] = breakdown_phase(
+            LM_SIM_SECONDS, "masked" if masked else None,
+            session=lm_session(task, "masked" if masked else None),
+            phase="lm_breakdown")
+        release()
+    del task
+    release()
+    out["wide"] = lm_wide_check(dev, LM_N)
+    emit("lm_wide", **out["wide"])
+    rows = {"fused.agg": [], "fused.agg_quant": []}
+    fused_shape_rows(rows, dev, fused, word_pipes, LM_SHAPE, seed=950)
+    out["kernels"] = {k: v[0] for k, v in rows.items()}
+    emit("lm_kernels", kernels=out["kernels"])
+    out["seconds"] = time.perf_counter() - t0
+    emit("lm_train", seconds=out["seconds"], model=out["model"],
+         n_params=spec.n, **{k: {"rounds": out[k]["rounds"],
+                                 "wall_seconds": out[k]["wall_seconds"],
+                                 "shares": out[k]["breakdown"]["shares"]}
+                             for k in ("plain", "masked")},
+         update_rel_l2=out["step"]["update_rel_l2"],
+         rounding_bf16_spacings=out["step"]["rounding_bf16_spacings"],
+         cohort_step_ms=out["step"]["cohort_step_ms"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
@@ -2795,7 +3236,7 @@ def main() -> int:
         raise AssertionError(f"serve path launches {serve_launches}, want "
                              f"{want} of flash_attention only")
     agg_quant_check(session, models, out, codes, scales)
-    masked_means_check(msession, calls)
+    means_check(msession, calls, True, phase="masked_means")
     masked_agg_quant_check(msession, last, mout)
     del session, models, msession, calls, last, out, codes, scales, mout
     serve_check(served, rows["flash_attention"][0]["ms"])
@@ -2818,6 +3259,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     mf_ckpt_phase(sim_seconds=40.0)
     sharded_phase(dev, sim_seconds=40.0)
+    torch.cuda.empty_cache()
+    lm = lm_train_phase(dev, word_pipes)
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -2831,7 +3274,9 @@ def main() -> int:
             "bound_by": at_session["bound_by"],
             "library_ms": at_session["library_ms"],
             **({"pipe_bound_ms": at_session["pipe_bound_ms"]}
-               if "pipe_bound_ms" in at_session else {})})
+               if "pipe_bound_ms" in at_session else {}),
+            **({"at_lm_train": lm_row(lm, name)}
+               if name in lm["kernels"] else {})})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

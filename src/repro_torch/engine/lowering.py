@@ -16,7 +16,25 @@ The stacked form is written for the CNN and MF families, with the stack
 axis written out by hand; since the S losses are independent, one backward
 pass of their sum yields every model's own gradient. It avoids per-op
 batching rules on the hot path and costs one autograd graph per step.
+The dense LM family takes its model's own masked loss under
+``torch.func.vmap``, built once a task: every product of the layers then
+carries the S axis (batched matrix products), so a step is one pass over
+all S members, and, as for the CNN and MF, one backward pass of the S
+losses' sum gives every member's own gradient. The reference vmaps
+``jax.grad`` instead; ``vmap(grad(loss))`` gives the same gradients but
+took 23–28 ms a TinyLlama-width cohort step on one H100 where this form
+took 18–20 ms, with 2.3 GB more memory at its peak (PERF.md).
 Other families raise ``NotImplementedError``.
+
+* Dense LM: ``models/transformer.py::loss_fn`` of one model, the row mask
+  broadcast over the sequence. Leaves keep the model's dtype (bf16 for the
+  published configs, cast from the fp32 buffer by ``unpack_stacked``), so
+  the gradients come back in it and are packed to fp32 by the engine, as
+  in the reference. ``cfg.remat`` changes no value and is not read. The
+  evaluation sweep vmaps the model's metrics over the M snapshots in
+  chunks of the model axis (:data:`EVAL_LOGIT_BYTES`), which changes no
+  value. Training with ``use_flash`` raises (no backward; as the
+  reference, whose gradient through its Pallas kernel fails).
 
 * CNN: the S models become the ``groups`` of one grouped convolution
   (channels laid out model-major) and the dense layers one batched matrix
@@ -43,6 +61,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+# the dense evaluation sweep holds M x B x T x vocab fp32 logits; it runs
+# the model axis in chunks of at most this many bytes of logits (at least
+# one model a chunk)
+EVAL_LOGIT_BYTES = 1 << 30
 
 
 def _conv_stacked(h, w, b, S):
@@ -139,10 +162,63 @@ def _mf_rows(params, pairs, y, mask=None):
 
 def _family(task) -> str:
     family = task.cfg.family
-    if family not in ("cnn", "mf"):
+    if family not in ("cnn", "mf", "dense"):
         raise NotImplementedError(
             f"no stacked lowering for the {family!r} family")
     return family
+
+
+def _dense_grads(task):
+    """Per-member gradients of one dense LM's masked loss: the S losses of
+    ``vmap(loss)`` summed, one backward pass; ``xb`` tokens and ``yb``
+    labels ``(S, B, T)``, ``mb`` the row mask ``(S, B)``."""
+    from repro_torch.models import transformer
+    from repro_torch.models.tasks import refuse_flash_training
+    from repro_torch.utils.pytree import tree_flatten
+
+    cfg = task.cfg
+
+    def loss(params, tokens, labels, mask):
+        batch = {"tokens": tokens, "labels": labels, "mask": mask}
+        return transformer.loss_fn(params, cfg, batch)[0]
+
+    losses = torch.func.vmap(loss)
+
+    def grads(ptree, xb, yb, mb):
+        refuse_flash_training(cfg)
+        leaves, treedef = tree_flatten(ptree)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        total = torch.sum(losses(treedef.unflatten(leaves), xb, yb,
+                                 mb[:, :, None].expand(xb.shape)))
+        return treedef.unflatten(list(torch.autograd.grad(total, leaves)))
+
+    return grads
+
+
+def _dense_metrics(task):
+    """The model's own metrics, vmapped over M stacked models on one shared
+    batch, the model axis in chunks of :data:`EVAL_LOGIT_BYTES` logits."""
+    from repro_torch.models import transformer
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    cfg = task.cfg
+
+    def metrics(params, tokens, labels):
+        return transformer.loss_fn(params, cfg, {"tokens": tokens,
+                                                 "labels": labels})[1]
+
+    per_model = torch.func.vmap(metrics, in_dims=(0, None, None))
+
+    def sweep(ptree, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        M = tree_leaves(ptree)[0].shape[0]
+        per = max(1, EVAL_LOGIT_BYTES // (tokens.numel() * cfg.vocab * 4))
+        outs = [per_model(tree_map(lambda t: t[lo:lo + per], ptree), tokens,
+                          labels)
+                for lo in range(0, M, per)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    return sweep
 
 
 def stacked_grads_for(task):
@@ -151,6 +227,8 @@ def stacked_grads_for(task):
     ``(S, B, ...)``, ``yb`` ``(S, B)``, ``mb`` ``(S, B)`` carry the stack
     axis."""
     family = _family(task)
+    if family == "dense":
+        return _dense_grads(task)
 
     def grads(ptree, xb, yb, mb):
         keys = sorted(ptree)
@@ -171,6 +249,8 @@ def stacked_metrics_for(task):
     models on one shared, unmasked batch (the evaluation sweep): the
     family's ``loss_fn`` metrics, model by model."""
     family = _family(task)
+    if family == "dense":
+        return _dense_metrics(task)
 
     def metrics(ptree, batch):
         x, y = batch["x"], batch["y"]

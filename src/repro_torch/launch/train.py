@@ -2,10 +2,14 @@
 
 ``--mode sim`` is the paper's deployment form: a discrete-event WAN
 session running MoDeST / FedAvg / D-SGD over n nodes (Figs. 3–6), with the
-paper's CNN or MF task, on the card unless ``--device`` names another.
+paper's CNN or MF task or a dense LM of the zoo (``--task lm --arch
+NAME``: its 2-layer smoke variant, ``configs.reduced``, on synthetic
+Markov-chain text), on the card unless ``--device`` names another.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode sim \\
         --algo modest --task mf --nodes 50 --duration 300 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train --task lm \\
+        --arch tinyllama-1.1b --nodes 8 --duration 60 --device cpu
 
 The session's evaluation history is written as CSV to ``--out`` (stdout
 when omitted), one row per evaluated round. With ``--ckpt PATH`` a MoDeST
@@ -14,9 +18,9 @@ or FedAvg session saves its latest aggregated model there
 ``--ckpt-every`` rounds have passed since the last save. The options that
 ``--mode sim`` reads keep the reference launcher's names and defaults.
 Not part of this package yet, and raising ``NotImplementedError``:
-``--task lm`` (ROADMAP A11a) and ``--mode mesh`` (ROADMAP A12); the
-options that only those read (``--arch``, ``--lr``, ``--full-size``, ...)
-are left out until then, so the parser rejects them.
+``--mode mesh`` (ROADMAP A12); the options that only it reads (``--lr``,
+``--full-size``, ``--model-parallel``, ...) are left out until then, so
+the parser rejects them.
 """
 
 from __future__ import annotations
@@ -27,12 +31,10 @@ import argparse
 def run_sim(args):
     """Build and run the session that ``args`` describe; returns its
     :class:`~repro_torch.sim.runner.SessionResult`."""
-    if args.task == "lm":
-        raise NotImplementedError("--task lm: training the dense LMs is not "
-                                  "part of this package yet (ROADMAP A11a)")
     from repro_torch.config import ModestConfig, TrainConfig
-    from repro_torch.data import make_classification_task, make_mf_task
-    from repro_torch.models.tasks import cnn_task, mf_task
+    from repro_torch.data import (make_classification_task, make_lm_task,
+                                  make_mf_task)
+    from repro_torch.models.tasks import cnn_task, lm_task, mf_task
     from repro_torch.sim.runner import (DSGDSession, ModestSession,
                                         fedavg_session)
     from repro_torch.utils.device import resolve_device
@@ -43,9 +45,12 @@ def run_sim(args):
         data = make_classification_task(args.nodes, iid=args.iid,
                                         seed=args.seed)
         task = cnn_task(device=device)
-    else:
+    elif args.task == "mf":
         data = make_mf_task(args.nodes, n_items=500, seed=args.seed)
         task = mf_task(device=device, mf_users=args.nodes, mf_items=500)
+    else:
+        data = make_lm_task(args.nodes, iid=args.iid, seed=args.seed)
+        task = lm_task(args.arch, device=device)
 
     mcfg = ModestConfig(n_nodes=args.nodes, sample_size=args.sample_size,
                         n_aggregators=args.aggregators,
@@ -101,6 +106,8 @@ def main(argv=None):
     ap.add_argument("--algo", default="modest",
                     choices=["modest", "fedavg", "dsgd", "local"])
     ap.add_argument("--task", default="cnn", choices=["cnn", "mf", "lm"])
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="dense LM of --task lm (its reduced variant)")
     ap.add_argument("--nodes", type=int, default=50)
     ap.add_argument("--sample-size", type=int, default=10)
     ap.add_argument("--aggregators", type=int, default=2)

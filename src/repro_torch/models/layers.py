@@ -24,11 +24,20 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention_bshd
 
 
+def _is_meta(device) -> bool:
+    """An init on the ``meta`` device gives shapes and dtypes only: it
+    draws nothing (a layout needs no weights)."""
+    return device is not None and torch.device(device).type == "meta"
+
+
 def dense_init(generator, shape, dtype, scale: Optional[float] = None,
                device=None):
     """Normal(0, scale²) weights, ``scale`` defaulting to fan_in^-1/2.
     Drawn from ``generator`` (on the generator's device) and then moved,
-    so the same seed gives the same weights on every device."""
+    so the same seed gives the same weights on every device; on ``meta``
+    nothing is drawn."""
+    if _is_meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0]
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -37,6 +46,8 @@ def dense_init(generator, shape, dtype, scale: Optional[float] = None,
 
 
 def embed_init(generator, vocab, d, dtype, device=None):
+    if _is_meta(device):
+        return torch.empty((vocab, d), dtype=dtype, device="meta")
     w = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
                     device=generator.device) * 0.02
     return w.to(dtype=dtype, device=device)

@@ -1,5 +1,6 @@
-"""Concrete learning tasks (CNN / MF) wiring the model zoo into the
-protocol core's :class:`~repro_torch.core.tasks.LearningTask` interface.
+"""Concrete learning tasks (CNN / MF / dense LM) wiring the model zoo into
+the protocol core's :class:`~repro_torch.core.tasks.LearningTask`
+interface.
 
 One task is shared by all simulated nodes (they share architecture and
 hyperparameters per the paper's system model).
@@ -50,6 +51,7 @@ class TorchTask(LearningTask):
         self._eval_many = stacked_metrics_for(self)
 
     def _step(self, params, opt_state, batch):
+        refuse_flash_training(self.cfg)
         leaves, treedef = tree_flatten(params)
         leaves = [l.detach().requires_grad_(True) for l in leaves]
         loss, _metrics = self.model.loss_fn(treedef.unflatten(leaves), batch)
@@ -64,9 +66,10 @@ class TorchTask(LearningTask):
     @property
     def flat_spec(self) -> FlatSpec:
         """Flat-buffer layout of this task's parameter pytree (computed
-        once, from a throw-away host-side init)."""
+        once, from an init on the ``meta`` device: shapes and dtypes, no
+        weights)."""
         if self._flat_spec is None:
-            tree = self.model.init(torch.Generator().manual_seed(0), "cpu")
+            tree = self.model.init(torch.Generator().manual_seed(0), "meta")
             self._flat_spec = FlatSpec.from_tree(tree)
         return self._flat_spec
 
@@ -75,12 +78,20 @@ class TorchTask(LearningTask):
     def _to_batch(self, x, y, mask=None) -> dict:
         """Host arrays -> device tensors in their own dtypes: the CNN's
         images float and labels integer, MF's pairs integer and ratings
-        float."""
+        float, the LMs' tokens and labels integer. Token families mask per
+        position: a row mask broadcasts over the sequence."""
         dev = self.device
-        b = {"x": torch.as_tensor(x, device=dev),
-             "y": torch.as_tensor(y, device=dev)}
+        if self.cfg.family in ("cnn", "mf"):
+            b = {"x": torch.as_tensor(x, device=dev),
+                 "y": torch.as_tensor(y, device=dev)}
+            if mask is not None:
+                b["mask"] = torch.as_tensor(mask, device=dev)
+            return b
+        b = {"tokens": torch.as_tensor(x, device=dev),
+             "labels": torch.as_tensor(y, device=dev)}
         if mask is not None:
-            b["mask"] = torch.as_tensor(mask, device=dev)
+            b["mask"] = torch.as_tensor(mask, device=dev)[:, None].expand(
+                b["tokens"].shape)
         return b
 
     def _padded_batches(self, client: ClientDataset, batch_size: int, *,
@@ -217,3 +228,31 @@ def mf_task(tcfg: Optional[TrainConfig] = None, device=None,
     cfg = get_config("paper-mf").with_(**cfg_overrides)
     return TorchTask(cfg, tcfg or TrainConfig(optimizer="sgd", lr=0.2),
                      device=device)
+
+
+def lm_task(arch: str = "tinyllama-1.1b", tcfg: Optional[TrainConfig] = None,
+            reduce: bool = True, device=None, **cfg_overrides) -> TorchTask:
+    """A dense LM of the zoo as a learning task: the 2-layer smoke variant
+    of ``arch`` (``configs.reduced``) unless ``reduce=False``, then
+    ``cfg_overrides``; plain SGD at lr 0.05. Training never takes the
+    flash path (:func:`refuse_flash_training`)."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config(arch)
+    if reduce:
+        cfg = reduced(cfg)
+    cfg = cfg.with_(**cfg_overrides)
+    return TorchTask(cfg, tcfg or TrainConfig(optimizer="sgd", lr=0.05),
+                     device=device)
+
+
+def refuse_flash_training(cfg) -> None:
+    """Training with ``use_flash`` raises, on every device: the flash
+    kernel has no backward, and the reference's gradient through its
+    Pallas kernel fails too, so no reference path trains with it. Training
+    through the plain attention instead would be a silent change of
+    path."""
+    if getattr(cfg, "use_flash", False):
+        raise NotImplementedError(
+            f"{cfg.name}: training with use_flash=True: the flash-attention "
+            "kernel has no backward (the reference cannot differentiate "
+            "its Pallas kernel either); train with use_flash=False")

@@ -112,7 +112,7 @@ class ServingReplica:
             return
         if len(q) >= mcfg.max_batch:
             self._cancel_linger(method)
-            self._dispatch(method)
+            self._dispatch(method)  # noqa: DL004(the replica's own batch dispatch, not Network._dispatch: no message is delivered)
         elif self._linger[method] is None:
             self._linger[method] = self.sim.schedule(
                 mcfg.batch_wait_s, lambda: self._linger_fire(method))
@@ -122,7 +122,7 @@ class ServingReplica:
         if not self._busy[method]:
             self._expire(method)
             if self._queue[method]:
-                self._dispatch(method)
+                self._dispatch(method)  # noqa: DL004(the replica's own batch dispatch, not Network._dispatch: no message is delivered)
 
     def _cancel_linger(self, method: str) -> None:
         h = self._linger[method]

@@ -303,7 +303,6 @@ def test_train_launcher_ckpt_equals_reference(algo, every, tmp_path,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--task", "lm"], "A11a"),
     (["--mode", "mesh"], "A12")])
 def test_train_launcher_refuses_what_the_package_lacks(argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -311,10 +310,10 @@ def test_train_launcher_refuses_what_the_package_lacks(argv, item):
 
 
 @pytest.mark.parametrize("option", [["--lr", "0.01"], ["--full-size"],
-                                    ["--arch", "tinyllama-1.1b"]])
+                                    ["--model-parallel", "2"]])
 def test_train_launcher_rejects_options_nothing_reads(option, capsys):
-    """Options that only the LM and mesh trainers read are not parsed, so
-    passing one is an error rather than a silent no-op."""
+    """Options that only the mesh trainer reads are not parsed, so passing
+    one is an error rather than a silent no-op."""
     with pytest.raises(SystemExit):
         train.main(["--task", "mf", "--device", "cpu", "--nodes", "4"]
                    + option)
