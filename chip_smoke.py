@@ -85,7 +85,23 @@ two main paths and checks that each really went through its kernels:
   breakdown; one cohort step against ``task._step`` for one member, every
   parameter within ``LM_STEP_BF16_SPACINGS`` bf16 steps; ``fused.agg`` and
   ``fused.unmask_agg`` at P = 10 over that N (P·N past 2^31, 8.8 GB of
-  rows) against their plain versions; B1-B5 timed at P = 4 over that N.
+  rows) against their plain versions; B1-B5 timed at P = 4 over that N;
+* families: the other LM families served through ``Server`` with
+  ``use_flash=True`` at published widths (``FAMILY_MODELS``, bf16, seeded
+  random weights, prompts and stubbed frontend inputs from numpy seeds):
+  qwen3-moe-30b-a3b (4 of its 48 layers, 4 x 1024 tokens),
+  llava-next-mistral-7b (2,880 image embeddings and 192 text tokens a
+  row), whisper-large-v3 (1,500 frames, 4 x 128 decoder tokens),
+  hymba-1.5b (4 x 512) and rwkv6-1.6b (4 x 256), one at a time: a prefill
+  to warm up, a counted prefill and 16 greedy decode steps each; every
+  prefill of the four with attention launches ``flash_attention`` once an
+  attention layer; finite logits, caches and states at the expected
+  position, ids inside the vocabulary; flash against plain logits as in
+  the serve phase; rwkv's decode after S tokens against a prefill over
+  S+1 in fp32 (``LOGIT_REL_TOL_FP32``); the MoE's loss, auxiliary loss
+  and the share of slots dropped at capacity, and a profile of its
+  prefill; then the serving launcher at every new arch's reduced config
+  and at whisper-large-v3's full size.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -106,7 +122,8 @@ B4 and B5 to one another and B2 and B5's codes and scales to the plain
 quantiser at the edges of the quantised forms (subtiles, the rows
 kernel's limit, every block size a launcher can choose, P·R = 6144);
 ``nonfinite`` holds B2, B5 and B7 to the reference's quantisation of a
-NaN and an Inf lane (scale NaN or Inf, codes 0). ``fused_ptxas`` prints
+NaN and an Inf lane (scale NaN or Inf, codes 0). B9 is also held and
+timed at the four layouts of the families phase's prefills. ``fused_ptxas`` prints
 the registers and spills of every kernel of ``fused_agg.cu``, each of
 which must be built for sm_90a with no spill.
 
@@ -841,7 +858,10 @@ def tile_rows(rows, dev):
     fp32 delta, B8 back to fp32), the paper CNN's largest leaf (P = 10,
     fp32) and B1's streaming shape (P = 16, N = 2^24, fp32), timed beside
     the plain versions; for B6 ``torch.matmul`` of the normalised weights
-    with the stack as a yardstick (the package never calls it)."""
+    with the stack, and for B8 where N is whole tiles ``torch.mul`` of the
+    codes viewed as (tiles, 16384) by the scales as a column, as
+    yardsticks (the package never calls them; whether B8's equals the
+    kernel's output bit for bit is printed)."""
     from repro_torch.kernels import aggregate as agg
     from repro_torch.kernels import quantize as qz
     from repro_torch.kernels.ref import aggregate_ref
@@ -886,19 +906,30 @@ def tile_rows(rows, dev):
         plain_back = qz._plain_dequantize(codes, scales, torch.float32)
         if not torch.equal(back, plain_back):
             raise AssertionError(f"{name}: B8 differs from its plain version")
-        for kname, kernel, plain_fn, b_args in (
+        # B8's one-call yardstick where N is whole tiles: the int8 codes as
+        # (tiles, TILE) times the scales as a column (the promotion casts)
+        whole = N % qz.TILE == 0
+        grid = codes.view(-1, qz.TILE) if whole else None
+        library = (lambda: torch.mul(grid, scales[:, None])) if whole else None
+        for kname, kernel, plain_fn, b_args, lib_fn in (
                 ("quantize.quant", lambda: qz.quantize_tiles(d),
-                 lambda: qz._plain_quantize(d), (4, 1)),
+                 lambda: qz._plain_quantize(d), (4, 1), None),
                 ("quantize.dequant", lambda: qz.dequantize_tiles(codes, scales),
                  lambda: qz._plain_dequantize(codes, scales, torch.float32),
-                 (1, 4))):
+                 (1, 4), library)):
             b, by = tile_bound_ms(kname, 1, N, *b_args)
-            rows.setdefault(kname, []).append({
+            row = {
                 "shape": name, "N": N, "dtype": "float32", "max_abs_err": 0.0,
                 "ms": time_ms(kernel, iters), "plain_ms": time_ms(plain_fn, iters),
-                "bound_ms": b, "bound_by": by, "library_ms": None,
-                "eager_ms": eager_ms(kernel, iters)})
-        del d, codes, scales, back, plain_back, pc, ps
+                "bound_ms": b, "bound_by": by,
+                "library_ms": time_ms(lib_fn, iters) if lib_fn else None,
+                "eager_ms": eager_ms(kernel, iters)}
+            if lib_fn:
+                row["library"] = "torch.mul (int8 codes x scales column)"
+                row["library_equals_kernel"] = torch.equal(
+                    lib_fn().reshape(-1), back)
+            rows.setdefault(kname, []).append(row)
+        del d, codes, scales, back, plain_back, pc, ps, grid, library
         torch.cuda.empty_cache()
 
 
@@ -1012,7 +1043,8 @@ def ptxas_kernels(log: str, label=flash_label):
 def flash_rows(rows, dev):
     """B9 against its plain version at the serving shape and at S = 640
     (where the reference's tiling raises, ROADMAP C3), causal and not, fp32
-    and bf16, and at starcoder2-15b's heads (hd 128, bf16, causal), timed
+    and bf16, at starcoder2-15b's heads (hd 128, bf16, causal) and at the
+    four layouts of the families phase's prefills (bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1024,13 +1056,18 @@ def flash_rows(rows, dev):
     from repro_torch.kernels.ref import flash_attention_ref
 
     out = rows.setdefault("flash_attention", [])
-    cases = [(SERVE_B, 32, 4, S, 64, dtype, causal) for S in (SERVE_S, 640)
+    cases = [(SERVE_B, 32, 4, S, 64, dtype, causal, None)
+             for S in (SERVE_S, 640)
              for dtype in (torch.bfloat16, torch.float32)
              for causal in (True, False)]
-    cases.append((SERVE_B, 48, 4, SERVE_S, 128, torch.bfloat16, True))
-    for i, (B, Hq, Hkv, S, hd, dtype, causal) in enumerate(cases):
-        name = (f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
-                + ("" if hd == 64 else f"_Hq{Hq}_hd{hd}"))
+    cases.append((SERVE_B, 48, 4, SERVE_S, 128, torch.bfloat16, True, None))
+    # the layouts the families phase's prefills give the kernel
+    cases += [(*layout, torch.bfloat16, True, arch)
+              for arch, layout in family_flash_layouts().items()]
+    for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
+        name = arch or (
+            f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
+            + ("" if hd == 64 else f"_Hq{Hq}_hd{hd}"))
         q, k, v = flash_qkv(B, Hq, Hkv, S, hd, dtype, 300 + i, dev)
         err, share, rel = flash_check(q, k, v, causal, name)
         b, by, design = flash_bound_ms(B, Hq, Hkv, S, hd, dtype, causal)
@@ -1045,12 +1082,14 @@ def flash_rows(rows, dev):
             library_share = err_share(sdpa(), flash_attention_ref(
                 q, k, v, causal), FLASH_TOL[dtype])
         row = {
-            "shape": name, "B": B, "Hq": Hq, "Hkv": Hkv, "S": S, "hd": hd,
+            "shape": name, "model": arch, "B": B, "Hq": Hq, "Hkv": Hkv,
+            "S": S, "hd": hd,
             "dtype": str(dtype)[6:], "causal": causal, "max_abs_err": err,
             "err_share_of_tol": share, "rel_l2_err": rel,
             "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                           20),
-            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal), 5),
+            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal),
+                                5 if S <= SERVE_S else 2),
             "bound_ms": b, "bound_by": by, "design_bound_ms": design,
             "library_ms": library, "library": "scaled_dot_product_attention",
             "library_error": library_error,
@@ -1621,14 +1660,17 @@ def rel_l2(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def logits_gaps(cfg, params, toks, dev, flash_bf16=None):
-    """Last-position prefill logits of the flash and plain paths, in bf16 and
-    with the weights widened exactly to fp32; returns their gaps. The fp32
-    plain logits stand for the exact ones."""
+def logits_gaps(cfg, params, batch, dev, flash_bf16=None):
+    """Last-position prefill logits of the flash and plain paths over
+    ``batch`` (tokens, and the family's frames or image embeddings), in
+    bf16 and with the weights widened exactly to fp32; returns their gaps.
+    The fp32 plain logits stand for the exact ones."""
     from repro_torch.core.distributed import Server
     from repro_torch.utils.pytree import tree_map
 
-    B, S = toks.shape
+    B, S = batch["tokens"].shape
+    if "image_embeds" in batch:
+        S += batch["image_embeds"].shape[1]
     got = {}
     for dtype in ("bfloat16", "float32"):
         p = params if dtype == "bfloat16" else tree_map(
@@ -1640,7 +1682,7 @@ def logits_gaps(cfg, params, toks, dev, flash_bf16=None):
             srv = Server(cfg.with_(param_dtype=dtype, use_flash=flash),
                          device=dev)
             got[dtype, flash], _ = srv.prefill(
-                p, {"tokens": toks}, srv.model.init_cache(B, S + 8, dev))
+                p, batch, srv.model.init_cache(B, S + 8, dev))
         del p
     exact = got["float32", False]
     flash16, plain16 = got["bfloat16", True], got["bfloat16", False]
@@ -1686,13 +1728,14 @@ def serve_check(out, flash_ms):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     gaps = [dict(seed=SERVE_SEEDS[0], **logits_gaps(
-        cfg, params, toks, dev, flash_bf16=out["flash_logits"]))]
+        cfg, params, {"tokens": toks}, dev, flash_bf16=out["flash_logits"]))]
     for seed in SERVE_SEEDS[1:]:
         p = out["server"].model.init(
             torch.Generator(device=dev).manual_seed(seed), dev)
         t = torch.as_tensor(np.random.default_rng(seed).integers(
             0, cfg.vocab, (B, S)), device=dev)
-        gaps.append(dict(seed=seed, **logits_gaps(cfg, p, t, dev)))
+        gaps.append(dict(seed=seed, **logits_gaps(cfg, p, {"tokens": t},
+                                                  dev)))
         del p
     torch.cuda.empty_cache()
 
@@ -3156,6 +3199,308 @@ def lm_train_phase(dev, word_pipes):
          cohort_step_ms=out["step"]["cohort_step_ms"])
     return out
 
+# ---------------------------------------------------------------------------
+# the families phase: the other LM families served at published widths
+# ---------------------------------------------------------------------------
+
+# arch, config overrides, batch, text tokens a row, attention layers a
+# prefill (the flash kernel's launches). Widths are the published ones, in
+# bf16; qwen3-moe's depth is cut from 48 to 4 layers (init stacks a list of
+# blocks, which doubles the weights for a moment: 2 x 61 GB at 48). LLaVA's
+# prompt adds its 576 x 5 image embeddings to the text: S = 3,072, under
+# its 4,096 window, as hymba's 512 is under its 1,024, so the window masks
+# nothing and the flash check measures the kernel, not ROADMAP C4.
+FAMILY_MODELS = [
+    ("qwen3-moe-30b-a3b", {"n_layers": 4}, 4, 1024, 4),
+    ("llava-next-mistral-7b", {}, 4, 192, 32),
+    ("whisper-large-v3", {}, 4, 128, 32),
+    ("hymba-1.5b", {}, 4, 512, 32),
+    ("rwkv6-1.6b", {}, 4, 256, 0),
+]
+FAMILY_NEW = 16                 # greedy decode steps a model
+FAMILY_LAUNCHER_ARCHS = ("qwen3-moe-30b-a3b", "arctic-480b", "rwkv6-1.6b",
+                         "hymba-1.5b", "whisper-large-v3",
+                         "llava-next-mistral-7b")
+
+
+def family_config(arch, overrides):
+    from repro_torch import configs
+    return configs.get_config(arch).with_(use_flash=True, **overrides)
+
+
+def image_positions(cfg) -> int:
+    return cfg.image_tokens * cfg.anyres_tiles if cfg.family == "vlm" else 0
+
+
+def family_flash_layouts():
+    """(B, Hq, Hkv, S, hd) of the flash kernel's calls in each attention
+    family's prefill."""
+    out = {}
+    for arch, over, B, S_text, n_attn in FAMILY_MODELS:
+        if n_attn:
+            cfg = family_config(arch, over)
+            out[arch] = (B, cfg.n_heads, cfg.n_kv_heads,
+                         image_positions(cfg) + S_text,
+                         cfg.resolved_head_dim())
+    return out
+
+
+def family_batch(cfg, B, S_text, seed, dev):
+    """Prompt tokens and the family's stubbed frontend input (frames or
+    image embeddings, standard normal x 0.1 in the parameters' type), from
+    ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (B, S_text)), device=dev)}
+
+    def embeds(n):
+        x = rng.standard_normal((B, n, cfg.d_model), dtype=np.float32) * 0.1
+        return torch.as_tensor(x, device=dev).to(getattr(torch,
+                                                         cfg.param_dtype))
+
+    if cfg.family == "audio":
+        batch["frames"] = embeds(cfg.n_frames)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = embeds(image_positions(cfg))
+    return batch
+
+
+def traced(fn):
+    """Wall seconds of ``fn()`` under ``torch.profiler``, the device time of
+    its kernels, the device's busy share and the top kernels (null where
+    the profiler records no device time: not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda r: -r[1])
+    device_s = sum(t for _, t, _ in kern) / 1e6
+    by_class = {}
+    for k, t, _ in kern:
+        by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0) + t / 1e3
+    return {"wall_seconds_traced": wall,
+            "device_seconds": device_s if kern else None,
+            "device_busy_share": device_s / wall if kern else None,
+            "device_ms_by_class": by_class,
+            "top_kernels": [{"name": k[:80], "device_ms": t / 1e3,
+                             "count": c} for k, t, c in kern[:12]]}
+
+
+def kernel_class(name: str) -> str:
+    """A device kernel's kind, from its name: the flash kernel, matrix
+    products (cuBLAS), scans, reductions, copies, other elementwise."""
+    for cls, marks in (("flash_attention", ("flash_tc_kernel",
+                                            "flash_fwd_kernel")),
+                       ("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+                       ("scan", ("scan",)), ("reduce", ("reduce_kernel",)),
+                       ("copy", ("copy",))):
+        if any(m in name for m in marks):
+            return cls
+    return "elementwise"
+
+
+def check_family_cache(cache, pos: int, name: str):
+    """Every cache or state tensor finite (the KV caches up to ``pos``)."""
+    for key, t in cache.items():
+        if key == "pos":
+            continue
+        if key in ("k", "v"):
+            t = t[:, :, :pos]
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{name}: cache {key!r} not finite")
+
+
+def moe_loss_check(server, params, batch):
+    """One ``loss_fn`` forward of the MoE model on next-token labels, and
+    the share of (token, choice) slots each layer's routing dropped at
+    capacity (read through ``moe.routing``)."""
+    from repro_torch.models import moe
+
+    routing, kept = moe.routing, []
+
+    def recording(p, cfg, xg):
+        r = routing(p, cfg, xg)
+        kept.append(float(r["keep"].mean()))
+        return r
+
+    labels = torch.roll(batch["tokens"], -1, dims=1)
+    moe.routing = recording
+    try:
+        with torch.no_grad():
+            loss, metrics = server.model.loss_fn(
+                params, {"tokens": batch["tokens"], "labels": labels})
+    finally:
+        moe.routing = routing
+    out = {"loss": float(loss), "xent": float(metrics["loss"]),
+           "aux_loss": float(metrics["aux_loss"]),
+           "dropped_slot_share_by_layer": [1 - k for k in kept]}
+    if not all(np.isfinite([out["loss"], out["aux_loss"]])):
+        raise AssertionError(f"moe loss not finite: {out}")
+    return out
+
+
+def rwkv_step_check(cfg, params, batch, dev):
+    """In fp32: the logits of one decode step after a prefill over the S
+    prompt tokens against the last logits of a prefill over S+1 tokens
+    (one more token drawn from ``numpy.random.default_rng(1)``)."""
+    from repro_torch.core.distributed import Server
+    from repro_torch.utils.pytree import tree_map
+
+    srv = Server(cfg.with_(param_dtype="float32"), device=dev)
+    p = tree_map(lambda t: t.to(torch.float32), params)
+    B, S = batch["tokens"].shape
+    toks = torch.cat([batch["tokens"], torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab, (B, 1)),
+        device=dev)], dim=1)
+    _, cache = srv.prefill(p, {"tokens": toks[:, :S]},
+                           srv.model.init_cache(B, S + 1, dev))
+    step, _ = srv.decode(p, toks[:, S:], cache)
+    whole, _ = srv.prefill(p, {"tokens": toks},
+                           srv.model.init_cache(B, S + 1, dev))
+    gap = rel_l2(step, whole)
+    del p
+    if not gap <= LOGIT_REL_TOL_FP32:
+        raise AssertionError(f"rwkv decode after {S} tokens off the "
+                             f"prefill over {S + 1}: {gap}")
+    return {"fp32_step_vs_prefill_rel_l2": gap, "prompt_tokens": S}
+
+
+def family_model(dev, arch, over, B, S_text, n_attn):
+    """One model through ``Server``: init, a prefill to warm up, a counted
+    prefill, ``FAMILY_NEW`` greedy decode steps, then its checks. Returns
+    its line and the flash launches it made."""
+    from repro_torch.core.distributed import Server
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = family_config(arch, over)
+    S = image_positions(cfg) + S_text
+    server = Server(cfg, device=dev)
+    launches0 = flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = server.shard_params(server.model.init(
+        torch.Generator(device=dev).manual_seed(0), dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = family_batch(cfg, B, S_text, 0, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed_prefill():
+        cache = server.model.init_cache(B, S + FAMILY_NEW + 8, dev)
+        before = flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = server.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        return (logits, cache, time.perf_counter() - t0,
+                flash_attention.launches - before)
+
+    _, _, cold_s, cold_launches = timed_prefill()
+    prefill_logits, cache, warm_s, warm_launches = timed_prefill()
+    tok = torch.argmax(prefill_logits[:, -1:], dim=-1)
+    generated = [tok]
+    t0 = time.perf_counter()
+    for _ in range(FAMILY_NEW):
+        logits, cache = server.decode(params, tok, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    gen = torch.cat(generated, dim=1)
+    if cold_launches != n_attn or warm_launches != n_attn:
+        raise AssertionError(f"{arch}: {cold_launches} and {warm_launches} "
+                             f"flash launches a prefill, want {n_attn}")
+    if prefill_logits.shape != (B, 1, cfg.vocab) or not torch.isfinite(
+            prefill_logits).all():
+        raise AssertionError(f"{arch}: prefill logits "
+                             f"{tuple(prefill_logits.shape)}, or not finite")
+    if cache["pos"] != S + FAMILY_NEW:
+        raise AssertionError(f"{arch}: cache at {cache['pos']}, want "
+                             f"{S + FAMILY_NEW}")
+    check_family_cache(cache, cache["pos"], arch)
+    if not ((0 <= gen) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"{arch}: generated ids out of the vocabulary")
+    del cache
+    line = dict(
+        model=arch, family=cfg.family, n_params=sum(
+            t.numel() for t in tree_leaves(params)),
+        n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim(),
+        vocab=cfg.vocab, dtype=cfg.param_dtype, batch=B, prompt_len=S,
+        text_tokens=S_text, new_tokens=FAMILY_NEW, init_seconds=init_s,
+        prefill_seconds_cold=cold_s, prefill_seconds=warm_s,
+        prefill_tokens_per_s=B * S / warm_s, decode_seconds=decode_s,
+        decode_tokens_per_s=B * FAMILY_NEW / decode_s,
+        flash_launches_per_prefill=warm_launches, peak_memory_bytes=peak,
+        sample_ids=gen[0, :12].tolist())
+    if cfg.family == "moe":
+        line["depth_cut"] = {"published_layers": 48, "run": cfg.n_layers}
+        line["experts"] = {"n": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+                           "d_ff": cfg.moe_d_ff_expert,
+                           "group": cfg.moe_group_size}
+        line["loss"] = moe_loss_check(server, params, batch)
+        line["profile"] = traced(lambda: server.prefill(
+            params, batch, server.model.init_cache(B, S + 8, dev)))
+    if n_attn:
+        line["logits_gaps"] = logits_gaps(cfg, params, batch, dev,
+                                          flash_bf16=prefill_logits)
+    else:
+        line["step_check"] = rwkv_step_check(cfg, params, batch, dev)
+    line["peak_memory_bytes_with_checks"] = torch.cuda.max_memory_allocated(
+        dev)
+    del params, server, batch, prefill_logits
+    release()
+    return line, flash_attention.launches - launches0
+
+
+def families_phase(dev):
+    """The other LM families served at published widths through ``Server``
+    with ``use_flash=True`` (``FAMILY_MODELS``), one at a time, each
+    model's memory given back before the next; then the serving launcher at
+    every new arch's reduced config and whisper-large-v3 at full size.
+    Counted: the caller sets the counts to 0 just before and reads them
+    just after. Returns the lines and the flash launches the phase made."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    lines, flash = {}, 0
+    for arch, over, B, S_text, n_attn in FAMILY_MODELS:
+        line, launched = family_model(dev, arch, over, B, S_text, n_attn)
+        emit("family", **line)
+        lines[arch], flash = line, flash + launched
+    launcher = {}
+    for arch in FAMILY_LAUNCHER_ARCHS:
+        out = serve.main(["--arch", arch, "--seed", "0"])
+        launcher[arch] = {k: out[k] for k in (
+            "prefill_seconds", "decode_seconds", "decode_tokens_per_s")}
+        if out["tokens"].shape != (4, 16):
+            raise AssertionError(f"launcher {arch}: {out['tokens'].shape}")
+    out = serve.main(["--arch", "whisper-large-v3", "--full-size"])
+    launcher["whisper-large-v3 --full-size"] = {k: out[k] for k in (
+        "prefill_seconds", "decode_seconds", "decode_tokens_per_s")}
+    release()
+    seconds = time.perf_counter() - t0
+    emit("families", seconds=seconds, launcher=launcher,
+         fp32_logits_rel_l2_tol=LOGIT_REL_TOL_FP32,
+         bf16_err_ratio_tol=BF16_ERR_RATIO,
+         models={a: {k: line[k] for k in (
+             "prefill_seconds", "decode_tokens_per_s", "peak_memory_bytes",
+             "flash_launches_per_prefill")} for a, line in lines.items()})
+    return {"lines": lines, "flash_launches": flash, "seconds": seconds}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3261,6 +3606,17 @@ def main() -> int:
     sharded_phase(dev, sim_seconds=40.0)
     torch.cuda.empty_cache()
     lm = lm_train_phase(dev, word_pipes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    families = families_phase(dev)
+    family_launches = read_counts()
+    if family_launches["flash_attention"] != families["flash_launches"] or \
+            sum(family_launches.values()) != families["flash_launches"] or \
+            families["flash_launches"] <= 0:
+        raise AssertionError(f"families phase launches {family_launches}, "
+                             f"want {families['flash_launches']} of "
+                             "flash_attention only")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3276,7 +3632,14 @@ def main() -> int:
             **({"pipe_bound_ms": at_session["pipe_bound_ms"]}
                if "pipe_bound_ms" in at_session else {}),
             **({"at_lm_train": lm_row(lm, name)}
-               if name in lm["kernels"] else {})})
+               if name in lm["kernels"] else {}),
+            **({"at_families": {
+                "launches": family_launches[name],
+                "by_model": {r["model"]: {k: r[k] for k in (
+                    "B", "Hq", "Hkv", "S", "hd", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "max_abs_err")}
+                    for r in rows[name] if r.get("model")}}}
+               if name == "flash_attention" else {})})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

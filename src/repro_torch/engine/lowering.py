@@ -164,7 +164,8 @@ def _family(task) -> str:
     family = task.cfg.family
     if family not in ("cnn", "mf", "dense"):
         raise NotImplementedError(
-            f"no stacked lowering for the {family!r} family")
+            f"no stacked lowering for the {family!r} family yet: training "
+            "the moe, ssm, hybrid, audio and vlm families is ROADMAP A11c")
     return family
 
 

@@ -6,7 +6,11 @@
 Runs the reduced config by default and the published one with
 ``--full-size``, on the card unless ``--device`` names another. Weights come
 from a ``torch.Generator`` seeded with ``--seed`` on that device, prompts
-from ``numpy.random.default_rng(--seed)``. ``--devices`` and
+from ``numpy.random.default_rng(--seed)``, which also draws the stubbed
+frontends' inputs, scaled by 0.1 and cast to ``param_dtype``: ``frames``
+(B, n_frames, d_model) for the audio family, ``image_embeds``
+(B, image_tokens * anyres_tiles, d_model) for the vlm family, whose image
+positions are added to the cache's length. ``--devices`` and
 ``--model-parallel`` describe a mesh as in the reference; a mesh of more
 than one device raises ``NotImplementedError`` until ROADMAP A12.
 """
@@ -60,7 +64,8 @@ def main(argv=None):
 
     server = Server(cfg, mesh_cfg, device=args.device)
     dev = server.device
-    max_len = args.prompt_len + args.new_tokens + 8
+    n_img = cfg.image_tokens * cfg.anyres_tiles if cfg.family == "vlm" else 0
+    max_len = args.prompt_len + args.new_tokens + 8 + n_img
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = server.shard_params(server.model.init(gen, dev))
@@ -70,6 +75,17 @@ def main(argv=None):
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         device=dev)}
+
+    def embeds(n):
+        x = rng.standard_normal((args.batch, n, cfg.d_model),
+                                dtype=np.float32) * 0.1
+        return torch.as_tensor(x, device=dev).to(getattr(torch,
+                                                         cfg.param_dtype))
+
+    if cfg.family == "audio":
+        batch["frames"] = embeds(cfg.n_frames)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = embeds(n_img)
 
     _sync(dev)
     t0 = time.perf_counter()  # noqa: DL002(prefill/decode throughput timing display)

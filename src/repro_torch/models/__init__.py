@@ -9,8 +9,9 @@ bundle with a uniform interface:
     prefill(params, batch, cache)               -> (logits, cache)
     decode_step(params, token, cache)           -> (logits, cache)
 
-The ``cnn``, ``mf`` and ``dense`` families are part of this package so far;
-the others raise ``NotImplementedError``.
+Every family of the reference is here: ``dense`` (``transformer``), ``moe``,
+``ssm`` (``rwkv``), ``hybrid`` (``hymba``), ``audio`` (``whisper``), ``vlm``
+(``llava``), ``cnn`` and ``mf``.
 """
 
 from __future__ import annotations
@@ -36,8 +37,16 @@ def build(cfg: ModelConfig) -> Model:
         from repro_torch.models import mf as m
     elif cfg.family == "dense":
         from repro_torch.models import transformer as m
-    elif cfg.family in ("moe", "ssm", "hybrid", "audio", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r}: later slice")
+    elif cfg.family == "moe":
+        from repro_torch.models import moe as m
+    elif cfg.family == "ssm":
+        from repro_torch.models import rwkv as m
+    elif cfg.family == "hybrid":
+        from repro_torch.models import hymba as m
+    elif cfg.family == "audio":
+        from repro_torch.models import whisper as m
+    elif cfg.family == "vlm":
+        from repro_torch.models import llava as m
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return Model(

@@ -1,6 +1,6 @@
-"""Shared layers: init helpers, norms, RoPE, GQA attention (prefill and
-cached decode, sliding-window and soft-cap variants), gated MLPs and the
-cross entropies.
+"""Shared layers: init helpers, norms (RMS and layer norm), RoPE, GQA
+attention (prefill and cached decode, sliding-window and soft-cap
+variants), the gated and GELU MLPs and the cross entropies.
 
 Conventions, as in the reference:
 * params are dicts of tensors; the model modules stack them along a leading
@@ -67,6 +67,22 @@ def rms_norm(p, x, eps=1e-5):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + p["scale"].to(torch.float32))).to(x.dtype)
+
+
+def layer_norm_init(d, dtype, device=None):
+    return {"bias": torch.zeros((d,), dtype=dtype, device=device),
+            "scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(p, x, eps=1e-5):
+    """Over the last dim, in fp32; the variance is the population one, as
+    ``jnp.var`` (``correction=0``; ``torch.var`` defaults to 1)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +222,12 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg, *,
 
 def attention_decode_masked(p, x, cache_k, cache_v, pos: int, cfg, valid):
     """:func:`attention_decode` with the validity vector over the cache's
-    T positions given (the model chooses local or global by layer)."""
+    T positions given (the model chooses local or global by layer). A
+    ``pos`` past the cache raises (the reference's ``dynamic_update_slice``
+    clamps it and overwrites the last slot; ROADMAP C10)."""
+    if pos >= cache_k.shape[1]:
+        raise IndexError(f"decode at position {pos} of a cache of "
+                         f"{cache_k.shape[1]} positions")
     B = x.shape[0]
     hd = cfg.resolved_head_dim()
     q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
@@ -240,6 +261,19 @@ def swiglu_init(generator, d, d_ff, dtype, device=None):
 
 def swiglu(p, x):
     return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def gelu_mlp_init(generator, d, d_ff, dtype, device=None):
+    return {
+        "wi": dense_init(generator, (d, d_ff), dtype, device=device),
+        "wo": dense_init(generator, (d_ff, d), dtype, device=device),
+    }
+
+
+def gelu_mlp(p, x):
+    """The tanh form of GELU, as ``jax.nn.gelu(approximate=True)`` (torch's
+    default is the erf form)."""
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

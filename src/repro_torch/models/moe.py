@@ -1,0 +1,239 @@
+"""Mixture-of-Experts LM (arctic-480b, qwen3-moe-30b-a3b).
+
+GShard/Switch-style one-hot dispatch, as in the reference:
+* tokens are grouped (``moe_group_size``) and each (token, choice) gets a
+  position in its expert's capacity-``C`` buffer via a cumulative-sum
+  priority; overflow slots are dropped (the residual passes through).
+* dispatch and combine are einsums over dense one-hot tensors, so the
+  expert weights are read whole: a decode step reads every expert.
+* arctic's parallel *dense residual* MLP via ``moe_dense_ff``.
+
+The tree is the reference's, keys sorted; the fp32 ``router`` stays fp32 in
+a bf16 model. Layers are stacked along a leading axis and a Python loop
+indexes them (views); the cache is the dense family's
+(``transformer.init_cache``), written in place, with a host-integer ``pos``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_map
+
+AUX_LOSS_WEIGHT = 0.01
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_init(generator, cfg, device=None):
+    dt = _dtype(cfg)
+    E, d, ff = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff_expert
+    p = {
+        "router": L.dense_init(generator, (d, E), torch.float32, scale=0.02,
+                               device=device),
+        "wg": L.dense_init(generator, (E, d, ff), dt, scale=d ** -0.5,
+                           device=device),
+        "wu": L.dense_init(generator, (E, d, ff), dt, scale=d ** -0.5,
+                           device=device),
+        "wd": L.dense_init(generator, (E, ff, d), dt, scale=ff ** -0.5,
+                           device=device),
+    }
+    if cfg.moe_dense_ff:
+        p["dense"] = L.swiglu_init(generator, d, cfg.moe_dense_ff, dt, device)
+    return dict(sorted(p.items()))
+
+
+def block_init(generator, cfg, device=None):
+    dt = _dtype(cfg)
+    return {
+        "attn": L.attention_init(generator, cfg, dt, device=device),
+        "ln1": L.rms_norm_init(cfg.d_model, dt, device),
+        "ln2": L.rms_norm_init(cfg.d_model, dt, device),
+        "moe": moe_ffn_init(generator, cfg, device),
+    }
+
+
+def init(generator, cfg, device=None):
+    """Random parameters from ``generator`` (drawn on its device), placed on
+    ``device`` (None = cuda)."""
+    device = resolve_device(device)
+    dt = _dtype(cfg)
+    embed = L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device)
+    blocks = [block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
+    layers = tree_map(lambda *ls: torch.stack(ls), *blocks)
+    del blocks
+    return {
+        "embed": embed,
+        "final_norm": L.rms_norm_init(cfg.d_model, dt, device),
+        "layers": layers,
+        "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab), dt,
+                                device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN
+# ---------------------------------------------------------------------------
+
+
+def routing(p, cfg, xg):
+    """Router of grouped tokens xg (Gn,G,d) -> dict of ``probs`` (Gn,G,E),
+    normalised top-k ``gates`` and ``idx`` (Gn,G,k), each (token, choice)
+    slot's place ``pos`` in its expert's buffer and ``keep`` (Gn,G*k), fp32,
+    and ``C``, the slots an expert has in a group. The top k come from a stable descending sort,
+    so equal probabilities (a padding token's are all equal) keep the lower
+    expert first, as ``jax.lax.top_k`` does (``torch.topk`` breaks ties in
+    no set order); the cumulative priority depends on that order."""
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    Gn, G = xg.shape[:2]
+    logits = xg.to(torch.float32) @ p["router"]                 # (Gn,G,E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :k], idx[..., :k]                   # (Gn,G,k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    C = max(4, int(math.ceil(G * k / E * cfg.moe_capacity_factor)))
+    flat = F.one_hot(idx, E).to(torch.float32).reshape(Gn, G * k, E)
+    prio = torch.cumsum(flat, dim=1) - flat                     # slots ahead
+    pos = torch.sum(prio * flat, dim=-1)                        # (Gn,G*k)
+    keep = (pos < C).to(torch.float32)
+    return {"probs": probs, "gates": gates, "idx": idx, "flat": flat,
+            "pos": pos, "keep": keep, "C": C}
+
+
+def moe_ffn(p, cfg, x):
+    """x: (B,S,d) -> (out (B,S,d), aux_loss scalar)."""
+    B, S, d = x.shape
+    tokens = B * S
+    G = min(cfg.moe_group_size, tokens)
+    Gn = -(-tokens // G)
+    pad = Gn * G - tokens
+    xt = x.reshape(tokens, d)
+    if pad:
+        xt = F.pad(xt, (0, 0, 0, pad))
+    xg = xt.reshape(Gn, G, d)
+
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    r = routing(p, cfg, xg)
+    C = r["C"]
+    # one-hot of each slot's place; an overflowed slot (pos >= C) gets an
+    # all-zero row, as jax.nn.one_hot gives (F.one_hot would raise)
+    cap_oh = (r["pos"].to(torch.int64)[..., None]
+              == torch.arange(C, device=x.device)).to(torch.float32)
+    disp = (r["flat"][..., None] * cap_oh[:, :, None, :]
+            * r["keep"][..., None, None]).reshape(Gn, G, k, E, C)
+    del cap_oh
+    combine = (disp * r["gates"][..., None, None]).sum(2)       # (Gn,G,E,C)
+    dispatch = disp.sum(2)                                      # (Gn,G,E,C)
+    del disp
+
+    dt = x.dtype
+    buffers = torch.einsum("gtec,gtd->gecd", dispatch.to(dt), xg)
+    h = F.silu(torch.einsum("gecd,edf->gecf", buffers, p["wg"]))
+    h = h * torch.einsum("gecd,edf->gecf", buffers, p["wu"])
+    expert_out = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    out = torch.einsum("gecd,gtec->gtd", expert_out, combine.to(dt))
+
+    out = out.reshape(Gn * G, d)[:tokens].reshape(B, S, d)
+    if "dense" in p:                                            # arctic
+        out = out + L.swiglu(p["dense"], x)
+
+    # Switch-style load-balance loss: E·Σ_e f_e·p_e == 1 at uniform routing
+    f = dispatch.sum(dim=3).mean(dim=(0, 1)) / k                # token share
+    imp = r["probs"].mean(dim=(0, 1))                           # router mass
+    aux = E * torch.sum(f * imp)
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# model interface
+# ---------------------------------------------------------------------------
+
+
+def _block(p, cfg, x, positions, mask):
+    """One block; returns (x, aux, (k, v)) with the layer's rotated keys and
+    its values for a prefill's cache."""
+    h, kv = L.attention(p["attn"], L.rms_norm(p["ln1"], x, cfg.norm_eps),
+                        cfg, positions=positions, mask=mask)
+    x = x + h
+    h, a = moe_ffn(p["moe"], cfg, L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    return L.shard_activations(x + h, cfg.act_shard), a, kv
+
+
+def _stack(params, cfg, x, positions, mask, cache=None):
+    """The layer stack -> (final-normed h, mean aux loss); with a
+    ``cache``, each layer's keys and values go into its first S
+    positions."""
+    S = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a, (k, v) = _block(T._layer(params, i), cfg, x, positions, mask)
+        aux = aux + a
+        if cache is not None:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+    return (L.rms_norm(params["final_norm"], x, cfg.norm_eps),
+            aux / cfg.n_layers)
+
+
+def loss_fn(params, cfg, batch):
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = params["embed"][tokens]
+    S = tokens.shape[1]
+    mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
+    h, aux = _stack(params, cfg, x, torch.arange(S, device=x.device), mask)
+    if cfg.xent_chunk:
+        xent = L.chunked_softmax_xent(h, params["lm_head"], labels,
+                                      cfg.xent_chunk, mask=batch.get("mask"))
+    else:
+        logits = h @ params["lm_head"]
+        xent = L.softmax_xent(logits, labels, batch.get("mask"))
+    loss = xent + AUX_LOSS_WEIGHT * aux
+    return loss, {"loss": xent, "aux_loss": aux}
+
+
+def init_cache(cfg, batch_size, max_len, device=None):
+    return T.init_cache(cfg, batch_size, max_len, device)
+
+
+def prefill(params, cfg, batch, cache):
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = params["embed"][tokens]
+    mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
+    h, _ = _stack(params, cfg, x, torch.arange(S, device=x.device), mask,
+                  cache)
+    return ((h[:, -1:] @ params["lm_head"]).to(torch.float32),
+            dict(cache, pos=S))
+
+
+def decode_step(params, cfg, token, cache):
+    pos = cache["pos"]
+    x = params["embed"][token]
+    kpos = torch.arange(cache["k"].shape[2], device=x.device)
+    valid = kpos <= pos
+    if cfg.window:
+        valid &= (pos - kpos) < cfg.window
+    for i in range(cfg.n_layers):
+        p = T._layer(params, i)
+        xn = L.rms_norm(p["ln1"], x, cfg.norm_eps)
+        out, _, _ = L.attention_decode_masked(
+            p["attn"], xn, cache["k"][i], cache["v"][i], pos, cfg, valid)
+        x = x + out
+        h, _ = moe_ffn(p["moe"], cfg, L.rms_norm(p["ln2"], x, cfg.norm_eps))
+        x = x + h
+    h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return ((h @ params["lm_head"]).to(torch.float32),
+            dict(cache, pos=pos + 1))

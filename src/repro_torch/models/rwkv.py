@@ -1,0 +1,234 @@
+"""RWKV-6 "Finch" (rwkv6-1.6b): attention-free RNN LM.
+
+The Finch features, as in the reference:
+* matrix-valued per-head state ``S ∈ R^{hd×hd}`` (head_dim 64),
+* **data-dependent decay** ``w_t = exp(-exp(w0 + tanh(x W_a) W_b))``,
+* bonus ``u`` for the current token, token-shift mixing, and the
+  squared-ReLU channel-mix FFN.
+
+Recurrence (per head):
+    out_t = r_t · (S_{t-1} + (u ∘ k_t) ⊗ v_t)
+    S_t   = diag(w_t) · S_{t-1} + k_t ⊗ v_t
+
+Prefill and training run the recurrence as a Python loop over time (the
+reference's ``lax.scan``; plain PyTorch, no kernel); decode is one step of
+it. There is no KV cache: the state is ``{"S": (L,B,H,hd,hd) fp32,
+"last_tm", "last_cm": (L,B,d), "pos": int}``, written in place, with
+``pos`` a host integer. The tree is the reference's, keys sorted.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_map
+
+DECAY_LORA = 64
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _uniform_half(generator, shape, dtype, device=None):
+    """Uniform [0, 0.5) weights drawn on the generator's device, then moved
+    (nothing is drawn on ``meta``)."""
+    if L._is_meta(device):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    w = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device) * 0.5
+    return w.to(dtype=dtype, device=device)
+
+
+def block_init(generator, cfg, device=None):
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+
+    def dense(shape):
+        return L.dense_init(generator, shape, dt, device=device)
+
+    tm = {
+        "mu": _uniform_half(generator, (5, d), dt, device),     # r,k,v,w,g
+        "wr": dense((d, H * hd)),
+        "wk": dense((d, H * hd)),
+        "wv": dense((d, H * hd)),
+        "wg": dense((d, H * hd)),
+        "wo": dense((H * hd, d)),
+        "decay_a": dense((d, DECAY_LORA)),
+        "decay_b": dense((DECAY_LORA, H * hd)),
+        "w0": torch.full((H * hd,), -0.6931, dtype=dt, device=device),
+        "u": torch.zeros((H, hd), dtype=dt, device=device),
+        "ln_x": L.layer_norm_init(hd, dt, device),   # per-head group norm
+    }
+    cm = {
+        "mu": _uniform_half(generator, (2, d), dt, device),     # k,r
+        "wk": dense((d, cfg.d_ff)),
+        "wv": dense((cfg.d_ff, d)),
+        "wr": dense((d, d)),
+    }
+    return {
+        "cm": dict(sorted(cm.items())),
+        "ln1": L.layer_norm_init(d, dt, device),
+        "ln2": L.layer_norm_init(d, dt, device),
+        "tm": dict(sorted(tm.items())),
+    }
+
+
+def init(generator, cfg, device=None):
+    """Random parameters from ``generator`` (drawn on its device), placed on
+    ``device`` (None = cuda)."""
+    device = resolve_device(device)
+    dt = _dtype(cfg)
+    embed = L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device)
+    blocks = [block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
+    layers = tree_map(lambda *ls: torch.stack(ls), *blocks)
+    del blocks
+    return {
+        "embed": embed,
+        "final_norm": L.layer_norm_init(cfg.d_model, dt, device),
+        "layers": layers,
+        "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab), dt,
+                                device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# time-mix (WKV6)
+# ---------------------------------------------------------------------------
+
+
+def _shift(x, last):
+    """Token shift: previous token's features; ``last`` (B,d) seeds t=0."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _tm_projections(p, cfg, x, last_x):
+    """r,k,v,g,w for a whole sequence. x: (B,T,d)."""
+    B, Tn, d = x.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+    xx = _shift(x, last_x)
+
+    def mix(i):
+        return x + (xx - x) * p["mu"][i][None, None, :]
+
+    r = (mix(0) @ p["wr"]).reshape(B, Tn, H, hd)
+    k = (mix(1) @ p["wk"]).reshape(B, Tn, H, hd)
+    v = (mix(2) @ p["wv"]).reshape(B, Tn, H, hd)
+    # data-dependent decay (Finch): low-rank + base, squashed to (0,1)
+    dw = torch.tanh(mix(3) @ p["decay_a"]) @ p["decay_b"]
+    w = torch.exp(-torch.exp(p["w0"].to(torch.float32)
+                             + dw.to(torch.float32))).reshape(B, Tn, H, hd)
+    g = F.silu(mix(4) @ p["wg"]).reshape(B, Tn, H, hd)
+    return r, k, v, w, g
+
+
+def wkv_scan(r, k, v, w, u, state):
+    """Run the WKV6 recurrence over time.
+
+    r,k,v,w: (B,T,H,hd); u: (H,hd); state: (B,H,hd,hd) fp32.
+    Returns (out (B,T,H,hd) fp32, final state).
+    """
+    r, k, v, w = (t.to(torch.float32) for t in (r, k, v, w))
+    outs = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhi,bhj->bhij", k[:, t], v[:, t])
+        outs.append(torch.einsum("bhi,bhij->bhj", r[:, t],
+                                 state + u[None, :, :, None] * kv))
+        state = w[:, t, :, :, None] * state + kv
+    return torch.stack(outs, dim=1), state
+
+
+def time_mix(p, cfg, x, tm_state):
+    """tm_state: {'S': (B,H,hd,hd) fp32, 'last': (B,d)}."""
+    B, Tn, d = x.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+    r, k, v, w, g = _tm_projections(p, cfg, x, tm_state["last"])
+    out, S = wkv_scan(r, k, v, w, p["u"].to(torch.float32), tm_state["S"])
+    out = L.layer_norm(p["ln_x"], out.to(x.dtype))         # per-head norm
+    out = (out * g).reshape(B, Tn, H * hd)
+    return out @ p["wo"], {"S": S, "last": x[:, -1, :]}
+
+
+def channel_mix(p, cfg, x, last_x):
+    xx = _shift(x, last_x)
+    xk = x + (xx - x) * p["mu"][0][None, None, :]
+    xr = x + (xx - x) * p["mu"][1][None, None, :]
+    k = torch.square(torch.relu(xk @ p["wk"]))
+    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# model interface
+# ---------------------------------------------------------------------------
+
+
+def _zero_states(cfg, B, device=None):
+    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+    return {
+        "S": torch.zeros((cfg.n_layers, B, H, hd, hd), dtype=torch.float32,
+                         device=device),
+        "last_cm": torch.zeros((cfg.n_layers, B, cfg.d_model),
+                               dtype=_dtype(cfg), device=device),
+        "last_tm": torch.zeros((cfg.n_layers, B, cfg.d_model),
+                               dtype=_dtype(cfg), device=device),
+        "pos": 0,
+    }
+
+
+def _stack(params, cfg, x, states):
+    """The layer stack from ``states``, which it advances in place (layer i
+    reads its state before writing it) -> (final-normed h, states with
+    ``pos`` moved on by the sequence length)."""
+    for i in range(cfg.n_layers):
+        p = T._layer(params, i)
+        h, tm_state = time_mix(p["tm"], cfg,
+                               L.layer_norm(p["ln1"], x, cfg.norm_eps),
+                               {"S": states["S"][i],
+                                "last": states["last_tm"][i]})
+        x = x + h
+        h, lcm = channel_mix(p["cm"], cfg,
+                             L.layer_norm(p["ln2"], x, cfg.norm_eps),
+                             states["last_cm"][i])
+        x = x + h
+        states["S"][i] = tm_state["S"]
+        states["last_tm"][i] = tm_state["last"]
+        states["last_cm"][i] = lcm
+    return (L.layer_norm(params["final_norm"], x, cfg.norm_eps),
+            dict(states, pos=states["pos"] + x.shape[1]))
+
+
+def loss_fn(params, cfg, batch):
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = params["embed"][tokens]
+    h, _ = _stack(params, cfg, x,
+                  _zero_states(cfg, tokens.shape[0], x.device))
+    logits = h @ params["lm_head"]
+    loss = L.softmax_xent(logits, labels, batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+def init_cache(cfg, batch_size, max_len, device=None):
+    """The O(1) recurrent state: ``max_len`` is not read."""
+    return _zero_states(cfg, batch_size, resolve_device(device))
+
+
+def prefill(params, cfg, batch, cache):
+    x = params["embed"][batch["tokens"]]
+    h, states = _stack(params, cfg, x, cache)
+    return (h[:, -1:] @ params["lm_head"]).to(torch.float32), states
+
+
+def decode_step(params, cfg, token, cache):
+    x = params["embed"][token]                    # (B,1,d)
+    h, states = _stack(params, cfg, x, cache)
+    return (h @ params["lm_head"]).to(torch.float32), states

@@ -1,0 +1,200 @@
+"""Whisper large-v3 backbone (whisper-large-v3): encoder-decoder.
+
+As in the reference, the mel-spectrogram and conv frontend are a stub: the
+batch brings ``n_frames`` precomputed frame embeddings at ``d_model`` as
+``frames``. This module is the transformer: a bidirectional encoder over
+the frames (a learned position table, no RoPE) and a causal decoder (RoPE
+self-attention) with per-layer cross-attention whose keys and values are
+computed once at prefill and cached (``xk``, ``xv``). The head is tied
+(``embed.T``). The tree is the reference's, keys sorted; layers are
+stacked along a leading axis and a Python loop indexes them (views).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.pytree import tree_map
+
+
+def _dtype(cfg):
+    return getattr(torch, cfg.param_dtype)
+
+
+def _stack(blocks):
+    return tree_map(lambda *ls: torch.stack(ls), *blocks)
+
+
+def _layer(stack, i):
+    return tree_map(lambda t: t[i], stack)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def enc_block_init(generator, cfg, device=None):
+    dt = _dtype(cfg)
+    return {
+        "attn": L.attention_init(generator, cfg, dt, device=device),
+        "ln1": L.layer_norm_init(cfg.d_model, dt, device),
+        "ln2": L.layer_norm_init(cfg.d_model, dt, device),
+        "mlp": L.gelu_mlp_init(generator, cfg.d_model, cfg.d_ff, dt, device),
+    }
+
+
+def dec_block_init(generator, cfg, device=None):
+    dt = _dtype(cfg)
+    p = {
+        "attn": L.attention_init(generator, cfg, dt, device=device),
+        "ln1": L.layer_norm_init(cfg.d_model, dt, device),
+        "ln_x": L.layer_norm_init(cfg.d_model, dt, device),
+        "xattn": L.attention_init(generator, cfg, dt, device=device),
+        "ln2": L.layer_norm_init(cfg.d_model, dt, device),
+        "mlp": L.gelu_mlp_init(generator, cfg.d_model, cfg.d_ff, dt, device),
+    }
+    return dict(sorted(p.items()))
+
+
+def init(generator, cfg, device=None):
+    """Random parameters from ``generator`` (drawn on its device), placed on
+    ``device`` (None = cuda)."""
+    device = resolve_device(device)
+    dt = _dtype(cfg)
+    p = {
+        "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device),
+        "enc_pos": L.embed_init(generator, cfg.n_frames, cfg.d_model, dt,
+                                device),
+        "encoder": _stack([enc_block_init(generator, cfg, device)
+                           for _ in range(cfg.encoder_layers)]),
+        "enc_norm": L.layer_norm_init(cfg.d_model, dt, device),
+        "decoder": _stack([dec_block_init(generator, cfg, device)
+                           for _ in range(cfg.n_layers)]),
+        "final_norm": L.layer_norm_init(cfg.d_model, dt, device),
+    }
+    return dict(sorted(p.items()))
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+def encode(params, cfg, frames):
+    """frames: (B, n_frames, d) stubbed embeddings -> encoder states."""
+    x = frames.to(_dtype(cfg)) + params["enc_pos"][None]
+    for i in range(cfg.encoder_layers):
+        p = _layer(params["encoder"], i)
+        xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)
+        # bidirectional self-attention, no RoPE (the position table): the
+        # reference passes an all-true mask, which masks nothing
+        h, _ = L.attention(p["attn"], xn, cfg, kv_override=xn)
+        x = x + h
+        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps))
+        x = x + h
+    return L.layer_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+
+def _dec_block(p, cfg, x, positions, mask, enc):
+    """One decoder block -> (x, (k, v) of the self-attention, (k, v) of the
+    encoder states)."""
+    h, kv = L.attention(p["attn"], L.layer_norm(p["ln1"], x, cfg.norm_eps),
+                        cfg, positions=positions, mask=mask)
+    x = x + h
+    h, xkv = L.attention(p["xattn"], L.layer_norm(p["ln_x"], x, cfg.norm_eps),
+                         cfg, kv_override=enc)
+    x = x + h
+    h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps))
+    return x + h, kv, xkv
+
+
+def _decode_stack(params, cfg, tokens, enc, cache=None):
+    """The decoder over a prompt; with a ``cache``, each layer's self keys
+    and values go into its first S positions and its cross keys and values
+    into ``xk``/``xv``."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens]
+    mask = L.causal_mask(S, S, device=x.device)
+    positions = torch.arange(S, device=x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v), (xk, xv) = _dec_block(_layer(params["decoder"], i), cfg, x,
+                                         positions, mask, enc)
+        if cache is not None:
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+            cache["xk"][i] = xk
+            cache["xv"][i] = xv
+    return L.layer_norm(params["final_norm"], x, cfg.norm_eps)
+
+
+def loss_fn(params, cfg, batch):
+    """batch: frames (B,F,d), tokens (B,S), labels (B,S)."""
+    enc = encode(params, cfg, batch["frames"])
+    h = _decode_stack(params, cfg, batch["tokens"], enc)
+    logits = h @ params["embed"].T                 # whisper ties the head
+    loss = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg, batch_size, max_len, device=None):
+    device = resolve_device(device)
+    hd = cfg.resolved_head_dim()
+    dt = _dtype(cfg)
+    self_shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads, hd)
+    cross_shape = (cfg.n_layers, batch_size, cfg.n_frames, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(self_shape, dtype=dt, device=device),
+        "v": torch.zeros(self_shape, dtype=dt, device=device),
+        "xk": torch.zeros(cross_shape, dtype=dt, device=device),
+        "xv": torch.zeros(cross_shape, dtype=dt, device=device),
+        "pos": 0,
+    }
+
+
+def prefill(params, cfg, batch, cache):
+    """Encode the audio, cache each layer's cross keys and values, prefill
+    the text prompt."""
+    enc = encode(params, cfg, batch["frames"])
+    h = _decode_stack(params, cfg, batch["tokens"], enc, cache)
+    return ((h[:, -1:] @ params["embed"].T).to(torch.float32),
+            dict(cache, pos=batch["tokens"].shape[1]))
+
+
+def decode_step(params, cfg, token, cache):
+    pos = cache["pos"]
+    x = params["embed"][token]
+    valid = torch.arange(cache["k"].shape[2], device=x.device) <= pos
+    hd = cfg.resolved_head_dim()
+    B = x.shape[0]
+    for i in range(cfg.n_layers):
+        p = _layer(params["decoder"], i)
+        xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)
+        out, _, _ = L.attention_decode_masked(
+            p["attn"], xn, cache["k"][i], cache["v"][i], pos, cfg, valid)
+        x = x + out
+        # cross-attention against the cached encoder keys and values
+        xq = L.layer_norm(p["ln_x"], x, cfg.norm_eps)
+        q = (xq @ p["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, hd)
+        scores = L._gqa_scores(q, cache["xk"][i], cfg.n_kv_heads)
+        probs = torch.softmax(scores, dim=-1)
+        out = (L._gqa_out(probs, cache["xv"][i], cfg.n_heads).to(x.dtype)
+               @ p["xattn"]["wo"])
+        x = x + out
+        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps))
+        x = x + h
+    h = L.layer_norm(params["final_norm"], x, cfg.norm_eps)
+    return ((h @ params["embed"].T).to(torch.float32),
+            dict(cache, pos=pos + 1))

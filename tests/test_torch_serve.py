@@ -101,8 +101,8 @@ def test_meshes_and_other_families_raise():
         serve.main(["--devices", "4", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve.main(["--devices", "3", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        build(cfg.with_(family="moe"))
+    with pytest.raises(ValueError, match="unknown family"):
+        build(cfg.with_(family="rnn"))
     with pytest.raises(NotImplementedError):
         build(configs.get_config("paper-cnn")).init_cache(1, 4)
     if not torch.cuda.is_available():

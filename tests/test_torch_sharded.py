@@ -12,8 +12,11 @@ on the first device), through the kernels' plain versions. Held here:
   bit, plain and masked, with an integer leaf;
 * B4/B5's lane ``base`` and global ``n_valid`` against the reference:
   exact where the reference's arithmetic is exact (the ring unmask, and a
-  mean that is one row's values);
-* a ``MeshEngine`` session on 4 chunks reproduces the batched engine's.
+  mean that is one row's values).
+
+A ``MeshEngine`` session on 4 chunks against the batched engine's is in
+``test_torch_sharded_session.py`` (a file of its own, so that a run that
+spreads test files over workers can spread the two).
 """
 
 import jax.numpy as jnp
@@ -22,17 +25,14 @@ import pytest
 import torch
 
 from repro.kernels import fused as jfused
-from repro_torch.config import ModestConfig, TrainConfig
 from repro_torch.core.tasks import AbstractTask
-from repro_torch.data import make_classification_task
 from repro_torch.engine import (BatchedEngine, FlatModel, FlatSpec,
                                 MeshEngine, SequentialEngine, make_engine)
-from repro_torch.kernels import KERNELS, fused
+from repro_torch.kernels import fused
 from repro_torch.kernels.ops import (aggregate_flatmodel,
                                      masked_aggregate_flatmodel)
 from repro_torch.models.tasks import cnn_task
 from repro_torch.sharding import FlatPlacement, FlatShardings
-from repro_torch.sim.runner import ModestSession
 
 SUBTILE = fused.SUBTILE
 CHUNKS = (1, 2, 4, 8)
@@ -342,78 +342,3 @@ def test_unmask_at_base_equals_reference_pallas_interpret():
     np.testing.assert_allclose(gs, qs, rtol=3e-7)
     dq = np.abs(gq.astype(np.int32) - qq.astype(np.int32))
     assert dq.max() <= 1 and (dq != 0).mean() < 1e-3
-
-
-# ---------------------------------------------------------------------------
-# a MeshEngine session against the batched engine
-# ---------------------------------------------------------------------------
-
-
-def _cnn_session(engine, secure_agg, monkeypatch=None, chunks=4):
-    """8 nodes of the paper CNN in cohorts of 3, on the CPU; with
-    ``engine="sharded"`` the engine mesh is ``chunks`` chunks of the CPU."""
-    if monkeypatch is not None:
-        import repro_torch.launch.mesh as lm
-        monkeypatch.setattr(lm, "make_engine_mesh",
-                            lambda device=None: _cpu_mesh(chunks))
-    n = 8
-    return ModestSession(
-        n_nodes=n, mcfg=ModestConfig(n_nodes=n, sample_size=3,
-                                     n_aggregators=2, success_fraction=1.0,
-                                     ping_timeout=1.0, secure_agg=secure_agg),
-        tcfg=TrainConfig(batch_size=20), task=cnn_task(device="cpu"),
-        data=make_classification_task(n, samples_per_node=30, iid=False,
-                                      alpha=0.5, seed=0),
-        seed=0, eval_every_rounds=5, engine=engine, device="cpu")
-
-
-def _record(engine):
-    calls = []
-    for name in ("aggregate", "aggregate_masked"):
-        inner = getattr(engine, name)
-
-        def call(*a, _inner=inner, **kw):
-            out = _inner(*a, **kw)
-            calls.append(out)
-            return out
-
-        setattr(engine, name, call)
-    return calls
-
-
-@pytest.mark.parametrize("secure_agg", [None, "masked"])
-def test_mesh_engine_session_equals_batched(secure_agg, monkeypatch):
-    """``ModestSession(engine="sharded")`` on a mesh of 4 CPU chunks builds
-    a ``MeshEngine``, and its session equals the batched engine's: rounds,
-    bytes and history, every aggregate, the final model, and the codes and
-    scales of a quantised aggregation of the last cohort, bit for bit."""
-    batched = _cnn_session("batched", secure_agg)
-    sharded = _cnn_session("sharded", secure_agg, monkeypatch)
-    assert type(batched.engine) is BatchedEngine
-    assert isinstance(sharded.engine, MeshEngine)
-    assert sharded.engine.shardings.n_shards == 4
-    got_calls, want_calls = _record(sharded.engine), _record(batched.engine)
-    rb, rs = batched.run(20.0), sharded.run(20.0)
-    assert rs.rounds_completed == rb.rounds_completed >= 5
-    assert rs.usage["total_bytes"] == rb.usage["total_bytes"]
-    assert rs.round_times == rb.round_times and rs.history == rb.history
-    assert len(got_calls) == len(want_calls) > 0
-    for got, want in zip(got_calls, want_calls):
-        assert torch.equal(got.buffer, want.buffer)
-    last = max(batched._eval_models)
-    assert torch.equal(sharded._eval_models[last].buffer,
-                       batched._eval_models[last].buffer)
-    assert not any(k["wrapper"].launches for k in KERNELS.values())
-
-    spec = sharded.task.flat_spec
-    rng = np.random.default_rng(0)
-    models = [FlatModel(torch.from_numpy(rng.standard_normal(spec.n).astype(
-        np.float32)), spec) for _ in range(5)]
-    weights = list(rng.random(5) + 0.1)
-    quantized = [aggregate_flatmodel(models, weights, spec=spec,
-                                     quantize=True, device="cpu",
-                                     shardings=getattr(e, "shardings", None))
-                 for e in (sharded.engine, batched.engine)]
-    for got, want in zip(*quantized):
-        assert torch.equal(getattr(got, "buffer", got),
-                           getattr(want, "buffer", want))
