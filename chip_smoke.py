@@ -102,6 +102,32 @@ two main paths and checks that each really went through its kernels:
   and the share of slots dropped at capacity, and a profile of its
   prefill; then the serving launcher at every new arch's reduced config
   and at whisper-large-v3's full size.
+* lm_families_train: MoDeST sessions that train the MoE, RWKV-6 and Hymba
+  families at published widths on the batched engine (bf16 leaves, seeded
+  weights, ``FAMILY_TRAIN``: qwen3-moe-30b-a3b at 1 of 48 layers with 4
+  nodes, cohorts of 2 and one aggregator, rwkv6-1.6b and hymba-1.5b at 2
+  layers with 8 nodes and cohorts of 4), hymba also masked: every aggregation through
+  ``fused.agg`` (masked: ``fused.mask`` once a training,
+  ``fused.unmask_agg`` once an aggregation) and one quantised aggregation
+  of the last cohort (``fused.agg_quant`` / ``fused.unmask_agg_quant``).
+  Gates: the launches, at least ``FAMILY_TRAIN_ROUNDS`` rounds, finite
+  losses (and the MoE's auxiliary loss), finite parameters, every trained
+  model on the wire at least once (total bytes), the last mean within
+  ``TOL`` of the plain version (masked: bit for bit ``fused.agg`` on the
+  unsealed rows) and the quantised codes bit for bit. Reported: each
+  session's wall and peak memory, one cohort step's time (CUDA events), and the MoE's share of slots dropped
+  at capacity.
+* mesh_train: the mesh form of a round. ``launch.train.main(["--mode",
+  "mesh", "--full-size", ...])`` trains TinyLlama-1.1B at full width and
+  depth: modest on 4 devices (P = 2, 3 rounds, failure rate 0.3), after
+  which every replica must equal the others, and D-SGD on 8 (P = 4, one
+  round), after which they must differ (at P = 2 D-SGD's pairwise mean is
+  the full mean); the devices of a mesh all name the card. Then one
+  ``DistributedTrainer`` round each of whisper-large-v3 (published widths,
+  4 of 32 encoder and 4 of 32 decoder layers) with ``frames`` and of
+  llava-next-mistral-7b (2 of 32 layers) with ``image_embeds``. Gates:
+  finite losses, every slot active where no failure was drawn. Reported:
+  the seconds of each round and the peak memory.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -1158,16 +1184,18 @@ def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
         seed=0, eval_every_rounds=5, engine=engine, serve=serve)
 
 
-def record_aggregations(session, masked: bool):
+def record_aggregations(session, masked: bool, record=None):
     """Every aggregation's inputs and result, recorded around the engine
-    without changing what it does."""
+    without changing what it does: handed to ``record`` (default: appended
+    to the list returned)."""
     calls = []
+    record = record or calls.append
     if masked:
         inner = session.engine.aggregate_masked
 
         def aggregate_masked(models, seeds, signs, weights=None):
             out = inner(models, seeds, signs, weights)
-            calls.append((list(models), seeds, signs, weights, out))
+            record((list(models), seeds, signs, weights, out))
             return out
 
         session.engine.aggregate_masked = aggregate_masked
@@ -1176,7 +1204,7 @@ def record_aggregations(session, masked: bool):
 
         def aggregate(models, weights=None):
             out = inner(models, weights)
-            calls.append((list(models), weights, out))
+            record((list(models), weights, out))
             return out
 
         session.engine.aggregate = aggregate
@@ -3502,6 +3530,296 @@ def families_phase(dev):
     return {"lines": lines, "flash_launches": flash, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# lm_families_train: MoDeST sessions that train the MoE, RWKV-6 and Hymba
+# families at published widths
+# ---------------------------------------------------------------------------
+
+# arch, depth cut, nodes, cohort (sample size), aggregators, evaluated
+# every so many rounds, simulated seconds, also masked. Widths are the
+# published ones, bf16 leaves; the cuts are PERF.md section 4's. The MoE's
+# one layer holds 128 experts (N = 1,245,452,288 lanes with its embedding
+# and head, 4.98 GB a flat fp32 model): 4 nodes, cohorts of 2, one
+# aggregator, 800 simulated s (4 rounds), evaluated at rounds 1 and 4:
+# the session keeps each evaluated round's fp32 model until it ends (lazy
+# evaluation, as the reference's runner), and beside the 35 GB cohort
+# step two of them already bring the peak near 60 GB (PERF.md section 6).
+FAMILY_TRAIN = [
+    ("qwen3-moe-30b-a3b", {"n_layers": 1}, 4, 2, 1, 4, 800.0, False),
+    ("rwkv6-1.6b", {"n_layers": 2}, 8, 4, 2, 2, 1300.0, False),
+    ("hymba-1.5b", {"n_layers": 2}, 8, 4, 2, 2, 750.0, True),
+]
+FAMILY_TRAIN_ROUNDS = 3
+
+
+def moe_dropped_slots(task, buffer, data):
+    """The share of (token, choice) slots dropped at capacity in every
+    layer, for one client's batch through the trained model."""
+    from repro_torch.models import moe
+
+    seen = []
+    routing = moe.routing
+
+    def spy(p, cfg, xg):
+        r = routing(p, cfg, xg)
+        seen.append(r["keep"])
+        return r
+
+    x, y, m = task._padded_batches(data.clients[0], LM_BATCH)[0]
+    moe.routing = spy
+    try:
+        with torch.no_grad():
+            task.model.loss_fn(task.flat_spec.unpack(buffer),
+                               task._to_batch(x, y, m))
+    finally:
+        moe.routing = routing
+    keep = torch.cat([k.reshape(-1) for k in seen])
+    return {"slots": int(keep.numel()),
+            "dropped": int((keep == 0).sum()),
+            "share": float((keep == 0).float().mean())}
+
+
+def family_step_ms(task, data, cohort: int):
+    """One cohort step of the engine over ``cohort`` stacked copies of a
+    seeded model on the first clients' batches: CUDA-event times, and the
+    peak memory it reached."""
+    from repro_torch.engine.cohort import _cohort_ops
+
+    spec = task.flat_spec
+    opt, step = _cohort_ops(task)
+    bufs = spec.pack(task.init_params(1))[None].repeat(cohort, 1)
+    batches = [task._padded_batches(data.clients[s], LM_BATCH)[0]
+               for s in range(cohort)]
+    xb, yb, mb = (torch.from_numpy(np.stack([b[i] for b in batches])).to(
+        bufs.device) for i in range(3))
+    act = torch.ones(cohort, dtype=torch.bool, device=bufs.device)
+    times, peak = cuda_ms(lambda: step(bufs, opt.init(bufs), xb, yb, mb,
+                                       act)[0], reps=2)
+    return {"ms": times, "peak_bytes": peak, "tokens": int(xb.numel())}
+
+
+def family_train_session(arch, over, nodes, cohort, aggregators,
+                         eval_every, sim_seconds, masked):
+    """One counted MoDeST session of ``arch`` at published widths cut to
+    ``over``; returns its line."""
+    from repro_torch import configs
+    from repro_torch.config import ModestConfig, TrainConfig
+    from repro_torch.data.synthetic import make_lm_task
+    from repro_torch.engine.flat import as_buffer
+    from repro_torch.models.tasks import lm_task
+    from repro_torch.sim.runner import ModestSession
+
+    task = lm_task(arch, reduce=False, **over)
+    spec = task.flat_spec
+    data = make_lm_task(nodes, samples_per_node=24, seq_len=97,
+                        vocab=task.cfg.vocab, iid=False, seed=0)
+    session = ModestSession(
+        n_nodes=nodes,
+        mcfg=ModestConfig(n_nodes=nodes, sample_size=cohort,
+                          n_aggregators=aggregators, success_fraction=1.0,
+                          ping_timeout=1.0,
+                          secure_agg="masked" if masked else None),
+        tcfg=TrainConfig(batch_size=LM_BATCH), task=task, data=data, seed=0,
+        eval_every_rounds=eval_every, engine="batched", device=task.device)
+    leaks = arm_sniffer(session) if masked else []
+    # only the last aggregation is kept: a whole session's inputs would
+    # hold every trained model alive
+    last = {"n": 0}
+    record_aggregations(session, masked, lambda call: last.update(
+        call=call, n=last["n"] + 1))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result, wall = run_session(session, sim_seconds)
+    if masked:
+        quant = masked_agg_quant_phase(session, last["call"])
+    else:
+        quant = agg_quant_phase(session, last["call"][0])
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_agg = sum(len(node.agg_log) for node in session.nodes.values())
+    name, qname = (("fused.unmask_agg", "fused.unmask_agg_quant") if masked
+                   else ("fused.agg", "fused.agg_quant"))
+    want = {k: 0 for k in launches}
+    want.update({name: n_agg, qname: 1})
+    if masked:
+        want["fused.mask"] = result.trainings_completed
+    if launches != want or n_agg != last["n"] or n_agg == 0:
+        raise AssertionError(f"{arch}: launches {launches}, want {want}; "
+                             f"{last['n']} aggregations recorded")
+    if leaks:
+        raise AssertionError(f"{arch}: plaintext models on the wire: "
+                             f"{leaks[:5]}")
+    loss = check_session(session, result, metric="loss",
+                         min_rounds=FAMILY_TRAIN_ROUNDS)
+    if result.usage["total_bytes"] < result.trainings_completed * spec.nbytes:
+        raise AssertionError(f"{arch}: {result.usage['total_bytes']} bytes "
+                             f"for {result.trainings_completed} trained "
+                             f"models of {spec.nbytes}")
+    tag = "_masked" if masked else ""
+    if masked:
+        masked_agg_quant_check(session, last["call"], quant,
+                               phase="family_masked_agg_quant")
+    else:
+        agg_quant_check(session, last["call"][0], *quant,
+                        phase="family_agg_quant")
+    worst = means_check(session, [last["call"]], masked,
+                        f"family_means{tag}")
+    line = dict(
+        model=arch, family=task.cfg.family, masked=masked,
+        n_layers=task.cfg.n_layers,
+        published_layers=configs.get_config(arch).n_layers,
+        n_params=spec.n, wire_bytes=spec.nbytes, n_nodes=nodes,
+        sample_size=cohort, aggregators=aggregators,
+        eval_every_rounds=eval_every, batch_size=LM_BATCH,
+        tokens_a_sample=96,
+        sim_seconds=sim_seconds, rounds=result.rounds_completed,
+        trainings=result.trainings_completed, aggregations=n_agg,
+        total_bytes=result.usage["total_bytes"], wall_seconds=wall,
+        loss=loss, launches={k: v for k, v in launches.items() if v},
+        means_max_abs_err=worst, peak_memory_bytes=peak)
+    if task.cfg.family == "moe":
+        aux = [h["aux_loss"] for h in result.history if "aux_loss" in h]
+        if not aux or not all(np.isfinite(a) for a in aux):
+            raise AssertionError(f"{arch}: auxiliary loss {aux}")
+        line["aux_loss"] = aux
+        final = as_buffer(session._eval_models[max(session._eval_models)],
+                          spec)
+    else:
+        final = None
+    del session, last, quant, result
+    release()
+    if final is not None:
+        line["dropped_at_capacity"] = moe_dropped_slots(task, final, data)
+        del final
+    step = family_step_ms(task, data, cohort)
+    line["cohort_step_ms"] = step["ms"]
+    line["cohort_step_peak_bytes"] = step["peak_bytes"]
+    line["cohort_step_tokens"] = step["tokens"]
+    del task
+    release()
+    emit("family_train", **line)
+    return line
+
+
+def lm_families_train_phase():
+    """``FAMILY_TRAIN``'s sessions one after another, each counted on its
+    own (counts at 0 just before, read just after), their memory given
+    back before the next."""
+    t0 = time.perf_counter()
+    lines = {}
+    for arch, over, *setup, also_masked in FAMILY_TRAIN:
+        for masked in (False, True) if also_masked else (False,):
+            line = family_train_session(arch, over, *setup, masked)
+            lines[arch + (" masked" if masked else "")] = line
+    seconds = time.perf_counter() - t0
+    emit("lm_families_train", seconds=seconds,
+         sessions={k: {f: v[f] for f in (
+             "rounds", "wall_seconds", "cohort_step_ms",
+             "peak_memory_bytes")}
+             for k, v in lines.items()})
+    return {"lines": lines, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# mesh_train: the mesh form of a round
+# ---------------------------------------------------------------------------
+
+MESH_ARGS = ["--mode", "mesh", "--arch", "tinyllama-1.1b", "--full-size",
+             "--model-parallel", "2", "--failure-rate", "0.3", "--seed", "0"]
+MESH_RUNS = (("modest", 4, 3), ("dsgd", 8, 1))   # algo, devices, rounds
+# arch, depth cut, batch rows a participant, text tokens a row
+MESH_FAMILIES = (
+    ("whisper-large-v3", {"n_layers": 4, "encoder_layers": 4}, 2, 64),
+    ("llava-next-mistral-7b", {"n_layers": 2}, 1, 64),
+)
+
+
+def replicas_equal(state) -> bool:
+    from repro_torch.utils.pytree import tree_leaves
+    return all(torch.equal(leaf[0], leaf[p]) for leaf in tree_leaves(
+        state.params) for p in range(1, leaf.shape[0]))
+
+
+def mesh_family_round(dev, arch, over, B, T):
+    """Two ``DistributedTrainer`` rounds at P = 2 (the first one cold) of
+    ``arch`` at published widths cut to ``over``, the batch carrying the
+    family's stubbed frontend input."""
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = configs.get_config(arch).with_(**over)
+    P = 2
+    trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd", lr=0.05),
+                                 MeshConfig(data=P, model=1),
+                                 mesh=(dev,) * P, device=dev)
+    state = trainer.init_state(0)
+    step = trainer.jit_train_step()
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (P, 1, B, T)),
+                                device=dev) for k in ("tokens", "labels")}
+    key, n = (("frames", cfg.n_frames) if cfg.family == "audio" else
+              ("image_embeds", cfg.image_tokens * cfg.anyres_tiles))
+    batch[key] = torch.as_tensor(
+        rng.standard_normal((P, 1, B, n, cfg.d_model), dtype=np.float32)
+        * 0.1, device=dev)
+    weights = torch.ones(P, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses = [], []
+    for _ in range(2):
+        (state, metrics), s = synced_seconds(step, state, batch, weights)
+        seconds.append(s)
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)) or not replicas_equal(state):
+        raise AssertionError(f"{arch}: losses {losses}, or replicas apart")
+    line = dict(model=arch, family=cfg.family, input=key,
+                input_shape=list(batch[key].shape), n_layers=cfg.n_layers,
+                published_layers=configs.get_config(arch).n_layers,
+                encoder_layers=cfg.encoder_layers if cfg.family == "audio"
+                else None, participants=P, batch=B, text_tokens=T,
+                n_params=sum(x[0].numel() for x in tree_leaves(state.params)),
+                losses=losses, round_seconds=seconds,
+                peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del state, batch, trainer, step
+    release()
+    return line
+
+
+def mesh_train_phase(dev):
+    """The launcher's mesh form at TinyLlama's full size (modest, then
+    D-SGD), then a Whisper and a LLaVA round of ``DistributedTrainer``."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    out = {"launcher": {}, "families": {}}
+    for algo, devices, rounds in MESH_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        res = train.main(MESH_ARGS + ["--algo", algo, "--devices",
+                                      str(devices), "--device", str(dev),
+                                      "--rounds", str(rounds)])
+        torch.cuda.synchronize()
+        hist = res["history"]
+        P = res["trainer"].policy.n_participants
+        same = replicas_equal(res["state"])
+        if len(hist) != rounds or P != devices // 2 or not all(
+                np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"mesh {algo}: {hist}, P = {P}")
+        if same != (algo == "modest"):
+            raise AssertionError(f"mesh {algo}: replicas equal: {same}")
+        out["launcher"][algo] = dict(
+            devices=devices, participants=P, rounds=hist,
+            replicas_equal=same,
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+        del res
+        release()
+    for arch, over, B, T in MESH_FAMILIES:
+        out["families"][arch] = mesh_family_round(dev, arch, over, B, T)
+    out["seconds"] = time.perf_counter() - t0
+    emit("mesh_train", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
@@ -3513,10 +3831,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     card = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"]).splitlines()[0]
-    release = re.search(r"release ([\d.]+)",
-                        run_cmd([build.find_nvcc(), "--version"]))
+    nvcc = re.search(r"release ([\d.]+)",
+                     run_cmd([build.find_nvcc(), "--version"]))
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
-         nvcc=release.group(1) if release else None, card=card,
+         nvcc=nvcc.group(1) if nvcc else None, card=card,
          python=sys.version.split()[0],
          allow_tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
                      "cudnn": torch.backends.cudnn.allow_tf32})
@@ -3617,6 +3935,19 @@ def main() -> int:
         raise AssertionError(f"families phase launches {family_launches}, "
                              f"want {families['flash_launches']} of "
                              "flash_attention only")
+    del families
+    release()
+    families_train = lm_families_train_phase()
+    train_launches = {}
+    for line in families_train["lines"].values():
+        for name, n in line["launches"].items():
+            train_launches[name] = train_launches.get(name, 0) + n
+    reset_counts()
+    mesh_train_phase(dev)
+    mesh_launches = read_counts()
+    if any(mesh_launches.values()):
+        raise AssertionError(f"the mesh form launched {mesh_launches}: no "
+                             "kernel lies on it")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -3633,6 +3964,8 @@ def main() -> int:
                if "pipe_bound_ms" in at_session else {}),
             **({"at_lm_train": lm_row(lm, name)}
                if name in lm["kernels"] else {}),
+            **({"at_lm_families_train": {"launches": train_launches[name]}}
+               if name in train_launches else {}),
             **({"at_families": {
                 "launches": family_launches[name],
                 "by_model": {r["model"]: {k: r[k] for k in (

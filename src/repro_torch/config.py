@@ -184,11 +184,26 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The device mesh: ``data`` x ``model`` devices (one until ROADMAP A12)."""
+    """The production mesh from the brief: ``data`` x ``model`` devices, or
+    ``pods`` of them with ``multi_pod``. It sets the participant count of
+    the mesh form (``sharding.ShardingPolicy``); one card runs a mesh as
+    entries that name it again and again (``launch/train.py --mode mesh``)."""
 
-    data: int = 1
-    model: int = 1
+    multi_pod: bool = False
+    data: int = 16
+    model: int = 16
+    pods: int = 2
+
+    @property
+    def shape(self):
+        return ((self.pods, self.data, self.model) if self.multi_pod
+                else (self.data, self.model))
+
+    @property
+    def axes(self):
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
 
     @property
     def n_devices(self):
-        return self.data * self.model
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n

@@ -416,12 +416,17 @@ def _cohort_ops(task):
     opt_update = opt.update
 
     def step(buf, state, xb, yb, mb, active):
-        ptree = spec.unpack_stacked(buf)
-        g = spec.pack_stacked(grads(ptree, xb, yb, mb))
+        # the unpacked leaves live only through the gradient, the packed
+        # gradient only until the update, and the update takes the sum in
+        # place (buf + upd, the same bits): (4 + 4 + 4) bytes a lane a
+        # member at the update's peak, not 22, which is what lets a
+        # published-width MoE layer train in cohorts of two on one card
+        g = spec.pack_stacked(grads(spec.unpack_stacked(buf), xb, yb, mb))
         with torch.no_grad():
             upd, nstate = opt_update(g, state, buf)
+            del g
             keep = active[:, None]
-            nbuf = torch.where(keep, buf + upd, buf)
+            nbuf = torch.where(keep, upd.add_(buf), buf)
             nstate = {k: (torch.where(keep, v, state[k]) if v.dim() == 2
                           else torch.where(active, v, state[k]))
                       for k, v in nstate.items()}

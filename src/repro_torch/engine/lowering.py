@@ -16,25 +16,33 @@ The stacked form is written for the CNN and MF families, with the stack
 axis written out by hand; since the S losses are independent, one backward
 pass of their sum yields every model's own gradient. It avoids per-op
 batching rules on the hot path and costs one autograd graph per step.
-The dense LM family takes its model's own masked loss under
-``torch.func.vmap``, built once a task: every product of the layers then
-carries the S axis (batched matrix products), so a step is one pass over
-all S members, and, as for the CNN and MF, one backward pass of the S
-losses' sum gives every member's own gradient. The reference vmaps
-``jax.grad`` instead; ``vmap(grad(loss))`` gives the same gradients but
-took 23–28 ms a TinyLlama-width cohort step on one H100 where this form
-took 18–20 ms, with 2.3 GB more memory at its peak (PERF.md).
-Other families raise ``NotImplementedError``.
+Every LM family (dense, moe, ssm, hybrid, audio, vlm) takes its model's
+own masked loss (``build(cfg).loss_fn``) under ``torch.func.vmap``, built
+once a task: every product of the layers then carries the S axis (batched
+matrix products), so a step is one pass over all S members, and, as for
+the CNN and MF, one backward pass of the S losses' sum gives every
+member's own gradient. The reference vmaps ``jax.grad`` instead;
+``vmap(grad(loss))`` gives the same gradients but took 23–28 ms a
+TinyLlama-width cohort step on one H100 where this form took 18–20 ms,
+with 2.3 GB more memory at its peak (PERF.md).
 
-* Dense LM: ``models/transformer.py::loss_fn`` of one model, the row mask
-  broadcast over the sequence. Leaves keep the model's dtype (bf16 for the
-  published configs, cast from the fp32 buffer by ``unpack_stacked``), so
-  the gradients come back in it and are packed to fp32 by the engine, as
-  in the reference. ``cfg.remat`` changes no value and is not read. The
-  evaluation sweep vmaps the model's metrics over the M snapshots in
-  chunks of the model axis (:data:`EVAL_LOGIT_BYTES`), which changes no
-  value. Training with ``use_flash`` raises (no backward; as the
-  reference, whose gradient through its Pallas kernel fails).
+* LM: the family's ``loss_fn`` of one model, the row mask broadcast over
+  the sequence. The MoE's loss is its cross entropy plus
+  ``AUX_LOSS_WEIGHT`` times the load-balance loss; under ``vmap`` each
+  member's B·T tokens route on their own (groups, capacity and the
+  auxiliary loss per member; masked rows still route, as in the
+  reference). RWKV's and Hymba's recurrences are Python loops over T
+  inside ``vmap`` and autograd, and their losses write nothing in place.
+  Leaves keep the model's dtype (bf16 for the published configs, cast
+  from the fp32 buffer by ``unpack_stacked``), so the gradients come back
+  in it and are packed to fp32 by the engine, as in the reference.
+  ``cfg.remat`` changes no value and is not read. The evaluation sweep
+  vmaps the model's metrics over the M snapshots in chunks of the model
+  axis (:data:`EVAL_LOGIT_BYTES`), which changes no value. Training with
+  ``use_flash`` raises (no backward; as the reference, whose gradient
+  through its Pallas kernel fails). The batches hold tokens, labels and
+  the mask, so the audio and vlm losses raise ``KeyError`` for their
+  ``frames`` / ``image_embeds`` (ROADMAP C11).
 
 * CNN: the S models become the ``groups`` of one grouped convolution
   (channels laid out model-major) and the dense layers one batched matrix
@@ -62,7 +70,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# the dense evaluation sweep holds M x B x T x vocab fp32 logits; it runs
+# the LM evaluation sweep holds M x B x T x vocab fp32 logits; it runs
 # the model axis in chunks of at most this many bytes of logits (at least
 # one model a chunk)
 EVAL_LOGIT_BYTES = 1 << 30
@@ -160,53 +168,54 @@ def _mf_rows(params, pairs, y, mask=None):
     return mse + reg, mse
 
 
-def _family(task) -> str:
-    family = task.cfg.family
-    if family not in ("cnn", "mf", "dense"):
-        raise NotImplementedError(
-            f"no stacked lowering for the {family!r} family yet: training "
-            "the moe, ssm, hybrid, audio and vlm families is ROADMAP A11c")
-    return family
-
-
-def _dense_grads(task):
-    """Per-member gradients of one dense LM's masked loss: the S losses of
-    ``vmap(loss)`` summed, one backward pass; ``xb`` tokens and ``yb``
-    labels ``(S, B, T)``, ``mb`` the row mask ``(S, B)``."""
-    from repro_torch.models import transformer
-    from repro_torch.models.tasks import refuse_flash_training
+def stacked_value_and_grad(loss_fn):
+    """``f(ptree, batch) -> (losses (S,), gtree)``: each member's loss and
+    gradient, for a parameter tree and a dict batch whose every leaf has a
+    leading stack axis S. ``torch.func.vmap`` of ``loss_fn`` over the
+    members, then one backward pass of their summed losses: no member's
+    loss reads another's leaves, so each gets its own gradient."""
     from repro_torch.utils.pytree import tree_flatten
 
+    losses_of = torch.func.vmap(lambda params, batch: loss_fn(params,
+                                                               batch)[0])
+
+    def value_and_grad(ptree, batch):
+        leaves, treedef = tree_flatten(ptree)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        losses = losses_of(treedef.unflatten(leaves), batch)
+        grads = torch.autograd.grad(torch.sum(losses), leaves)
+        return losses.detach(), treedef.unflatten(list(grads))
+
+    return value_and_grad
+
+
+def _token_grads(task):
+    """Per-member gradients of one LM's masked loss, any token family
+    (:func:`stacked_value_and_grad` of its ``loss_fn``); ``xb`` tokens and
+    ``yb`` labels ``(S, B, T)``, ``mb`` the row mask ``(S, B)``."""
+    from repro_torch.models.tasks import refuse_flash_training
+
     cfg = task.cfg
-
-    def loss(params, tokens, labels, mask):
-        batch = {"tokens": tokens, "labels": labels, "mask": mask}
-        return transformer.loss_fn(params, cfg, batch)[0]
-
-    losses = torch.func.vmap(loss)
+    value_and_grad = stacked_value_and_grad(task.model.loss_fn)
 
     def grads(ptree, xb, yb, mb):
         refuse_flash_training(cfg)
-        leaves, treedef = tree_flatten(ptree)
-        leaves = [l.detach().requires_grad_(True) for l in leaves]
-        total = torch.sum(losses(treedef.unflatten(leaves), xb, yb,
-                                 mb[:, :, None].expand(xb.shape)))
-        return treedef.unflatten(list(torch.autograd.grad(total, leaves)))
+        return value_and_grad(ptree, {
+            "tokens": xb, "labels": yb,
+            "mask": mb[:, :, None].expand(xb.shape)})[1]
 
     return grads
 
 
-def _dense_metrics(task):
+def _token_metrics(task):
     """The model's own metrics, vmapped over M stacked models on one shared
     batch, the model axis in chunks of :data:`EVAL_LOGIT_BYTES` logits."""
-    from repro_torch.models import transformer
     from repro_torch.utils.pytree import tree_leaves, tree_map
 
-    cfg = task.cfg
+    cfg, loss_fn = task.cfg, task.model.loss_fn
 
     def metrics(params, tokens, labels):
-        return transformer.loss_fn(params, cfg, {"tokens": tokens,
-                                                 "labels": labels})[1]
+        return loss_fn(params, {"tokens": tokens, "labels": labels})[1]
 
     per_model = torch.func.vmap(metrics, in_dims=(0, None, None))
 
@@ -227,9 +236,9 @@ def stacked_grads_for(task):
     loss over a cohort. Every leaf of ``ptree``/``gtree`` and ``xb``
     ``(S, B, ...)``, ``yb`` ``(S, B)``, ``mb`` ``(S, B)`` carry the stack
     axis."""
-    family = _family(task)
-    if family == "dense":
-        return _dense_grads(task)
+    family = task.cfg.family
+    if family not in ("cnn", "mf"):
+        return _token_grads(task)
 
     def grads(ptree, xb, yb, mb):
         keys = sorted(ptree)
@@ -249,9 +258,9 @@ def stacked_metrics_for(task):
     """``f(ptree, batch) -> {metric: (M,)}``: the metrics of M stacked
     models on one shared, unmasked batch (the evaluation sweep): the
     family's ``loss_fn`` metrics, model by model."""
-    family = _family(task)
-    if family == "dense":
-        return _dense_metrics(task)
+    family = task.cfg.family
+    if family not in ("cnn", "mf"):
+        return _token_metrics(task)
 
     def metrics(ptree, batch):
         x, y = batch["x"], batch["y"]

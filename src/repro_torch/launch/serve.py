@@ -60,7 +60,7 @@ def main(argv=None):
                 "that divides the device count")
         mesh_cfg = MeshConfig(data=args.devices // mp, model=mp)
     else:
-        mesh_cfg = MeshConfig()
+        mesh_cfg = MeshConfig(data=1, model=1)
 
     server = Server(cfg, mesh_cfg, device=args.device)
     dev = server.device

@@ -2,9 +2,9 @@
 
 ``--mode sim`` is the paper's deployment form: a discrete-event WAN
 session running MoDeST / FedAvg / D-SGD over n nodes (Figs. 3–6), with the
-paper's CNN or MF task or a dense LM of the zoo (``--task lm --arch
-NAME``: its 2-layer smoke variant, ``configs.reduced``, on synthetic
-Markov-chain text), on the card unless ``--device`` names another.
+paper's CNN or MF task or an LM of the zoo (``--task lm --arch NAME``:
+its 2-layer smoke variant, ``configs.reduced``, on synthetic Markov-chain
+text), on the card unless ``--device`` names another.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode sim \\
         --algo modest --task mf --nodes 50 --duration 300 [--device cpu]
@@ -15,17 +15,34 @@ The session's evaluation history is written as CSV to ``--out`` (stdout
 when omitted), one row per evaluated round. With ``--ckpt PATH`` a MoDeST
 or FedAvg session saves its latest aggregated model there
 (``repro_torch.checkpoint``, meta ``{"round", "algo", "task"}``) whenever
-``--ckpt-every`` rounds have passed since the last save. The options that
-``--mode sim`` reads keep the reference launcher's names and defaults.
-Not part of this package yet, and raising ``NotImplementedError``:
-``--mode mesh`` (ROADMAP A12); the options that only it reads (``--lr``,
-``--full-size``, ``--model-parallel``, ...) are left out until then, so
-the parser rejects them.
+``--ckpt-every`` rounds have passed since the last save. ``--task lm``
+takes any LM of the zoo: dense, moe, ssm (rwkv) and hybrid (hymba) archs
+train; an audio or vlm arch stops at its first step with ``KeyError``,
+as the reference does (its batches carry no ``frames`` /
+``image_embeds``; ROADMAP C11).
+
+``--mode mesh`` is the datacenter form: the round step of
+``core.distributed.DistributedTrainer`` over P participant replicas, with
+the MoDeST protocol (hash sampling and failure masks) running host-side.
+``--devices N`` makes a mesh of N entries, each naming ``--device`` (the
+card by default): the P = N / ``--model-parallel`` participants (for a
+``data_rank`` arch) lie stacked on that one device. The reduced config
+unless ``--full-size``; SGD at ``--lr``; the batches carry tokens and
+labels.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode mesh \\
+        --devices 4 --model-parallel 2 --arch tinyllama-1.1b --rounds 5 \\
+        [--device cpu]
+
+The options keep the reference launcher's names and defaults.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
+
+import numpy as np
 
 
 def run_sim(args):
@@ -98,16 +115,93 @@ def run_sim(args):
     return res
 
 
+def run_mesh(args):
+    """Run ``args.rounds`` mesh-form rounds; returns ``{"trainer",
+    "state", "history"}``, one history entry a round (``round``,
+    ``active``, ``loss``, ``seconds``)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.core.hashing import select_sample
+    from repro_torch.data import make_lm_task
+    from repro_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    n_dev = args.devices or (torch.cuda.device_count()
+                             if device.type == "cuda" else 1)
+    model_par = args.model_parallel
+    if model_par <= 0 or n_dev % model_par != 0:
+        raise SystemExit(
+            f"[train:mesh] device_count={n_dev} is not divisible by "
+            f"--model-parallel {model_par}; pick a model-parallel degree "
+            "that divides the device count")
+    data_par = n_dev // model_par
+    mesh_cfg = MeshConfig(multi_pod=False, data=data_par, model=model_par)
+    mesh = (device,) * n_dev
+
+    cfg = configs.get_config(args.arch)
+    if not args.full_size:
+        cfg = configs.reduced(cfg)
+    tcfg = TrainConfig(optimizer="sgd", lr=args.lr,
+                       batch_size=args.batch_size, seed=args.seed)
+    trainer = DistributedTrainer(cfg, tcfg, mesh_cfg, strategy=args.algo,
+                                 mesh=mesh, device=device)
+    P = trainer.policy.n_participants
+
+    # Host-side MoDeST protocol: population of client ids; each round the
+    # hash sampler picks P clients; crash/straggler masks map to weights.
+    population = [f"client-{i}" for i in range(args.nodes)]
+    data = make_lm_task(args.nodes, seq_len=args.seq_len + 1,
+                        vocab=cfg.vocab, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+
+    state = trainer.init_state(args.seed)
+    step = trainer.jit_train_step()
+    history = []
+    for r in range(1, args.rounds + 1):
+        sample_ids = select_sample(population, r, P)
+        idxs = [population.index(s) for s in sample_ids]
+        xs, ys = [], []
+        for e in range(args.local_steps):
+            x, y = data.pack_sample(idxs, args.batch_size, seed=r * 31 + e)
+            xs.append(x[:, :, :args.seq_len])
+            ys.append(y[:, :, :args.seq_len])
+        batch = {"tokens": torch.as_tensor(np.stack(xs, axis=1),
+                                           device=device),
+                 "labels": torch.as_tensor(np.stack(ys, axis=1),
+                                           device=device)}
+        # sf semantics: drop slots that "failed" this round
+        weights = (rng.random(P) >= args.failure_rate).astype(np.float32)
+        if weights.sum() == 0:
+            weights[0] = 1.0
+        t0 = time.time()  # noqa: DL002(per-round step timing display)
+        state, metrics = step(state, batch,
+                              torch.as_tensor(weights, device=device))
+        loss = float(metrics["loss"])                       # host sync
+        seconds = time.time() - t0  # noqa: DL002(per-round step timing display)
+        print(f"[train:mesh] round={r} sample={sample_ids[:4]}... "
+              f"active={int(weights.sum())}/{P} loss={loss:.4f} "
+              f"({seconds:.2f}s)")
+        history.append({"round": r, "active": int(weights.sum()),
+                        "loss": loss, "seconds": seconds})
+    print("[train:mesh] done")
+    return {"trainer": trainer, "state": state, "history": history}
+
+
 def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run; returns the
-    session's result."""
+    session's result (``--mode sim``) or :func:`run_mesh`'s."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="sim", choices=["sim", "mesh"])
     ap.add_argument("--algo", default="modest",
                     choices=["modest", "fedavg", "dsgd", "local"])
     ap.add_argument("--task", default="cnn", choices=["cnn", "mf", "lm"])
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    help="dense LM of --task lm (its reduced variant)")
+                    help="LM of --task lm and --mode mesh: any arch of the "
+                         "zoo (dense, moe, rwkv, hymba, ...); its reduced "
+                         "variant unless --full-size (mesh)")
     ap.add_argument("--nodes", type=int, default=50)
     ap.add_argument("--sample-size", type=int, default=10)
     ap.add_argument("--aggregators", type=int, default=2)
@@ -124,11 +218,18 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    # mesh mode
+    ap.add_argument("--devices", type=int, default=None)
+    ap.add_argument("--model-parallel", type=int, default=2)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--local-steps", type=int, default=1)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--failure-rate", type=float, default=0.0)
+    ap.add_argument("--full-size", action="store_true")
     args = ap.parse_args(argv)
     if args.mode == "mesh":
-        raise NotImplementedError("--mode mesh: the device-mesh trainer is "
-                                  "not part of this package yet (ROADMAP "
-                                  "A12)")
+        return run_mesh(args)
     return run_sim(args)
 
 

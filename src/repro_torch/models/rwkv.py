@@ -185,10 +185,12 @@ def _zero_states(cfg, B, device=None):
     }
 
 
-def _stack(params, cfg, x, states):
+def _stack(params, cfg, x, states, write=True):
     """The layer stack from ``states``, which it advances in place (layer i
     reads its state before writing it) -> (final-normed h, states with
-    ``pos`` moved on by the sequence length)."""
+    ``pos`` moved on by the sequence length). ``write=False`` leaves
+    ``states`` as they are: the loss writes nothing in place, so that it
+    runs under ``torch.func.vmap`` and autograd."""
     for i in range(cfg.n_layers):
         p = T._layer(params, i)
         h, tm_state = time_mix(p["tm"], cfg,
@@ -200,6 +202,8 @@ def _stack(params, cfg, x, states):
                              L.layer_norm(p["ln2"], x, cfg.norm_eps),
                              states["last_cm"][i])
         x = x + h
+        if not write:
+            continue
         states["S"][i] = tm_state["S"]
         states["last_tm"][i] = tm_state["last"]
         states["last_cm"][i] = lcm
@@ -211,7 +215,7 @@ def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
     x = params["embed"][tokens]
     h, _ = _stack(params, cfg, x,
-                  _zero_states(cfg, tokens.shape[0], x.device))
+                  _zero_states(cfg, tokens.shape[0], x.device), write=False)
     logits = h @ params["lm_head"]
     loss = L.softmax_xent(logits, labels, batch.get("mask"))
     return loss, {"loss": loss}

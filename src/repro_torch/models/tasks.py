@@ -1,6 +1,5 @@
-"""Concrete learning tasks (CNN / MF / dense LM) wiring the model zoo into
-the protocol core's :class:`~repro_torch.core.tasks.LearningTask`
-interface.
+"""Concrete learning tasks (CNN / MF / LM) wiring the model zoo into the
+protocol core's :class:`~repro_torch.core.tasks.LearningTask` interface.
 
 One task is shared by all simulated nodes (they share architecture and
 hyperparameters per the paper's system model).
@@ -232,10 +231,16 @@ def mf_task(tcfg: Optional[TrainConfig] = None, device=None,
 
 def lm_task(arch: str = "tinyllama-1.1b", tcfg: Optional[TrainConfig] = None,
             reduce: bool = True, device=None, **cfg_overrides) -> TorchTask:
-    """A dense LM of the zoo as a learning task: the 2-layer smoke variant
-    of ``arch`` (``configs.reduced``) unless ``reduce=False``, then
+    """An LM of the zoo, any family, as a learning task: the 2-layer smoke
+    variant of ``arch`` (``configs.reduced``) unless ``reduce=False``, then
     ``cfg_overrides``; plain SGD at lr 0.05. Training never takes the
-    flash path (:func:`refuse_flash_training`)."""
+    flash path (:func:`refuse_flash_training`).
+
+    Batches carry tokens, labels and the row mask only, as the
+    reference's do. An audio or vlm task is built, packs and aggregates,
+    but its first training or evaluation step raises ``KeyError`` for the
+    ``frames`` / ``image_embeds`` its loss reads, where the reference
+    stops too (ROADMAP C11)."""
     from repro_torch.configs import get_config, reduced
     cfg = get_config(arch)
     if reduce:

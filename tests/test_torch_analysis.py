@@ -26,6 +26,7 @@ from repro_torch.analysis.lint import (Finding, format_findings, lint_paths,
 from repro_torch.analysis.races import RaceDetector, run_shadow_check
 from repro_torch.analysis.rules import RULES
 from test_determinism import GOLDEN as REF_GOLDEN
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src", "repro_torch")

@@ -19,6 +19,7 @@ from repro_torch import checkpoint, configs, optim
 from repro_torch.engine.flat import FlatModel
 from repro_torch.models import build
 from repro_torch.utils.pytree import tree_leaves, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bits(x) -> np.ndarray:

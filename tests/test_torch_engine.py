@@ -24,6 +24,7 @@ from repro_torch.engine import (BatchedEngine, FlatModel, SequentialEngine,
 from repro_torch.engine.flat import params_from_numpy
 from repro_torch.models.tasks import cnn_task
 from repro_torch.utils.pytree import tree_leaves, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 IMAGE = (12, 12, 3)
 

@@ -11,6 +11,7 @@ import repro.eval as jeval
 from repro_torch.eval import (EvalMetrics, compare, evaluate_session,
                               scenario_matrix, time_to_metric, time_to_round)
 from repro_torch.sim.runner import SessionResult
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 WALL = ("wall_s", "events_per_s")
 

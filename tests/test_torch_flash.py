@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bshd,
 )
 from repro_torch.models import layers as L
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TOL = {"float32": dict(rtol=3e-5, atol=3e-5),

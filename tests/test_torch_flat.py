@@ -16,6 +16,7 @@ from repro_torch.engine.flat import (FlatModel, FlatSpec, as_buffer, as_tree,
 from repro_torch.models.tasks import cnn_task
 from repro_torch.utils.pytree import (tree_flatten, tree_leaves, tree_map,
                                       tree_size_bytes)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CNN_KEYS = ["b1", "b2", "conv1", "conv2", "fc1", "fc2", "out"]
 

@@ -34,6 +34,7 @@ def test_every_submodule_imports_without_jax_or_repro():
     mods = _submodules()
     assert "repro_torch.kernels.fused" in mods
     assert "repro_torch.sim.runner" in mods and len(mods) > 40
+    assert "repro_torch.core.strategy" in mods
     code = (
         "import importlib, sys\n"
         f"mods = {mods!r}\n"

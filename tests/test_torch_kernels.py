@@ -21,6 +21,7 @@ from repro_torch.engine.flat import FlatModel, FlatSpec
 from repro_torch.kernels import KERNELS, fused, ref
 from repro_torch.kernels.ops import aggregate_flatmodel
 from repro_torch.utils.pytree import tree_weighted_mean
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 SHAPES = [(1, 5000), (3, 16384), (3, 20000), (16, 40001)]   # ragged N too

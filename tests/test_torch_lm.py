@@ -24,6 +24,7 @@ from repro_torch import configs
 from repro_torch.engine.flat import params_from_numpy
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

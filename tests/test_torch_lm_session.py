@@ -23,6 +23,7 @@ from repro_torch.data import make_lm_task
 from repro_torch.engine.flat import as_buffer, params_from_numpy
 from repro_torch.models.tasks import lm_task
 from repro_torch.sim.runner import ModestSession
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(d_model=64, n_heads=2, n_kv_heads=1, head_dim=32, d_ff=128,

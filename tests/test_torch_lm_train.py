@@ -44,6 +44,7 @@ from repro_torch.launch import train
 from repro_torch.models.tasks import lm_task
 from repro_torch.sim.runner import ModestSession
 from repro_torch.utils.pytree import tree_flatten, tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(d_model=64, n_heads=2, n_kv_heads=1, head_dim=32, d_ff=128,

@@ -37,6 +37,7 @@ from repro_torch.models import build
 from repro_torch.models import mf
 from repro_torch.models.tasks import mf_task
 from repro_torch.sim.runner import ModestSession
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 USERS, ITEMS = 16, 120
@@ -303,17 +304,21 @@ def test_train_launcher_ckpt_equals_reference(algo, every, tmp_path,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mode", "mesh"], "A12")])
-def test_train_launcher_refuses_what_the_package_lacks(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    (["--mode", "mesh", "--devices", "3"], "divisible")])
+def test_train_launcher_refuses_what_the_package_lacks(argv, item, capsys):
+    """The mesh form needs the device count to be a multiple of
+    ``--model-parallel`` (2 by default): 3 devices make no mesh."""
+    with pytest.raises(SystemExit, match=item):
         train.main(argv + ["--device", "cpu", "--nodes", "4"])
 
 
-@pytest.mark.parametrize("option", [["--lr", "0.01"], ["--full-size"],
-                                    ["--model-parallel", "2"]])
+@pytest.mark.parametrize("option", [["--sample-frac", "0.5"],
+                                    ["--mesh-shape", "2x2"],
+                                    ["--dtype", "bfloat16"]])
 def test_train_launcher_rejects_options_nothing_reads(option, capsys):
-    """Options that only the mesh trainer reads are not parsed, so passing
-    one is an error rather than a silent no-op."""
+    """Options that the reference launcher does not parse either (its
+    docstring's ``--sample-frac`` among them) are an error rather than a
+    silent no-op."""
     with pytest.raises(SystemExit):
         train.main(["--task", "mf", "--device", "cpu", "--nodes", "4"]
                    + option)

@@ -29,6 +29,7 @@ from repro_torch.engine.flat import params_from_numpy
 from repro_torch.models import build
 from repro_torch.models import moe as M
 from repro_torch.utils.pytree import tree_flatten
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

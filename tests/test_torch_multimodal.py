@@ -31,6 +31,7 @@ from repro_torch.launch import serve
 from repro_torch.models import llava as V
 from repro_torch.models import whisper as W
 from repro_torch.utils.pytree import tree_flatten
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 MODULES = {"whisper-large-v3": (JW, W), "llava-next-mistral-7b": (JV, V)}

@@ -32,6 +32,7 @@ from repro_torch.models import hymba as H
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.utils.pytree import tree_flatten
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 MODULES = {"rwkv6-1.6b": (JR, R), "hymba-1.5b": (JH, H)}

@@ -60,6 +60,7 @@ from repro_torch.secureagg import prg, shamir
 from repro_torch.sim.clock import Simulator
 from repro_torch.sim.network import Network
 from repro_torch.sim.runner import ModestSession
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 EDGE = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF]

@@ -28,6 +28,7 @@ from repro_torch.launch import serve
 from repro_torch.models import build
 from repro_torch.models import transformer as T
 from repro_torch.utils.pytree import tree_flatten
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cfgs(arch, **kw):

@@ -31,6 +31,7 @@ from repro_torch.serve import (SERVE_REGIMES, MethodConfig,
                                RequestLoadDriver, ServeConfig)
 from repro_torch.sim.runner import DSGDSession, GossipSession, ModestSession
 from repro_torch.traces import diurnal_profile
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = {"ref": (JM, jserve, jclock, jnetwork),
         "port": (TM, tserve, tclock, tnetwork)}

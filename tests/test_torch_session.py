@@ -25,6 +25,7 @@ from repro_torch.sim.runner import (DSGDSession, GossipSession, ModestSession,
                                     fedavg_session)
 from repro_torch.traces import diurnal_profile
 from test_determinism import GOLDEN as REF_GOLDEN
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SESSIONS = {"ModestSession": ModestSession, "DSGDSession": DSGDSession,
             "GossipSession": GossipSession}

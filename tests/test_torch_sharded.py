@@ -33,6 +33,7 @@ from repro_torch.kernels.ops import (aggregate_flatmodel,
                                      masked_aggregate_flatmodel)
 from repro_torch.models.tasks import cnn_task
 from repro_torch.sharding import FlatPlacement, FlatShardings
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SUBTILE = fused.SUBTILE
 CHUNKS = (1, 2, 4, 8)

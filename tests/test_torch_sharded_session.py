@@ -18,6 +18,7 @@ from repro_torch.kernels import KERNELS
 from repro_torch.kernels.ops import aggregate_flatmodel
 from repro_torch.models.tasks import cnn_task
 from repro_torch.sim.runner import ModestSession
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _cpu_mesh(k):

@@ -20,6 +20,7 @@ from repro_torch.engine.lowering import (masked_loss_for, stacked_grads_for,
                                          stacked_metrics_for)
 from repro_torch.models.tasks import TorchTask, cnn_task
 from repro_torch.utils.pytree import tree_map
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -33,6 +33,7 @@ from repro_torch.kernels import (KERNELS, aggregate_flat, aggregate_pytree,
 from repro_torch.kernels import aggregate as tagg
 from repro_torch.kernels import quantize as tquant
 from repro_torch.kernels import ref
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TILE = 16384
 TOL = dict(rtol=1e-5, atol=1e-5)
