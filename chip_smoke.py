@@ -22,6 +22,15 @@ two main paths and checks that each really went through its kernels:
   each prefill launching the flash-attention kernel once a layer
   (``flash_attention``), then the serving launcher at full size once
   (its config leaves ``use_flash`` off: plain attention, no launch);
+* mesh_serve: the serving launcher (``launch.serve.main``) at the serve
+  phase's shape and seed with ``--full-size --set use_flash=true
+  --devices 8 --model-parallel 2``: a 4 x 2 mesh whose entries all name
+  the card, one ``flash_attention`` launch a layer. Gates: its tokens bit
+  for bit the serve phase's; then ``Server(cfg, MeshConfig())`` on the
+  production mesh (256 entries naming the card), every spec of the serve
+  phase's parameters and of a real cache dividing its tensor. Reported:
+  prefill seconds, decode tokens/s and the prefill against the H100
+  roofline's (``roofline.analytic_terms(..., chips=1)``);
 * trees: the per-leaf wrappers on real model trees. ``aggregate_pytree``
   over ten paper-CNN trees (7 fp32 leaves, N = 136,672, plus an int32 leaf
   whose mean lands on .5) and over four TinyLlama-1.1B trees at full width
@@ -127,7 +136,9 @@ two main paths and checks that each really went through its kernels:
   4 of 32 encoder and 4 of 32 decoder layers) with ``frames`` and of
   llava-next-mistral-7b (2 of 32 layers) with ``image_embeds``. Gates:
   finite losses, every slot active where no failure was drawn. Reported:
-  the seconds of each round and the peak memory.
+  the seconds of each round and the peak memory. Last, one TinyLlama-1.1B
+  round (P = 2) after ``DistributedTrainer.shard_state`` on a 2 x 2 mesh
+  naming the card, bit for bit the same round without a mesh.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -140,7 +151,10 @@ one-element ``fill_``). The masked kernels' rows carry ``pipe_bound_ms``,
 their least time on the integer pipes: the PRG's own instructions a mask
 word, read from the SASS of the library this run built (``fused_sass``),
 and every B1-B5 row names the kernel and grid its launcher chose
-(``form``). A call of B2 and of B5 after the timed graph replays must
+(``form``). The ``roofline`` line holds ``roofline.aggregation_roofline``'s
+one-pass time for B1 and B2 (the H100's HBM rate, ``config.H100``) to
+``bound_ms`` at the CNN, MF and TinyLlama-session stacks: within
+``ROOFLINE_REL_TOL``, the P weights' bytes that the roofline leaves out. A call of B2 and of B5 after the timed graph replays must
 give what the first call gave, bit for bit, with the arrival counts and
 absmax words of the quantised forms' workspace back at 0. ``masked_edges`` holds the
 masked kernels bit for bit at edge shapes; ``quant_edges`` holds B1, B2,
@@ -1669,6 +1683,7 @@ def serve_phase(dev):
         raise AssertionError(f"launcher tokens {launcher['tokens'].shape}")
     return {"cfg": cfg, "server": server, "params": params, "toks": toks,
             "flash_logits": flash_logits, "first_tokens": first,
+            "tokens": gen,
             "prefills": 2, "line": dict(
                 model=cfg.name, n_params=sum(t.numel()
                                              for t in tree_leaves(params)),
@@ -3786,9 +3801,64 @@ def mesh_family_round(dev, arch, over, B, T):
     return line
 
 
+MESH_SHARD = dict(data=2, model=2)      # the shard_state round's mesh
+MESH_SHARD_BATCH = (8, 64)              # rows a participant, tokens a row
+
+
+def mesh_shard_round(dev):
+    """One round of TinyLlama-1.1B at full size, P = 2, on a state placed
+    by ``shard_state`` on a 2 x 2 mesh naming the card, against the same
+    round of a trainer without a mesh on the same state: every leaf and
+    the loss bit for bit."""
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.utils.pytree import tree_flatten, tree_leaves
+
+    cfg = configs.get_config("tinyllama-1.1b")
+    mcfg = MeshConfig(**MESH_SHARD)
+    tcfg = TrainConfig(optimizer="sgd", lr=0.05)
+    plain = DistributedTrainer(cfg, tcfg, mcfg, device=dev)
+    meshed = DistributedTrainer(cfg, tcfg, mcfg,
+                                mesh=make_mesh_from_config(mcfg, dev))
+    P = plain.policy.n_participants
+    state = plain.init_state(0)
+    (sharded, shard_s) = synced_seconds(meshed.shard_state, state)
+    specs = tree_flatten(state)[1].flatten_up_to(meshed.state_spec(state))
+    rng = np.random.default_rng(0)
+    B, T = MESH_SHARD_BATCH
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (P, 1, B, T)),
+                                device=dev) for k in ("tokens", "labels")}
+    weights = torch.ones(P, device=dev)
+    (want, wm), plain_s = synced_seconds(plain.jit_train_step(), state,
+                                         batch, weights)
+    (got, gm), mesh_s = synced_seconds(meshed.jit_train_step(), sharded,
+                                       batch, weights)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want)))
+    if not same or not torch.equal(gm["loss"], wm["loss"]) or not \
+            np.isfinite(float(wm["loss"])):
+        raise AssertionError(f"the round after shard_state differs from "
+                             f"the unsharded round (loss {float(gm['loss'])}"
+                             f" against {float(wm['loss'])})")
+    line = dict(model=cfg.name, mesh=meshed.mesh.shape, participants=P,
+                batch=B, tokens=T, leaves=len(specs),
+                split_leaves=sum(any(a is not None for a in sp)
+                                 for sp in specs),
+                loss=float(wm["loss"]), shard_state_seconds=shard_s,
+                round_seconds_unsharded=plain_s, round_seconds_sharded=mesh_s,
+                bit_for_bit=True)
+    del state, sharded, want, got, plain, meshed
+    release()
+    return line
+
+
 def mesh_train_phase(dev):
     """The launcher's mesh form at TinyLlama's full size (modest, then
-    D-SGD), then a Whisper and a LLaVA round of ``DistributedTrainer``."""
+    D-SGD), then a Whisper and a LLaVA round of ``DistributedTrainer``,
+    then a TinyLlama round after ``shard_state`` against the unsharded
+    one."""
     from repro_torch.launch import train
 
     t0 = time.perf_counter()
@@ -3815,9 +3885,157 @@ def mesh_train_phase(dev):
         release()
     for arch, over, B, T in MESH_FAMILIES:
         out["families"][arch] = mesh_family_round(dev, arch, over, B, T)
+    out["shard_state_round"] = mesh_shard_round(dev)
     out["seconds"] = time.perf_counter() - t0
     emit("mesh_train", **out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# mesh_serve: the serving launcher on a mesh naming the card
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_ARGS = ["--arch", "tinyllama-1.1b", "--full-size", "--devices",
+                   "8", "--model-parallel", "2", "--set", "use_flash=true",
+                   "--seed", "0"]
+
+
+def mesh_serve_phase(dev):
+    """``launch.serve.main`` at TinyLlama-1.1B's full size with flash, on a
+    4 x 2 mesh whose 8 entries name the card, at the serve phase's shape
+    and seed. Counted: the caller sets the counts to 0 just before and
+    reads them just after."""
+    from repro_torch.launch import serve
+
+    return serve.main(MESH_SERVE_ARGS + [
+        "--batch", str(SERVE_B), "--prompt-len", str(SERVE_S),
+        "--new-tokens", str(SERVE_NEW), "--device", str(dev)])
+
+
+def mesh_serve_check(out, served, launches):
+    """The mesh launcher's tokens against the one-device serve phase's, bit
+    for bit; one flash launch a layer and no other kernel; its prefill
+    against the roofline's (``analytic_terms`` on one H100); then ``Server``
+    on the production mesh (256 entries naming the card): the specs of the
+    serve phase's parameters and of a real cache, each of which must divide
+    its tensor, and ``shard_params`` / ``shard_cache`` by them."""
+    from repro_torch.config import MeshConfig, ShapeConfig
+    from repro_torch.core.distributed import Server
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline import analytic_terms
+    from repro_torch.utils.pytree import tree_flatten
+
+    cfg, dev = served["cfg"], served["server"].device
+    want = served["tokens"][:, :SERVE_NEW].cpu().numpy()
+    if out["devices"] != 8 or not np.array_equal(out["tokens"], want):
+        raise AssertionError(f"mesh-served tokens {out['tokens'][0, :12]} "
+                             f"against one device's {want[0, :12]}")
+    if launches["flash_attention"] != cfg.n_layers or sum(
+            launches.values()) != cfg.n_layers:
+        raise AssertionError(f"mesh_serve launches {launches}, want "
+                             f"{cfg.n_layers} of flash_attention only")
+    terms = analytic_terms(cfg, ShapeConfig("serve", SERVE_S, SERVE_B,
+                                            "prefill"),
+                           n_participants=1, chips=1)
+    roof_s = max(terms["compute_s"], terms["memory_s"])
+
+    mesh = make_production_mesh(device=dev)
+    server = Server(cfg, MeshConfig(), mesh=mesh)
+    cache = server.model.init_cache(SERVE_B, SERVE_S + SERVE_NEW + 8, dev)
+    spec_lines = {}
+    for name, tree, specs in zip(("params", "cache"),
+                                 (served["params"], cache),
+                                 server.specs(served["params"], cache)):
+        leaves, treedef = tree_flatten(tree)
+        for leaf, spec in zip(leaves, treedef.flatten_up_to(specs)):
+            shape = tuple(getattr(leaf, "shape", ()))
+            if not server.policy.divides(spec, shape):
+                raise AssertionError(f"{name}: spec {spec} does not divide "
+                                     f"{shape}")
+        spec_lines[name] = {"leaves": len(leaves), "split": sum(
+            any(a is not None for a in sp)
+            for sp in treedef.flatten_up_to(specs))}
+    placed = server.shard_params(served["params"])
+    server.shard_cache(cache)
+    if any(t.device != dev for t in tree_flatten(placed)[0]):
+        raise AssertionError("a placed parameter is off the card")
+    emit("mesh_serve", model=cfg.name, n_layers=cfg.n_layers,
+         dtype=cfg.param_dtype, use_flash=cfg.use_flash, devices=8,
+         mesh={"data": 4, "model": 2}, batch=SERVE_B, prompt_len=SERVE_S,
+         new_tokens=SERVE_NEW, tokens_equal_one_device=True,
+         flash_launches=launches["flash_attention"],
+         prefill_seconds=out["prefill_seconds"],
+         decode_seconds=out["decode_seconds"],
+         decode_tokens_per_s=out["decode_tokens_per_s"],
+         one_device_prefill_seconds=served["line"]["prefill_seconds"],
+         roofline={k: terms[k] for k in ("flops", "model_flops",
+                                         "hbm_bytes", "compute_s",
+                                         "memory_s", "dominant")},
+         roofline_prefill_seconds=roof_s,
+         measured_over_roofline=out["prefill_seconds"] / roof_s,
+         roofline_share=roof_s / out["prefill_seconds"],
+         production_mesh={"shape": mesh.shape, "entries": mesh.size,
+                          **spec_lines})
+    return launches["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+# roofline: the H100 roofline's aggregation bytes against bound_ms
+# ---------------------------------------------------------------------------
+
+# (stack, P, N): the CNN session's, the MF session's, the TinyLlama session's
+ROOFLINE_SHAPES = (("cnn_session", 10, 136_672), ("mf_session", 10, 11_173),
+                   ("lm_session", LM_COHORT, LM_N))
+# bound_ms counts the P fp32 weights that the roofline leaves out: 4 P bytes
+# over (P + 1) N x 4 or more, below 1e-4 at these stacks
+ROOFLINE_REL_TOL = 1e-4
+
+
+def roofline_rows():
+    """``roofline.aggregation_roofline``'s one-pass time (B1; B2 with
+    ``fused_quantize=True``) against ``bound_ms`` at ``ROOFLINE_SHAPES``:
+    both bounded by bytes, the bound above the roofline by less than
+    ``ROOFLINE_REL_TOL``; and this script's card constants those of
+    ``config.H100``. Arithmetic only: it runs without a card."""
+    from repro_torch.config import H100
+    from repro_torch.roofline import aggregation_roofline
+
+    mine = {"hbm_bandwidth": HBM_BYTES_PER_S,
+            "peak_flops_fp32": FP32_FLOPS_PER_S,
+            "peak_flops_bf16": BF16_FLOPS_PER_S,
+            "peak_ops_int32": INT32_OPS_PER_S}
+    if any(getattr(H100, k) != v for k, v in mine.items()):
+        raise AssertionError(f"config.H100 {H100} against {mine}")
+    rows = []
+    for name, P, N in ROOFLINE_SHAPES:
+        row = {"stack": name, "P": P, "N": N}
+        for kind, quant in (("fused.agg", False), ("fused.agg_quant", True)):
+            roof = aggregation_roofline(N, P, fused_quantize=quant)
+            bound, by = bound_ms(kind, P, N, 0, False)
+            ms = roof["onepass_us"] / 1e3
+            gap = (bound - ms) / bound
+            if by != "bytes" or not 0 < gap <= ROOFLINE_REL_TOL:
+                raise AssertionError(f"{name} {kind}: roofline {ms} ms, "
+                                     f"bound {bound} ms ({by})")
+            row[kind] = {"roofline_ms": ms,
+                         "onepass_bytes": roof["onepass_bytes"],
+                         "bound_ms": bound, "rel_gap": gap}
+        rows.append(row)
+    return rows
+
+
+def roofline_phase(dev):
+    """``roofline_rows`` beside the card's own SM count and clock."""
+    from repro_torch.config import H100
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms != H100.n_sms:
+        raise AssertionError(f"{sms} SMs, config.H100 says {H100.n_sms}")
+    emit("roofline", stacks=roofline_rows(), rel_tol=ROOFLINE_REL_TOL,
+         h100={k: getattr(H100, k) for k in (
+             "hbm_bandwidth", "peak_flops_bf16", "peak_flops_fp32",
+             "peak_ops_int32", "n_sms", "sm_clock_hz", "hbm_bytes")},
+         card_sms=sms, card_sm_clock_hz=sm_clock_hz())
 
 
 def main() -> int:
@@ -3866,6 +4084,7 @@ def main() -> int:
     emit("fused_sass", prg=word_pipes, kernels=sass_counts)
 
     rows = kernel_phase(dev, word_pipes)
+    roofline_phase(dev)
     # each main path with the counts set to 0 just before it, read after
     session, models = session_phase(sim_seconds=40.0)
     out, codes, scales = agg_quant_phase(session, models)
@@ -3903,7 +4122,11 @@ def main() -> int:
     masked_agg_quant_check(msession, last, mout)
     del session, models, msession, calls, last, out, codes, scales, mout
     serve_check(served, rows["flash_attention"][0]["ms"])
-    del served
+    reset_counts()
+    mesh_served = mesh_serve_phase(dev)
+    mesh_serve_launches = read_counts()
+    mesh_serve_check(mesh_served, served, mesh_serve_launches)
+    del served, mesh_served
     trees_check(trees, trees_launches)
     del trees
     torch.cuda.empty_cache()
@@ -3966,6 +4189,9 @@ def main() -> int:
                if name in lm["kernels"] else {}),
             **({"at_lm_families_train": {"launches": train_launches[name]}}
                if name in train_launches else {}),
+            **({"at_mesh_serve": {
+                "launches": mesh_serve_launches[name]}}
+               if name == "flash_attention" else {}),
             **({"at_families": {
                 "launches": family_launches[name],
                 "by_model": {r["model"]: {k: r[k] for k in (

@@ -1,17 +1,16 @@
 """Configuration system.
 
-Two families of dataclasses:
+Families of dataclasses:
 
 * :class:`ModelConfig` — architecture hyperparameters (one instance per
   architecture lives in ``repro_torch.configs``).
+* :class:`ShapeConfig` — the benchmark input shapes (train / prefill /
+  decode / long-context decode), in :data:`SHAPES`.
 * :class:`ModestConfig` / :class:`TrainConfig` — the paper's protocol
   parameters (Table 2) and learning hyperparameters.
-* :class:`MeshConfig` — the device mesh; the package runs on one device,
-  and :class:`repro_torch.core.distributed.Server` refuses a larger mesh.
-
-The benchmark input shapes and the device constants of the reference's
-``config.py`` belong to its mesh form and roofline and are not part of this
-package yet.
+* :class:`MeshConfig` — the production device mesh (``launch.mesh``).
+* :class:`HardwareSpec` — one card's peak rates and memory for the
+  roofline (``repro_torch.roofline``): :data:`H100`.
 
 Configs are plain frozen dataclasses so they hash, print, and round-trip
 through the CLI (`--arch`, `--shape`, `--set key=value`).
@@ -132,6 +131,27 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # MoDeST protocol parameters (paper Table 2)
 # ---------------------------------------------------------------------------
 
@@ -186,8 +206,9 @@ class TrainConfig:
 class MeshConfig:
     """The production mesh from the brief: ``data`` x ``model`` devices, or
     ``pods`` of them with ``multi_pod``. It sets the participant count of
-    the mesh form (``sharding.ShardingPolicy``); one card runs a mesh as
-    entries that name it again and again (``launch/train.py --mode mesh``)."""
+    the mesh form and the sizes of the axes that ``sharding.ShardingPolicy``'s
+    specs name; one card runs a mesh as entries that name it again and
+    again (``launch.mesh.make_mesh_from_config``)."""
 
     multi_pod: bool = False
     data: int = 16
@@ -207,3 +228,56 @@ class MeshConfig:
     def n_devices(self):
         n = self.data * self.model
         return n * self.pods if self.multi_pod else n
+
+
+# ---------------------------------------------------------------------------
+# Hardware constants (roofline)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HardwareSpec:
+    """One card's peak rates and memory. The defaults are one NVIDIA H100
+    SXM5 80GB HBM3 at its 700 W limit (NVIDIA's data sheet, dense rates;
+    the INT32 row of the H100 architecture white paper: 64 lanes an SM x
+    132 SMs x 1.98 GHz x 2, a multiply-add counted as two). The first four
+    fields are the reference's."""
+
+    peak_flops_bf16: float = 989e12      # bf16 dense, tensor cores
+    hbm_bandwidth: float = 3.35e12       # bytes/s
+    # bytes/s a card over NVLink 4 (18 links); no run on one card uses it
+    ici_bandwidth: float = 900e9
+    hbm_bytes: float = 80e9              # capacity
+    peak_flops_fp32: float = 67e12       # fp32 outside the tensor cores
+    peak_ops_int32: float = 33.5e12      # int32 outside the tensor cores
+    n_sms: int = 132
+    sm_clock_hz: float = 1.98e9          # boost clock
+
+
+H100 = HardwareSpec()
+
+# The reference's TPU v5e constants, kept only so that parity tests can
+# hold the roofline's terms to the reference's; no port code uses them.
+# The fields the reference does not have are 0 (not stated).
+V5E = HardwareSpec(peak_flops_bf16=197e12, hbm_bandwidth=819e9,
+                   ici_bandwidth=50e9, hbm_bytes=16e9, peak_flops_fp32=0.0,
+                   peak_ops_int32=0.0, n_sms=0, sm_clock_hz=0.0)
+
+
+def parse_overrides(pairs):
+    """Parse ``--set key=value`` CLI overrides into a dict with literal types."""
+    out = {}
+    for p in pairs or ():
+        k, _, v = p.partition("=")
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except ValueError:
+                continue
+        if v in ("true", "True"):
+            v = True
+        if v in ("false", "False"):
+            v = False
+        out[k.strip()] = v
+    return out

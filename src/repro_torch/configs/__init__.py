@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.config import ModelConfig  # noqa: F401
+from repro_torch.config import ModelConfig, SHAPES  # noqa: F401
 
 from repro_torch.configs import (
     arctic_480b,

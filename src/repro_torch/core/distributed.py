@@ -12,20 +12,24 @@ round (sampling mask, ``sf`` failures, stragglers). The step is
 protocol-agnostic: one step serves MoDeST, FedAvg and D-SGD; only the
 mask and the strategy differ. The participant count comes from
 ``sharding.ShardingPolicy``. The P replicas lie stacked on one device
-(every leaf has a leading P axis); a mesh here is a tuple of devices that
-names that one device (``launch/train.py --mode mesh``), and the
-reference's placement of the stack on a mesh of distinct cards
-(``state_spec``, ``shard_state``) is not part of this package. PyTorch
-compiles nothing, so ``jit_train_step`` returns the step that
-``build_train_step`` builds.
+(every leaf has a leading P axis). ``state_spec`` gives every leaf of the
+state its spec on the production mesh, and ``shard_state`` places a state
+by them: it checks that each spec divides its leaf and puts the leaf whole
+on the one device the mesh names. PyTorch compiles nothing, so
+``jit_train_step`` returns the step that ``build_train_step`` builds.
 
-:class:`Server` serves on one device: ``shard_params`` / ``shard_cache``
-place tensors on it, and ``prefill`` / ``decode`` take the place of the
-reference's ``jit_prefill`` / ``jit_decode``. They run without autograd;
-both write into the cache they are given, as the reference's donated
-cache is consumed. The reference's ``shard_seq`` (sequence-sharded cache
-specs), ``specs`` and ``abstract_cache`` describe a mesh and have no
-counterpart here; a mesh of more than one device raises.
+:class:`Server` serves a model: ``specs`` gives the parameters' and the
+cache's specs (``shard_seq``: the cache's sequence axis over ``data``),
+``abstract_cache`` the cache's shapes on the ``meta`` device, and
+``shard_params`` / ``shard_cache`` place tensors as ``shard_state`` does.
+``prefill`` / ``decode`` (which ``jit_prefill`` / ``jit_decode`` return)
+run without autograd and write into the cache they are given, as the
+reference's donated cache is consumed.
+
+A mesh here is a :class:`~repro_torch.sharding.DeviceMesh` (``launch.mesh``)
+or a tuple of devices, of ``mesh_cfg.n_devices`` entries, and it names one
+device, however many times. A mesh of distinct devices raises
+``NotImplementedError`` (ROADMAP A12b); nothing falls back to one device.
 """
 
 from __future__ import annotations
@@ -38,9 +42,9 @@ from repro_torch import optim
 from repro_torch.config import MeshConfig, ModelConfig, TrainConfig
 from repro_torch.core.strategy import Strategy, build_strategy
 from repro_torch.models import Model, build
-from repro_torch.sharding import ShardingPolicy
+from repro_torch.sharding import DeviceMesh, ShardingPolicy, mesh_device
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map
 
 
 class TrainState(NamedTuple):
@@ -48,6 +52,44 @@ class TrainState(NamedTuple):
     opt_state: Any       # (P, ...) per-participant optimizer state
     server_state: Any    # aggregator-side optimizer state (FedYogi etc.)
     round: torch.Tensor
+
+
+def _mesh_and_device(mesh, mesh_cfg: MeshConfig, device):
+    """``(mesh, device)``: the mesh checked against ``mesh_cfg`` and the one
+    device it names (None: ``device``, else the card); a mesh of distinct
+    devices raises ``NotImplementedError``."""
+    if mesh is None:
+        return None, resolve_device(device)
+    if not isinstance(mesh, DeviceMesh):
+        mesh = tuple(torch.device(d) for d in mesh)
+    size = mesh.size if isinstance(mesh, DeviceMesh) else len(mesh)
+    if size != mesh_cfg.n_devices:
+        raise ValueError(f"a mesh of {size} entries for a MeshConfig of "
+                         f"{mesh_cfg.n_devices} devices")
+    if isinstance(mesh, DeviceMesh) and (
+            mesh.dims, mesh.axis_names) != (mesh_cfg.shape, mesh_cfg.axes):
+        raise ValueError(f"a mesh of {mesh.shape} for a MeshConfig of "
+                         f"{dict(zip(mesh_cfg.axes, mesh_cfg.shape))}")
+    home = resolve_device(mesh_device(mesh))
+    dev = home if device is None else resolve_device(device)
+    if dev != home:
+        raise ValueError(f"the mesh names {home}, the caller {dev}")
+    return mesh, dev
+
+
+def _place(tree, specs, policy: ShardingPolicy, device):
+    """Every tensor of ``tree`` whole on ``device``, once its spec (the
+    matching leaf of ``specs``) is checked to divide it."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for leaf, spec in zip(leaves, treedef.flatten_up_to(specs)):
+        if isinstance(leaf, torch.Tensor):
+            if not policy.divides(spec, tuple(leaf.shape)):
+                raise ValueError(f"spec {spec} does not divide a leaf of "
+                                 f"shape {tuple(leaf.shape)}")
+            leaf = leaf.to(device)
+        out.append(leaf)
+    return treedef.unflatten(out)
 
 
 def _stack_copies(tree, P):
@@ -59,9 +101,8 @@ def _stack_copies(tree, P):
 class DistributedTrainer:
     """The mesh form's round step over P participant replicas.
 
-    ``mesh``: None, or a tuple of devices that all name ``device`` (None:
-    the mesh's device, else the card); its length is
-    ``mesh_cfg.n_devices``.
+    ``mesh``: None, or a mesh of ``mesh_cfg.n_devices`` entries that all
+    name ``device`` (None: the mesh's device, else the card).
     """
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig,
@@ -72,23 +113,7 @@ class DistributedTrainer:
         self.policy = ShardingPolicy(cfg, mesh_cfg)
         self.strategy: Strategy = build_strategy(strategy, tcfg)
         self.opt = optim.build(tcfg)
-        if mesh is not None:
-            mesh = tuple(torch.device(d) for d in mesh)
-            if len(mesh) != mesh_cfg.n_devices:
-                raise ValueError(f"a mesh of {len(mesh)} entries for a "
-                                 f"MeshConfig of {mesh_cfg.n_devices} "
-                                 "devices")
-            if len(set(mesh)) > 1:
-                raise NotImplementedError(
-                    "a mesh of distinct devices: the participants lie "
-                    "stacked on one device (ROADMAP A12)")
-            if device is None:
-                device = mesh[0]
-        self.mesh = mesh
-        self.device = resolve_device(device)
-        if mesh is not None and mesh[0] != self.device:
-            raise ValueError(f"the mesh names {mesh[0]}, the trainer "
-                             f"{self.device}")
+        self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
 
     # ------------------------------------------------------------------ state
 
@@ -107,7 +132,7 @@ class DistributedTrainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         """P copies of one model drawn from ``seed`` on the trainer's
-        device."""
+        device (placed by :meth:`shard_state` where there is a mesh)."""
         P = self.policy.n_participants
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = self.model.init(gen, self.device)
@@ -115,9 +140,42 @@ class DistributedTrainer:
         opt_P = _stack_copies(self.opt.init(params), P)
         del params
         server = self.strategy.init_state(params_P)
-        return TrainState(params_P, opt_P, server,
-                          torch.zeros((), dtype=torch.int32,
-                                      device=self.device))
+        state = TrainState(params_P, opt_P, server,
+                           torch.zeros((), dtype=torch.int32,
+                                       device=self.device))
+        if self.mesh is not None:
+            state = self.shard_state(state)
+        return state
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """Place a state by :meth:`state_spec`: every spec checked to
+        divide its leaf, every leaf whole on the trainer's device."""
+        return _place(state, self.state_spec(state), self.policy,
+                      self.device)
+
+    # ------------------------------------------------------------- shardings
+
+    def state_spec(self, state: TrainState):
+        """The state's specs: parameter and optimizer leaves carry (P, ...)
+        (the parameter rules of one participant, P's axis prepended);
+        the server state takes the parameter rules, the round none."""
+        part = self.policy.part_axis
+
+        def stacked(tree):
+            one = tree_map(lambda x: torch.empty(
+                tuple(x.shape[1:]), dtype=x.dtype, device="meta"), tree)
+            specs = self.policy.param_spec(one, with_participants=False)
+            treedef = tree_flatten(one)[1]
+            return treedef.unflatten(
+                [(part,) + s for s in treedef.flatten_up_to(specs)])
+
+        if tree_leaves(state.server_state):
+            server_spec = self.policy.param_spec(state.server_state,
+                                                 with_participants=False)
+        else:
+            server_spec = tree_map(lambda _: (), state.server_state)
+        return TrainState(stacked(state.params), stacked(state.opt_state),
+                          server_spec, ())
 
     # ------------------------------------------------------------- train step
 
@@ -192,29 +250,53 @@ class DistributedTrainer:
 
 
 class Server:
-    """Batched serving: prefill + single-token decode."""
+    """Batched serving: prefill + single-token decode.
+
+    ``mesh_cfg`` (None: one device) sets the specs; ``mesh`` (None: serve
+    on ``device``, else the card) names the device, as for
+    :class:`DistributedTrainer`."""
 
     def __init__(self, cfg: ModelConfig, mesh_cfg: Optional[MeshConfig] = None,
-                 *, device=None):
-        if mesh_cfg is not None and mesh_cfg.n_devices > 1:
-            raise NotImplementedError(
-                f"a mesh of {mesh_cfg.n_devices} devices: the package serves "
-                "on one device until the mesh form lands (ROADMAP A12)")
+                 *, mesh=None, shard_seq: bool = False, device=None):
+        if mesh_cfg is None:
+            mesh_cfg = MeshConfig(data=1, model=1)
         self.cfg = cfg
         self.model: Model = build(cfg)
-        self.device = resolve_device(device)
+        self.policy = ShardingPolicy(cfg, mesh_cfg)
+        self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
+        self.shard_seq = shard_seq
 
-    def _place(self, tree):
-        return tree_map(
-            lambda x: x.to(self.device) if isinstance(x, torch.Tensor) else x,
-            tree)
+    def abstract_cache(self, batch_size: int, max_len: int):
+        """The cache's shapes and dtypes, on the ``meta`` device."""
+        return self.model.init_cache(batch_size, max_len, "meta")
+
+    def specs(self, params_t, cache_t):
+        pspec = self.policy.param_spec(params_t, with_participants=False)
+        cspec = self.policy.cache_spec(cache_t, shard_seq=self.shard_seq)
+        return pspec, cspec
 
     def shard_params(self, params):
-        """Place host-initialized params on the server's device."""
-        return self._place(params)
+        """Place host-initialized params by their specs on the server's
+        device."""
+        return _place(params, self.policy.param_spec(
+            params, with_participants=False), self.policy, self.device)
 
     def shard_cache(self, cache):
-        return self._place(cache)
+        return _place(cache, self.policy.cache_spec(
+            cache, shard_seq=self.shard_seq), self.policy, self.device)
+
+    def jit_prefill(self, params_t, batch_t, cache_t):
+        """The prefill callable, :meth:`prefill`: PyTorch compiles nothing,
+        and the templates, which set a mesh's placements in the reference,
+        are not read."""
+        del params_t, batch_t, cache_t
+        return self.prefill
+
+    def jit_decode(self, params_t, cache_t, batch_size: Optional[int] = None):
+        """The decode callable, :meth:`decode` (templates as in
+        :meth:`jit_prefill`)."""
+        del params_t, cache_t, batch_size
+        return self.decode
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):

@@ -1,13 +1,48 @@
-"""The sharded FlatModel engine's device mesh.
+"""Device meshes: the production mesh and the sharded FlatModel engine's.
 
-A function, not a module-level constant, so that importing this module
-touches no device state. The reference's production-mesh helpers (pods,
-``MeshConfig``) are not part of this package.
+Functions, not module-level constants, so that importing this module
+touches no device state.
+
+The production mesh (``data`` x ``model``, 16 x 16 a pod; ``pod`` x
+``data`` x ``model`` with ``multi_pod``) is a
+:class:`~repro_torch.sharding.DeviceMesh` whose entries all name one
+device: on one card every entry names the card (256 entries, 512 with
+``multi_pod``), and every tensor lies whole on it, as
+``launch/train.py --mode mesh`` stacks its participants there. A mesh of
+distinct devices is not built here (ROADMAP A12b).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.config import MeshConfig
+from repro_torch.sharding import DeviceMesh
+from repro_torch.utils.device import resolve_device
+
+
+def make_mesh(shape, axes, device=None) -> DeviceMesh:
+    """A mesh of ``shape`` over the named ``axes`` whose every entry names
+    ``device`` (None: the card)."""
+    return DeviceMesh((resolve_device(device),) * math.prod(shape),
+                      tuple(axes), tuple(shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16×16 = 256 entries a pod; 2 pods = 512 entries multi-pod."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def mesh_config(*, multi_pod: bool = False) -> MeshConfig:
+    return MeshConfig(multi_pod=multi_pod)
+
+
+def make_mesh_from_config(mesh_cfg: MeshConfig, device=None):
+    return make_mesh(mesh_cfg.shape, mesh_cfg.axes, device)
 
 
 def make_engine_mesh(device=None):

@@ -1,7 +1,8 @@
 """Serving launcher: batched prefill + token-by-token greedy decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
-        --batch 4 --prompt-len 32 --new-tokens 16 [--full-size] [--device cpu]
+        --batch 4 --prompt-len 32 --new-tokens 16 [--devices 8] \\
+        [--full-size] [--set use_flash=true] [--device cpu]
 
 Runs the reduced config by default and the published one with
 ``--full-size``, on the card unless ``--device`` names another. Weights come
@@ -10,9 +11,16 @@ from ``numpy.random.default_rng(--seed)``, which also draws the stubbed
 frontends' inputs, scaled by 0.1 and cast to ``param_dtype``: ``frames``
 (B, n_frames, d_model) for the audio family, ``image_embeds``
 (B, image_tokens * anyres_tiles, d_model) for the vlm family, whose image
-positions are added to the cache's length. ``--devices`` and
-``--model-parallel`` describe a mesh as in the reference; a mesh of more
-than one device raises ``NotImplementedError`` until ROADMAP A12.
+positions are added to the cache's length. ``--set key=value`` (repeated)
+overrides fields of the model's config (``config.parse_overrides``), such
+as ``use_flash=true`` for the flash-attention kernel in prefill.
+
+With ``--devices N`` the server runs on a ``data`` x ``model`` mesh of N
+entries (``N / --model-parallel`` x ``--model-parallel``) that all name the
+serving device: the parameters and the cache are placed by their specs on
+that mesh (each spec checked to divide its tensor) and lie whole on the
+device, so the tokens are those of one-device serving. A model-parallel
+degree that does not divide N stops the launcher.
 """
 
 from __future__ import annotations
@@ -39,17 +47,22 @@ def main(argv=None):
     ap.add_argument("--model-parallel", type=int, default=2)
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="override a field of the model's config")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
     from repro_torch import configs
-    from repro_torch.config import MeshConfig
+    from repro_torch.config import MeshConfig, parse_overrides
     from repro_torch.core.distributed import Server
+    from repro_torch.launch.mesh import make_mesh_from_config
 
     cfg = configs.get_config(args.arch)
     if not args.full_size:
         cfg = configs.reduced(cfg)
+    cfg = cfg.with_(**parse_overrides(args.set))
 
     if args.devices:
         mp = args.model_parallel
@@ -62,7 +75,8 @@ def main(argv=None):
     else:
         mesh_cfg = MeshConfig(data=1, model=1)
 
-    server = Server(cfg, mesh_cfg, device=args.device)
+    mesh = make_mesh_from_config(mesh_cfg, args.device)
+    server = Server(cfg, mesh_cfg, mesh=mesh)
     dev = server.device
     n_img = cfg.image_tokens * cfg.anyres_tiles if cfg.family == "vlm" else 0
     max_len = args.prompt_len + args.new_tokens + 8 + n_img
@@ -87,9 +101,11 @@ def main(argv=None):
     if cfg.family == "vlm":
         batch["image_embeds"] = embeds(n_img)
 
+    prefill = server.jit_prefill(params, batch, cache)
+    decode = server.jit_decode(params, cache)
     _sync(dev)
     t0 = time.perf_counter()  # noqa: DL002(prefill/decode throughput timing display)
-    logits, cache = server.prefill(params, batch, cache)
+    logits, cache = prefill(params, batch, cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0  # noqa: DL002(prefill/decode throughput timing display)
 
@@ -97,7 +113,7 @@ def main(argv=None):
     generated = [tok]
     t0 = time.perf_counter()  # noqa: DL002(prefill/decode throughput timing display)
     for _ in range(args.new_tokens - 1):
-        logits, cache = server.decode(params, tok, cache)
+        logits, cache = decode(params, tok, cache)
         tok = torch.argmax(logits[:, -1:], dim=-1)
         generated.append(tok)
     _sync(dev)
@@ -105,11 +121,13 @@ def main(argv=None):
 
     toks = torch.cat(generated, dim=1).cpu().numpy()
     tps = args.batch * (args.new_tokens - 1) / max(t_decode, 1e-9)
-    print(f"[serve] arch={cfg.name} device={dev} batch={args.batch} "
+    print(f"[serve] arch={cfg.name} device={dev} devices={mesh.size} "
+          f"batch={args.batch} "
           f"prefill({args.prompt_len} toks)={t_prefill:.3f}s "
           f"decode={t_decode:.3f}s ({tps:.1f} tok/s)")
     print(f"[serve] sample output ids: {toks[0, :12].tolist()}")
-    return {"arch": cfg.name, "tokens": toks, "prefill_seconds": t_prefill,
+    return {"arch": cfg.name, "devices": mesh.size, "tokens": toks,
+            "prefill_seconds": t_prefill,
             "decode_seconds": t_decode, "decode_tokens_per_s": tps}
 
 

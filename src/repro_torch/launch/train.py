@@ -24,9 +24,11 @@ as the reference does (its batches carry no ``frames`` /
 ``--mode mesh`` is the datacenter form: the round step of
 ``core.distributed.DistributedTrainer`` over P participant replicas, with
 the MoDeST protocol (hash sampling and failure masks) running host-side.
-``--devices N`` makes a mesh of N entries, each naming ``--device`` (the
+``--devices N`` makes a ``data`` x ``model`` mesh of N entries
+(``launch.mesh.make_mesh_from_config``), each naming ``--device`` (the
 card by default): the P = N / ``--model-parallel`` participants (for a
-``data_rank`` arch) lie stacked on that one device. The reduced config
+``data_rank`` arch) lie stacked on that one device, the state placed by
+its specs (``DistributedTrainer.shard_state``). The reduced config
 unless ``--full-size``; SGD at ``--lr``; the batches carry tokens and
 labels.
 
@@ -126,6 +128,7 @@ def run_mesh(args):
     from repro_torch.core.distributed import DistributedTrainer
     from repro_torch.core.hashing import select_sample
     from repro_torch.data import make_lm_task
+    from repro_torch.launch.mesh import make_mesh_from_config
     from repro_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -139,7 +142,7 @@ def run_mesh(args):
             "that divides the device count")
     data_par = n_dev // model_par
     mesh_cfg = MeshConfig(multi_pod=False, data=data_par, model=model_par)
-    mesh = (device,) * n_dev
+    mesh = make_mesh_from_config(mesh_cfg, device)
 
     cfg = configs.get_config(args.arch)
     if not args.full_size:

@@ -13,6 +13,7 @@ directly implementable on MoDeST aggregators (§5).
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -139,6 +140,20 @@ def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
         return opt.update(grads, state, params)
 
     return Optimizer(opt.init, update)
+
+
+def cosine_schedule(base_lr: float, total_steps: int, warmup: int = 0):
+    """``lr_at(step)``: a linear warm-up over ``warmup`` steps, then a
+    cosine decay from ``base_lr`` to 0 at ``total_steps`` (fp32)."""
+    def lr_at(step):
+        step = torch.as_tensor(step, dtype=torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total_steps - warmup, 1),
+                           0.0, 1.0)
+        cos = base_lr * 0.5 * (1 + torch.cos(math.pi * frac))
+        return torch.where(step < warmup, warm, cos)
+
+    return lr_at
 
 
 def build(cfg: TrainConfig, server: bool = False) -> Optimizer:

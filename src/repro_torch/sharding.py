@@ -1,30 +1,96 @@
-"""Flat-model shardings: where the FlatModel engine's flat layouts lie on a
-device mesh, and how the aggregation kernels split them.
+"""Sharding: where tensors lie on a device mesh.
 
-A mesh here is a hashable tuple of ``torch.device``s along one axis,
-``model``. It may name one device more than once: k chunks of one card
-run the same code as k cards (``launch.mesh.make_engine_mesh`` builds the
-mesh of all local cards). Every flat buffer lives whole on the mesh's
-first device; a layout's ``spec`` says, like a ``PartitionSpec``, which
-dimension the kernels split over the mesh: the parameter axis N of the
-``(N,)`` / ``(S, N)`` / ``(P, N)`` buffers, shard r running on ``mesh[r]``
-(``kernels.fused.*_sharded``).
+Two kinds of mesh appear here.
 
-Of the reference's production-mesh policy, :class:`ShardingPolicy` holds
-the participant rules, which set the mesh form's participant count
-(``core.distributed.DistributedTrainer``). Its rule tables and specs
-(``param_spec``, ``cache_spec``, ``batch_spec``, ``input_specs``) place
-tensors on a mesh of distinct devices and are not part of this package.
+* The flat-model engine's mesh is a hashable tuple of ``torch.device``s
+  along one axis, ``model``. It may name one device more than once: k
+  chunks of one card run the same code as k cards
+  (``launch.mesh.make_engine_mesh`` builds the mesh of all local cards).
+  Every flat buffer lives whole on the mesh's first device; a layout's
+  ``spec`` says, like a ``PartitionSpec``, which dimension the kernels
+  split over the mesh: the parameter axis N of the ``(N,)`` / ``(S, N)`` /
+  ``(P, N)`` buffers, shard r running on ``mesh[r]``
+  (``kernels.fused.*_sharded``).
+* The production mesh (:class:`DeviceMesh`, ``launch.mesh``) has named
+  axes, ``data`` x ``model`` or ``pod`` x ``data`` x ``model``.
+  :class:`ShardingPolicy` maps every parameter, optimizer-state leaf,
+  input and cache leaf of a model to a spec on it: a tuple with one entry a
+  dimension, each an axis name, a tuple of them, or None (not split), as
+  ``tuple()`` of the reference's ``PartitionSpec``. The train path's
+  leaves carry a leading participant axis P; the serve path's do not.
+
+Axes: ``data`` carries participant replicas (MoDeST sample slots) for
+archs up to ~30 B, or FSDP shards for the pod-granularity giants
+(llama3-405b, arctic-480b); ``model`` tensor/expert parallelism inside one
+participant; ``pod`` (multi-pod) participants at pod granularity, or more
+participant slots at data_rank granularity.
+
+A mesh here may name one device many times, and then every tensor lies
+whole on that device (``core.distributed``): the specs say where each
+piece would go on distinct devices, and placing by them is checked (each
+spec divides its tensor). A mesh of distinct devices is not supported
+(:func:`mesh_device`).
 """
 
 from __future__ import annotations
 
+import math
+import re
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.config import MeshConfig, ModelConfig
+from repro_torch.config import MeshConfig, ModelConfig, ShapeConfig
+from repro_torch.utils.pytree import tree_flatten, tree_flatten_with_path
+
+
+@dataclass(frozen=True)
+class DeviceMesh:
+    """A device mesh with named axes, the counterpart of a jax ``Mesh``:
+    ``devices`` in row-major order over ``dims``, one size an axis of
+    ``axis_names``. ``shape[axis]`` reads as a jax ``Mesh``'s does.
+    Hashable (frozen, hashable fields)."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...]
+    dims: Tuple[int, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "devices",
+                           tuple(torch.device(d) for d in self.devices))
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+        object.__setattr__(self, "dims", tuple(int(n) for n in self.dims))
+        if len(self.axis_names) != len(self.dims):
+            raise ValueError(f"axes {self.axis_names} for dims {self.dims}")
+        if len(self.devices) != math.prod(self.dims):
+            raise ValueError(f"{len(self.devices)} devices for a mesh of "
+                             f"dims {self.dims}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The one device that ``mesh`` (a :class:`DeviceMesh` or a sequence of
+    devices) names. A mesh of distinct devices raises
+    ``NotImplementedError``: tensors would have to be split across cards
+    (ROADMAP A12b)."""
+    devices = mesh.devices if isinstance(mesh, DeviceMesh) else tuple(
+        torch.device(d) for d in mesh)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    if len(set(devices)) > 1:
+        raise NotImplementedError(
+            f"a mesh of distinct devices {sorted(map(str, set(devices)))}: "
+            "a mesh here names one device, on which every tensor lies "
+            "whole (ROADMAP A12b)")
+    return devices[0]
 
 
 @dataclass(frozen=True)
@@ -88,7 +154,8 @@ def flat_shardings(mesh, *, model_axis: str = "model",
 
 
 class ShardingPolicy:
-    """The participant rules of the production mesh.
+    """Maps every parameter, input and cache leaf to a spec on the
+    production mesh.
 
     ``cfg.participant_granularity`` says what one MoDeST participant slot
     holds: ``"data_rank"`` a row of ``model`` devices (P = ``data``, times
@@ -129,6 +196,81 @@ class ShardingPolicy:
 
     _replicated = False
 
+    # ------------------------------------------------------------------ rules
+
+    def _base_rules(self):
+        """(regex on '/'-joined path, spec WITHOUT layer/participant axes).
+
+        ``F`` marks the FSDP axis (None unless pod granularity); ``M`` the
+        tensor/expert-parallel axis.
+        """
+        F, M = self.fsdp_axis, "model"
+        if self.cfg.replicate_attention:
+            # replicate ALL attention params (self- and cross-attention,
+            # wq/wk/wv and wo), so attention needs no TP all-reduce
+            attn = [(r"attn/w[qkvo]$", None)]      # re.search: xattn too
+        else:
+            attn = [
+                (r"attn/w[qkv]$", (F, M)),
+                (r"attn/wo$", (M, F)),
+                (r"xattn/w[qkv]$", (F, M)),
+                (r"xattn/wo$", (M, F)),
+            ]
+        return [
+            # embeddings / heads
+            (r"embed$", (M, F)),
+            (r"enc_pos$", (None, F)),
+            (r"lm_head$", (F, M)),
+            # MoE: experts over the model axis (expert parallelism);
+            # arctic's dense residual shards like a normal MLP.
+            (r"moe/router$", (F, None)),
+            (r"moe/dense/w[gu]$", (F, M)),
+            (r"moe/dense/wd$", (M, F)),
+            (r"moe/w[gud]$", (M, F, None)),
+            # attention (TP by default, replicated under
+            # cfg.replicate_attention)
+            *attn,
+            # dense MLPs (swiglu / gelu): first matmuls shard d_ff
+            (r"mlp/w[gui]$", (F, M)),
+            (r"mlp/w[do]$", (M, F)),
+            # rwkv time-mix / channel-mix
+            (r"tm/w[rkvg]$", (F, M)),
+            (r"tm/wo$", (M, F)),
+            (r"tm/decay_a$", (F, None)),
+            (r"tm/decay_b$", (None, M)),
+            (r"tm/w0$", (M,)),
+            (r"tm/u$", (M, None)),
+            (r"tm/mu$", (None, F)),
+            (r"cm/wk$", (F, M)),
+            (r"cm/wv$", (M, F)),
+            (r"cm/wr$", (F, M)),
+            (r"cm/mu$", (None, F)),
+            # hymba mamba branch (d_inner sharded over model)
+            (r"mamba/in_proj$", (F, M)),
+            (r"mamba/out_proj$", (M, F)),
+            (r"mamba/conv$", (None, M)),
+            (r"mamba/conv_b$", (M,)),
+            (r"mamba/dt_proj$", (M, None)),
+            (r"mamba/dt_up$", (None, M)),
+            (r"mamba/dt_bias$", (M,)),
+            (r"mamba/bc_proj$", (M, None)),
+            (r"mamba/a_log$", (M, None)),
+            (r"mamba/d_skip$", (M,)),
+            # cnn / mf (protocol-form models: replicate)
+            (r"(users|items|b_user|b_item)$", None),
+        ]
+
+    def _match(self, path: str) -> Tuple:
+        if self._replicated:
+            return (None,) * 8
+        for pat, spec in self._base_rules():
+            if re.search(pat, path):
+                if spec is None:
+                    break
+                return spec
+        # norms / scalars / biases: replicated (trimmed to rank by caller)
+        return (None,) * 8
+
     def _axes_size(self, axis) -> int:
         if axis is None:
             return 1
@@ -139,6 +281,171 @@ class ShardingPolicy:
             return n
         return self._axis_size.get(axis, 1)
 
+    def _fix_divisibility(self, spec, shape):
+        """Drop axis assignments whose size does not divide the dim (odd
+        vocabs like 51866/32001, kv_heads < model ranks): replicate that
+        dim instead."""
+        out = []
+        for dim, axis in zip(shape, spec):
+            out.append(axis if (axis is None or dim % self._axes_size(axis) == 0)
+                       else None)
+        return tuple(out)
 
-__all__ = ["FlatPlacement", "FlatShardings", "ShardingPolicy",
-           "flat_shardings"]
+    def divides(self, spec, shape) -> bool:
+        """Whether every axis of ``spec`` divides its dimension of
+        ``shape`` (one entry a dimension)."""
+        return len(spec) == len(shape) and all(
+            dim % self._axes_size(axis) == 0 for dim, axis in zip(shape, spec))
+
+    # ------------------------------------------------------------ public API
+
+    def param_spec(self, params, *, with_participants: bool) -> object:
+        """Tree of specs matching ``params`` (a tree of tensors, real or on
+        the ``meta`` device, or anything with a ``shape``).
+
+        ``with_participants`` expects a leading P axis on every leaf and a
+        layer-stack axis on leaves under ``layers``/``encoder``/``decoder``.
+        """
+        flat, treedef = tree_flatten_with_path(params)
+        specs = []
+        for path_elems, leaf in flat:
+            path = "/".join(_k(p) for p in path_elems)
+            base = list(self._match(path))
+            stacked = bool(re.search(r"(layers|encoder|decoder)/", path + "/"))
+            shape = _shape(leaf)
+            ndim = len(shape)
+            lead = (1 if with_participants else 0) + (1 if stacked else 0)
+            base = base[: max(ndim - lead, 0)]
+            while len(base) < ndim - lead:
+                base.append(None)
+            spec = tuple(base)
+            if stacked:
+                spec = (None,) + spec
+            if with_participants:
+                spec = (self.part_axis,) + spec
+            specs.append(self._fix_divisibility(spec, shape))
+        return treedef.unflatten(specs)
+
+    def batch_spec(self, batch, *, with_participants: bool,
+                   shard_seq: bool = False) -> object:
+        """Inputs: train (P, E, B, ...) — E is the local-step/microbatch
+        axis; serve (B, ...)."""
+        def leaf_spec(leaf):
+            shape = _shape(leaf)
+            nd = len(shape)
+            if with_participants:
+                spec = ([self.part_axis, None, self.batch_axis]
+                        + [None] * (nd - 3))
+            else:
+                spec = [None if shard_seq else "data"] + [None] * (nd - 1)
+            return self._fix_divisibility(tuple(spec), shape)
+
+        leaves, treedef = tree_flatten(batch)
+        return treedef.unflatten([leaf_spec(x) for x in leaves])
+
+    def cache_spec(self, cache, *, shard_seq: bool) -> object:
+        """KV caches (L,B,T,KV,hd) + recurrent states.
+
+        ``shard_seq`` (long_500k, B=1): shard T over ``data`` —
+        flash-decoding-style partial softmax; otherwise shard B.
+        """
+        def leaf_spec(path_elems, leaf):
+            name = _k(path_elems[-1]) if path_elems else ""
+            shape = _shape(leaf)
+            nd = len(shape)
+            if nd == 0:
+                return ()
+            if name in ("k", "v", "xk", "xv"):           # (L,B,T,KV,hd)
+                kv_ok = shape[3] % self._axis_size["model"] == 0
+                if shard_seq:
+                    spec = (None, None, "data", "model" if kv_ok else None, None)
+                elif kv_ok:
+                    spec = (None, "data", None, "model", None)
+                else:
+                    # kv heads don't divide the model axis: shard the
+                    # sequence dim over 'model' instead
+                    spec = (None, "data", "model", None, None)
+            elif name == "S":                             # rwkv (L,B,H,hd,hd)
+                spec = (None, None if shard_seq else "data", "model", None, None)
+            elif name == "ssm":                           # hymba (L,B,di,N)
+                spec = (None, None if shard_seq else "data", "model", None)
+            elif name in ("conv", "last_tm", "last_cm"):  # (L,B,*,d)/(L,B,d)
+                spec = ((None, None if shard_seq else "data", None, "model")
+                        if nd == 4 else
+                        (None, None if shard_seq else "data", "model"))
+            else:
+                spec = tuple([None] * nd)
+            return self._fix_divisibility(spec, shape)
+
+        flat, treedef = tree_flatten_with_path(cache)
+        return treedef.unflatten([leaf_spec(pe, leaf) for pe, leaf in flat])
+
+    def weights_spec(self) -> Tuple:
+        return (self.part_axis,)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    """A leaf's shape; a host scalar (a cache's ``pos``) has none."""
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _k(p) -> str:
+    if hasattr(p, "key"):
+        return str(p.key)
+    if hasattr(p, "idx"):
+        return str(p.idx)
+    if hasattr(p, "name"):
+        return str(p.name)
+    return str(p)
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, policy: ShardingPolicy):
+    """Stand-ins on the ``meta`` device for every model input of this
+    (arch, shape): shapes and dtypes, no data.
+
+    train: per-participant token batches (P, E=1, B/P, S)
+    prefill: (B, S) prompt (+ modality stubs)
+    decode: (B, 1) next token (the cache holding ``seq_len`` tokens is the
+    server's ``abstract_cache``)
+    """
+    i32 = torch.int32
+    bf = getattr(torch, cfg.param_dtype)
+
+    def sd(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        Pn = policy.n_participants
+        B = max(shape.global_batch // max(Pn, 1), 1)
+        batch = {
+            "tokens": sd((Pn, 1, B, shape.seq_len), i32),
+            "labels": sd((Pn, 1, B, shape.seq_len), i32),
+        }
+        if cfg.family == "audio":
+            batch["frames"] = sd((Pn, 1, B, cfg.n_frames, cfg.d_model), bf)
+        if cfg.family == "vlm":
+            n_img = cfg.image_tokens * cfg.anyres_tiles
+            batch["image_embeds"] = sd((Pn, 1, B, n_img, cfg.d_model), bf)
+        return batch
+
+    B = shape.global_batch
+    if shape.kind == "prefill":
+        batch = {"tokens": sd((B, shape.seq_len), i32)}
+        if cfg.family == "audio":
+            batch["frames"] = sd((B, cfg.n_frames, cfg.d_model), bf)
+        if cfg.family == "vlm":
+            n_img = cfg.image_tokens * cfg.anyres_tiles
+            batch["image_embeds"] = sd((B, n_img, cfg.d_model), bf)
+        return batch
+
+    # decode: one token against a seq_len cache
+    return {"token": sd((B, 1), i32)}
+
+
+__all__ = ["DeviceMesh", "FlatPlacement", "FlatShardings", "ShardingPolicy",
+           "flat_shardings", "input_specs", "mesh_device"]

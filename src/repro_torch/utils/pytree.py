@@ -16,6 +16,7 @@ what checkpoint files are keyed by.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Hashable, List, Tuple
 
@@ -184,6 +185,23 @@ def tree_zeros_like(tree):
     return tree_map(torch.zeros_like, tree)
 
 
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.subtract, a, b)
+
+
+def tree_scale(tree, alpha):
+    return tree_map(lambda x: x * alpha, tree)
+
+
+def tree_axpy(alpha, x, y):
+    """alpha * x + y, leaf-wise."""
+    return tree_map(lambda xi, yi: alpha * xi + yi, x, y)
+
+
 def check_aggregation_weights(weights) -> None:
     """Shared zero-weight guard for every aggregation path (see
     :func:`tree_weighted_mean` for the contract). Reads the weights on the
@@ -229,6 +247,14 @@ def tree_global_norm(tree):
     leaves = tree_leaves(tree)
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in leaves))
+
+
+def tree_cast(tree, dtype):
+    return tree_map(lambda x: x.to(dtype), tree)
+
+
+def tree_num_params(tree) -> int:
+    return int(sum(math.prod(x.shape) for x in tree_leaves(tree)))
 
 
 def _itemsize(x) -> int:

@@ -25,8 +25,10 @@ from repro_torch.core.distributed import Server
 from repro_torch.engine.flat import params_from_numpy
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_mesh_from_config, make_production_mesh
 from repro_torch.models import build
 from repro_torch.models import transformer as T
+from repro_torch.sharding import DeviceMesh
 from repro_torch.utils.pytree import tree_flatten
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -95,11 +97,41 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 def test_meshes_and_other_families_raise():
-    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        Server(cfg, MeshConfig(data=2, model=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        serve.main(["--devices", "4", "--device", "cpu"])
+    """A mesh that names one device many times serves as that device does:
+    ``Server`` on a 2 x 2 mesh naming the CPU and the launcher with
+    ``--devices 4`` give the one-device tokens bit for bit (flash on, set
+    through ``--set``). A mesh of distinct devices raises, naming A12b."""
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b")).with_(
+        use_flash=True)
+    B, S, n, seed = 2, 128, 4, 3
+    as_tok = lambda a: torch.as_tensor(a, dtype=torch.long)   # noqa: E731
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S))
+    one = Server(cfg, device="cpu")
+    params = one.model.init(torch.Generator().manual_seed(seed), "cpu")
+    want = _greedy(one.prefill, one.decode, params, toks,
+                   one.model.init_cache(B, S + n + 8, "cpu"), n, as_tok)
+
+    mesh = make_production_mesh(device="cpu")
+    assert mesh.size == 256 and set(mesh.devices) == {torch.device("cpu")}
+    mesh = make_mesh_from_config(MeshConfig(data=2, model=2), "cpu")
+    server = Server(cfg, MeshConfig(data=2, model=2), mesh=mesh)
+    assert server.device == torch.device("cpu") and server.mesh == mesh
+    p = server.shard_params(params)
+    cache = server.shard_cache(server.model.init_cache(B, S + n + 8, "cpu"))
+    got = _greedy(server.jit_prefill(p, {"tokens": toks}, cache),
+                  server.jit_decode(p, cache), p, toks, cache, n, as_tok)
+    np.testing.assert_array_equal(got, want)
+    out = serve.main(["--devices", "4", "--device", "cpu", "--batch",
+                      str(B), "--prompt-len", str(S), "--new-tokens", str(n),
+                      "--seed", str(seed), "--set", "use_flash=true"])
+    assert out["devices"] == 4
+    np.testing.assert_array_equal(out["tokens"], want)
+
+    distinct = DeviceMesh(("cpu", "meta"), ("data", "model"), (2, 1))
+    with pytest.raises(NotImplementedError, match="A12b"):
+        Server(cfg, MeshConfig(data=2, model=1), mesh=distinct)
+    with pytest.raises(ValueError, match="MeshConfig"):
+        Server(cfg, MeshConfig(data=2, model=1), mesh=mesh)
     with pytest.raises(SystemExit):
         serve.main(["--devices", "3", "--device", "cpu"])
     with pytest.raises(ValueError, match="unknown family"):
