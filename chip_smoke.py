@@ -139,6 +139,26 @@ two main paths and checks that each really went through its kernels:
   the seconds of each round and the peak memory. Last, one TinyLlama-1.1B
   round (P = 2) after ``DistributedTrainer.shard_state`` on a 2 x 2 mesh
   naming the card, bit for bit the same round without a mesh.
+* dryrun (after mesh_serve): ``launch.dryrun.main(["--all",
+  "--both-meshes"])`` in this process into a temporary directory: 10 archs
+  x 4 shapes x 2 meshes = 80 records reckoned on the ``meta`` device.
+  Gates: every record complete; the card's allocated bytes and their peak
+  (reset first) unchanged across the run; TinyLlama's ``prefill_32k``
+  record on the 16 x 16 mesh holds, as its parameters' bytes a device, the
+  serve phase's real full-size parameters under the same specs. Reported:
+  the seconds and how many records exceed ``config.H100.hbm_bytes`` a
+  device;
+* examples (last): the six examples' twins (``examples/torch_*.py``) at the
+  reference's defaults: ``quickstart`` (12 nodes, the paper CNN at full
+  width, 60 simulated s), ``compare_fl_dl`` (FedAvg, D-SGD and MoDeST, 24
+  nodes, 120 s, each training the CNN), ``train_lm`` (16 nodes, TinyLlama
+  reduced to 4 layers and d_model 256, 240 s), the byte-only
+  ``churn_resilience`` and ``trace_replay``, and ``torch_serve_batch.py
+  --arch tinyllama-1.1b`` as a process of its own. Gates: every session
+  that trains passes ``check_session`` with ``fused.agg`` launched once an
+  aggregation and no other kernel; every printed number finite. Reported:
+  each session's wall, rounds, final metric and bytes, and D-SGD's bytes
+  over MoDeST's.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -228,6 +248,7 @@ import contextlib
 import csv
 import functools
 import gc
+import io
 import json
 import os
 import re
@@ -1252,7 +1273,8 @@ def run_session(session, sim_seconds: float):
 
 def check_session(session, result, metric="accuracy", min_rounds=10):
     """What every session must show: enough rounds, batched cohorts served
-    by queued jobs, finite parameters and a finite ``metric`` history."""
+    by queued jobs, finite parameters (the evaluated models; a D-SGD
+    session's, every node's) and a finite ``metric`` history."""
     from repro_torch.engine.flat import as_buffer
 
     spec = session.task.flat_spec
@@ -1270,7 +1292,10 @@ def check_session(session, result, metric="accuracy", min_rounds=10):
         raise AssertionError(
             f"{eng.fallbacks} trainings fell back to training alone; "
             f"{eng.jobs_run} jobs for {result.trainings_completed} trainings")
-    for b in [as_buffer(m, spec) for m in session._eval_models.values()]:
+    models = (session._eval_models.values()
+              if hasattr(session, "_eval_models")
+              else [node.params for node in session.nodes.values()])
+    for b in [as_buffer(m, spec) for m in models]:
         if b.device != session.task.device or b.device.type != "cuda" or \
                 b.shape != (spec.n,):
             raise AssertionError(f"buffer {tuple(b.shape)} on {b.device}")
@@ -3980,6 +4005,265 @@ def mesh_serve_check(out, served, launches):
 
 
 # ---------------------------------------------------------------------------
+# dryrun: every (arch x shape) on both production meshes, on the meta device
+# ---------------------------------------------------------------------------
+
+DRYRUN_RECORDS = 80             # 10 archs x 4 shapes x 2 meshes
+DRYRUN_KEYS = ("arch", "shape", "mesh", "strategy", "participants", "window",
+               "memory", "collectives", "roofline", "reckon_s")
+
+
+def dryrun_phase(dev, served):
+    """``launch.dryrun.main(["--all", "--both-meshes"])`` in this process,
+    into a temporary directory. Gates: 80 complete records; the card's
+    allocation and its peak (reset first) unchanged across the run, which
+    builds everything on ``meta``; TinyLlama's ``prefill_32k`` record on the
+    16 x 16 mesh holds the bytes a device of the serve phase's real
+    full-size parameters under the same specs."""
+    from repro_torch.config import H100, MeshConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import ShardingPolicy
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    saved = dryrun.ARTIFACT_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        dryrun.ARTIFACT_DIR = tmp
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                paths = dryrun.main(["--all", "--both-meshes"])
+            seconds = time.perf_counter() - t0
+        finally:
+            dryrun.ARTIFACT_DIR = saved
+        records = []
+        for path in paths:
+            with open(path) as fh:
+                records.append(json.load(fh))
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if len(records) != DRYRUN_RECORDS or "all dry-runs OK" not in \
+            text.getvalue():
+        raise AssertionError(f"{len(records)} dry-run records")
+    for r in records:
+        mem = r.get("memory", {})
+        if any(k not in r for k in DRYRUN_KEYS) or not (
+                mem.get("argument_size_in_bytes", 0) > 0
+                and mem["argument_size_in_bytes"] == sum(
+                    mem["by_part"].values())
+                and mem.get("output_size_in_bytes", 0) > 0
+                and np.isfinite(r["roofline"]["flops"])):
+            raise AssertionError(f"incomplete record {r}")
+    if after != before or peak != before:
+        raise AssertionError(f"the dry run moved the card's allocation: "
+                             f"{before} -> {after} bytes, peak {peak}")
+    rec = next(r for r in records if (r["arch"], r["shape"], r["mesh"]) == (
+        "tinyllama-1.1b", "prefill_32k", "16x16"))
+    params = served["params"]
+    policy = ShardingPolicy(served["cfg"], MeshConfig())
+    real = dryrun.per_device_bytes(
+        params, policy.param_spec(params, with_participants=False), policy)
+    if rec["memory"]["by_part"]["params"] != real:
+        raise AssertionError(f"dry-run params {rec['memory']['by_part']} "
+                             f"against {real} bytes a device on the card")
+    args = [r["memory"]["argument_size_in_bytes"] for r in records]
+    emit("dryrun", records=len(records), seconds=seconds,
+         allocated_bytes=before, peak_bytes=peak,
+         over_hbm=sum(a > H100.hbm_bytes for a in args),
+         hbm_bytes=H100.hbm_bytes, max_argument_bytes=max(args),
+         max_argument_record=records[int(np.argmax(args))]["arch"] + "/"
+         + records[int(np.argmax(args))]["shape"] + "/"
+         + records[int(np.argmax(args))]["mesh"],
+         tinyllama_prefill_params_bytes=real,
+         tinyllama_prefill=rec["memory"])
+
+
+# ---------------------------------------------------------------------------
+# examples: the six examples' twins at the reference's defaults
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+NON_FINITE = re.compile(r"\b(nan|inf)\b", re.I)
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", EXAMPLES_DIR / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(what: str, fn, *args):
+    """``(fn(*args), its printed lines, wall seconds)``, the card
+    synchronised before and after; every number printed must be finite."""
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        out, wall = synced_seconds(fn, *args)
+    if NON_FINITE.search(text.getvalue()):
+        raise AssertionError(f"{what} printed a non-finite metric:\n"
+                             f"{text.getvalue()}")
+    return out, text.getvalue().splitlines(), wall
+
+
+@contextlib.contextmanager
+def counted_aggregations():
+    """Every ``BatchedEngine.aggregate`` call while the block runs, as the
+    number of models it was handed (a list the caller may clear)."""
+    from repro_torch.engine.cohort import BatchedEngine
+
+    calls = []
+    inner = BatchedEngine.aggregate
+
+    def aggregate(self, models, weights=None):
+        calls.append(len(models))
+        return inner(self, models, weights)
+
+    BatchedEngine.aggregate = aggregate
+    try:
+        yield calls
+    finally:
+        BatchedEngine.aggregate = inner
+
+
+def one_agg_per_aggregation(session, calls, what: str) -> int:
+    """The counts since the last reset: ``fused.agg`` once per aggregation
+    the engine ran (``calls``), and no other kernel. A protocol round in
+    which an aggregator holds no model (FedAvg's bootstrap) is logged in
+    its ``agg_log`` but aggregates nothing."""
+    n_agg = len(calls)
+    logged = sum(len(node.agg_log) for node in session.nodes.values())
+    counts = read_counts()
+    if n_agg == 0 or n_agg > logged or counts["fused.agg"] != n_agg or sum(
+            counts.values()) != n_agg:
+        raise AssertionError(f"{what}: launches {counts} for {n_agg} "
+                             f"aggregations ({logged} logged)")
+    return n_agg
+
+
+def example_line(session, res, wall, n_agg, metric="accuracy"):
+    return dict(wall_seconds=wall, rounds=res.rounds_completed,
+                final=res.final_metrics.get(metric),
+                total_bytes=res.usage["total_bytes"], aggregations=n_agg,
+                logged_aggregations=sum(len(node.agg_log)
+                                        for node in session.nodes.values()),
+                trainings=res.trainings_completed,
+                jobs=session.engine.jobs_run,
+                flushes=session.engine.flushes)
+
+
+def examples_phase():
+    """``examples/torch_*.py`` in this process at the reference's defaults
+    on the card: ``quickstart`` (12 nodes, the paper CNN, 60 simulated s),
+    ``compare_fl_dl`` (FedAvg, D-SGD and MoDeST, 24 nodes, 120 s, each
+    training the CNN), ``train_lm`` (16 nodes, TinyLlama at 4 layers and
+    d_model 256, 240 s), the byte-only ``churn_resilience`` and
+    ``trace_replay`` (sessions on the card's device, nothing to compute),
+    then ``torch_serve_batch.py --arch tinyllama-1.1b`` as a process of its
+    own. Gates: every session that trains passes ``check_session``, with
+    ``fused.agg`` launched once per aggregation the engine runs and no other
+    kernel (counts set to 0 before each session, read after); every printed
+    number finite."""
+    with counted_aggregations() as calls:
+        return examples_run(calls)
+
+
+def examples_run(calls):
+    """The body of :func:`examples_phase`; ``calls`` counts the engine's
+    aggregations."""
+    t_all = time.perf_counter()
+    out, total = {}, {n: 0 for n in read_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    quick = load_example("quickstart")
+    calls.clear()
+    reset_counts()
+    (session, res), lines, wall = printed("quickstart", quick.main, [])
+    n_agg = one_agg_per_aggregation(session, calls, "quickstart")
+    check_session(session, res)
+    add(read_counts())
+    out["quickstart"] = dict(example_line(session, res, wall, n_agg),
+                             printed=lines)
+    del session, res
+
+    compare = load_example("compare_fl_dl")
+    algos = {}
+
+    def on_session(algo, session):
+        inner = session.run
+
+        def run(duration):
+            calls.clear()
+            reset_counts()
+            res, wall = synced_seconds(inner, duration)
+            n_agg = one_agg_per_aggregation(session, calls, algo)
+            check_session(session, res)
+            add(read_counts())
+            algos[algo] = example_line(session, res, wall, n_agg)
+            return res
+
+        session.run = run
+
+    results, lines, wall = printed("compare_fl_dl", compare.run, 24, 120.0,
+                                   None, on_session)
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        compare.report({a: r for a, (_, r) in results.items()})
+    if NON_FINITE.search(text.getvalue()):
+        raise AssertionError(f"compare_fl_dl printed:\n{text.getvalue()}")
+    usage = {a: r.usage["total_bytes"] for a, (_, r) in results.items()}
+    out["compare_fl_dl"] = dict(
+        algos, wall_seconds=wall,
+        dsgd_over_modest_bytes=usage["dsgd"] / usage["modest"],
+        printed=text.getvalue().splitlines())
+    del results
+
+    lm = load_example("train_lm")
+    calls.clear()
+    reset_counts()
+    (task, session, res), lines, wall = printed("train_lm", lm.main, [])
+    n_agg = one_agg_per_aggregation(session, calls, "train_lm")
+    check_session(session, res, metric="loss")
+    add(read_counts())
+    out["train_lm"] = dict(example_line(session, res, wall, n_agg, "loss"),
+                           n_params=task.flat_spec.n, printed=lines)
+    del task, session, res
+
+    for name in ("churn_resilience", "trace_replay"):
+        twin = load_example(name)
+        reset_counts()
+        got, lines, wall = printed(name, twin.main, [])
+        add(read_counts())
+        if not any("rounds" in ln for ln in lines):
+            raise AssertionError(f"{name} printed {lines}")
+        out[name] = dict(wall_seconds=wall, printed=lines)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(EXAMPLES_DIR /
+                                               "torch_serve_batch.py"),
+                           "--arch", "tinyllama-1.1b"], capture_output=True,
+                          text=True, timeout=600)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 2 or not lines[0].startswith(
+            "[serve] arch=tinyllama-1.1b device=cuda") or \
+            NON_FINITE.search(proc.stdout):
+        raise AssertionError(f"serve_batch: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr[-3000:]}")
+    out["serve_batch"] = dict(wall_seconds=time.perf_counter() - t0,
+                              printed=lines)
+    out["seconds"] = time.perf_counter() - t_all
+    out["launches"] = total
+    emit("examples", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # roofline: the H100 roofline's aggregation bytes against bound_ms
 # ---------------------------------------------------------------------------
 
@@ -4126,6 +4410,10 @@ def main() -> int:
     mesh_served = mesh_serve_phase(dev)
     mesh_serve_launches = read_counts()
     mesh_serve_check(mesh_served, served, mesh_serve_launches)
+    reset_counts()
+    dryrun_phase(dev, served)
+    if any(read_counts().values()):
+        raise AssertionError(f"the dry run launched {read_counts()}")
     del served, mesh_served
     trees_check(trees, trees_launches)
     del trees
@@ -4171,6 +4459,9 @@ def main() -> int:
     if any(mesh_launches.values()):
         raise AssertionError(f"the mesh form launched {mesh_launches}: no "
                              "kernel lies on it")
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = examples_phase()
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -4189,6 +4480,8 @@ def main() -> int:
                if name in lm["kernels"] else {}),
             **({"at_lm_families_train": {"launches": train_launches[name]}}
                if name in train_launches else {}),
+            **({"at_examples": {"launches": examples["launches"][name]}}
+               if examples["launches"][name] else {}),
             **({"at_mesh_serve": {
                 "launches": mesh_serve_launches[name]}}
                if name == "flash_attention" else {}),

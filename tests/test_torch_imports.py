@@ -1,7 +1,9 @@
 """The PyTorch package stands alone: it imports neither ``jax`` nor the
 reference package ``repro`` — checked at run time in a fresh interpreter
-and in the source text."""
+and in the source text (the package, ``chip_smoke.py``, ``fused_times.py``
+and the examples ``examples/torch_*.py``)."""
 
+import glob
 import os
 import pkgutil
 import re
@@ -19,6 +21,7 @@ _FORBIDDEN = re.compile(
 
 def _py_files():
     out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "fused_times.py")]
+    out += glob.glob(os.path.join(REPO, "examples", "torch_*.py"))
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -35,6 +38,7 @@ def test_every_submodule_imports_without_jax_or_repro():
     assert "repro_torch.kernels.fused" in mods
     assert "repro_torch.sim.runner" in mods and len(mods) > 40
     assert "repro_torch.core.strategy" in mods
+    assert "repro_torch.launch.dryrun" in mods
     code = (
         "import importlib, sys\n"
         f"mods = {mods!r}\n"
