@@ -148,7 +148,7 @@ two main paths and checks that each really went through its kernels:
   serve phase's real full-size parameters under the same specs. Reported:
   the seconds and how many records exceed ``config.H100.hbm_bytes`` a
   device;
-* examples (last): the six examples' twins (``examples/torch_*.py``) at the
+* examples: the six examples' twins (``examples/torch_*.py``) at the
   reference's defaults: ``quickstart`` (12 nodes, the paper CNN at full
   width, 60 simulated s), ``compare_fl_dl`` (FedAvg, D-SGD and MoDeST, 24
   nodes, 120 s, each training the CNN), ``train_lm`` (16 nodes, TinyLlama
@@ -159,6 +159,30 @@ two main paths and checks that each really went through its kernels:
   aggregation and no other kernel; every printed number finite. Reported:
   each session's wall, rounds, final metric and bytes, and D-SGD's bytes
   over MoDeST's.
+* world (last): the port across ranks (``launch.world``, one process a
+  rank) on the one card, its ranks sharing it (gloo; gathers staged
+  through host memory): the CNN session of ``session`` and its masked
+  twin (20 simulated s) through ``engine="sharded"`` on a world of 4
+  ranks, N in 4 lane chunks; ``launch/train.py --mode mesh --full-size
+  --world`` (TinyLlama, MoDeST, P = 2, TP 2, 3 rounds); ``launch/serve.py
+  --full-size --set use_flash=true --world`` on 2 x 2 at the serve phase's
+  shape and seed, decodes teacher-forced on its tokens; a 1-rank NCCL
+  world of the plain session. Gates: every rank's sessions bit for bit
+  the same sessions on the batched engine in this process (both under
+  cuDNN's deterministic algorithms: trajectory and history hash, every
+  aggregation, the final model, a fused aggregate→quantize plain and
+  masked), B1, B2, B3, B4 and B5 launched on every rank; the mesh rounds'
+  losses within ``WORLD_LOSS_RTOL`` of ``mesh_train``'s one-process rounds,
+  a quarter of what the one-process rounds at learning rate 0 (a skipped
+  update) read; the sketch of the replicas' change over the rounds
+  (``DistributedTrainer.param_sketch``) alike on every rank and within
+  ``WORLD_CHANGE_REL`` of the one-process run's by relative norm (a
+  skipped update is 1 off); the logits within ``WORLD_LOGITS_REL_L2`` of
+  the serve phase's prefill and of the one-process launcher's
+  teacher-forced decodes, 22 ``flash_attention`` launches a rank and no
+  other; B1, B2, B4, B5 on a rank's lane chunk bit for bit the slice of
+  one launch (``chunk_rows``, timed). Reported: each world's backend,
+  seconds, and each rank's launches, seconds, staged bytes and peak.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -183,7 +207,8 @@ quantiser at the edges of the quantised forms (subtiles, the rows
 kernel's limit, every block size a launcher can choose, P·R = 6144);
 ``nonfinite`` holds B2, B5 and B7 to the reference's quantisation of a
 NaN and an Inf lane (scale NaN or Inf, codes 0). B9 is also held and
-timed at the four layouts of the families phase's prefills. ``fused_ptxas`` prints
+timed at the four layouts of the families phase's prefills and at a rank's
+share of the world phase's serve. ``fused_ptxas`` prints
 the registers and spills of every kernel of ``fused_agg.cu``, each of
 which must be built for sm_90a with no spill.
 
@@ -1105,7 +1130,8 @@ def flash_rows(rows, dev):
     """B9 against its plain version at the serving shape and at S = 640
     (where the reference's tiling raises, ROADMAP C3), causal and not, fp32
     and bf16, at starcoder2-15b's heads (hd 128, bf16, causal) and at the
-    four layouts of the families phase's prefills (bf16, causal), timed
+    four layouts of the families phase's prefills and at a rank's share of
+    the world phase's 2 x 2 serve (B 2, 16 / 2 heads; bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1123,8 +1149,13 @@ def flash_rows(rows, dev):
              for causal in (True, False)]
     cases.append((SERVE_B, 48, 4, SERVE_S, 128, torch.bfloat16, True, None))
     # the layouts the families phase's prefills give the kernel
+    layouts = family_flash_layouts()
     cases += [(*layout, torch.bfloat16, True, arch)
-              for arch, layout in family_flash_layouts().items()]
+              for arch, layout in layouts.items()]
+    # a rank's share in the world phase's 2 x 2 serve: half the batch over
+    # data, 32 / 4 heads halved over model
+    cases.append((SERVE_B // 2, 32 // 2, 4 // 2, SERVE_S, 64,
+                  torch.bfloat16, True, WORLD_FLASH_ROW))
     for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
         name = arch or (
             f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
@@ -1143,7 +1174,8 @@ def flash_rows(rows, dev):
             library_share = err_share(sdpa(), flash_attention_ref(
                 q, k, v, causal), FLASH_TOL[dtype])
         row = {
-            "shape": name, "model": arch, "B": B, "Hq": Hq, "Hkv": Hkv,
+            "shape": name, "model": arch if arch in layouts else None,
+            "B": B, "Hq": Hq, "Hkv": Hkv,
             "S": S, "hd": hd,
             "dtype": str(dtype)[6:], "causal": causal, "max_abs_err": err,
             "err_share_of_tol": share, "rel_l2_err": rel,
@@ -1201,7 +1233,7 @@ def flash_rows(rows, dev):
 
 
 def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
-                secure_agg=None, serve=None):
+                secure_agg=None, serve=None, device=None):
     from repro_torch.config import ModestConfig, TrainConfig
     from repro_torch.data.synthetic import make_classification_task
     from repro_torch.models.tasks import cnn_task
@@ -1213,10 +1245,11 @@ def cnn_session(n_nodes: int, sample_size: int, engine: str, task=None,
                           n_aggregators=2, success_fraction=1.0,
                           ping_timeout=1.0, secure_agg=secure_agg),
         tcfg=TrainConfig(batch_size=20),
-        task=task or cnn_task(),
+        task=task or cnn_task(device=device),
         data=make_classification_task(n_nodes, samples_per_node=100,
                                       iid=False, alpha=0.5, seed=0),
-        seed=0, eval_every_rounds=5, engine=engine, serve=serve)
+        seed=0, eval_every_rounds=5, engine=engine, serve=serve,
+        device=device)
 
 
 def record_aggregations(session, masked: bool, record=None):
@@ -3888,6 +3921,7 @@ def mesh_train_phase(dev):
 
     t0 = time.perf_counter()
     out = {"launcher": {}, "families": {}}
+    sketches = {}
     for algo, devices, rounds in MESH_RUNS:
         torch.cuda.reset_peak_memory_stats()
         res = train.main(MESH_ARGS + ["--algo", algo, "--devices",
@@ -3906,6 +3940,7 @@ def mesh_train_phase(dev):
             devices=devices, participants=P, rounds=hist,
             replicas_equal=same,
             peak_memory_bytes=torch.cuda.max_memory_allocated())
+        sketches[algo] = res["change_sketch"]
         del res
         release()
     for arch, over, B, T in MESH_FAMILIES:
@@ -3913,6 +3948,7 @@ def mesh_train_phase(dev):
     out["shard_state_round"] = mesh_shard_round(dev)
     out["seconds"] = time.perf_counter() - t0
     emit("mesh_train", **out)
+    out["change_sketches"] = sketches       # the world phase's, not printed
     return out
 
 
@@ -4154,6 +4190,379 @@ def example_line(session, res, wall, n_agg, metric="accuracy"):
                 trainings=res.trainings_completed,
                 jobs=session.engine.jobs_run,
                 flushes=session.engine.flushes)
+
+
+# ---------------------------------------------------------------------------
+# world: the port across ranks, one process a rank, on the one card
+# ---------------------------------------------------------------------------
+
+WORLD_RANKS = 4                 # the CNN session's world (N over 4 ranks)
+WORLD_SIM_SECONDS = 20.0        # its simulated seconds, plain and masked
+WORLD_TRAIN_ROUNDS = 3          # mesh_train's modest run, on 2 x 2
+WORLD_NEW = 4                   # prefill, then 3 teacher-forced decodes
+WORLD_FLASH_ROW = "world_rank"  # flash_rows' row at a rank's serve share
+# The world's bf16 logits and losses against one process's: tensor
+# parallelism sums each row-parallel product as two bf16-rounded halves in
+# fp32, one process rounds the whole sum once. The loss bound lies between
+# the sound run's largest gap (2.5e-5) and a skipped update's (5.2e-4: the
+# one-process rounds at learning rate 0, read in every run and held to at
+# least 4 bounds); the change bound between the sound run's 0.16 (bf16
+# parameters round some updates the other way) and a skipped update's 1
+# (readings on one H100: PERF.md section 6, PR 30).
+WORLD_LOGITS_REL_L2 = 5e-2
+WORLD_LOSS_RTOL = 1e-4
+WORLD_CHANGE_REL = 0.4
+
+
+def digest(t) -> str:
+    """The bits of a tensor, hashed: equal digests are bit-for-bit equal
+    tensors (dtype and shape included)."""
+    import hashlib
+    a = t.detach().contiguous().cpu()
+    h = hashlib.sha256(f"{a.dtype}{tuple(a.shape)}".encode())
+    h.update(a.view(torch.uint8).numpy().tobytes() if a.numel() else b"")
+    return h.hexdigest()[:16]
+
+
+def world_quant(task, shardings):
+    """The fused aggregate→quantize of five seeded models, plain and
+    masked (``tests/sharded_child.py``'s), on the card."""
+    from repro_torch.engine.flat import FlatModel
+    from repro_torch.kernels.ops import (aggregate_flatmodel,
+                                         masked_aggregate_flatmodel)
+    from repro_torch.secureagg import PairwiseMasker
+
+    dev = task.device
+    spec = task.flat_spec
+    rng = np.random.default_rng(0)
+    models = [FlatModel(torch.from_numpy(rng.standard_normal(spec.n).astype(
+        np.float32)).to(dev), spec) for _ in range(5)]
+    weights = list(rng.random(5) + 0.1)
+    plain = aggregate_flatmodel(models, weights, spec=spec, quantize=True,
+                                device=dev, shardings=shardings)
+    masker = PairwiseMasker(0)
+    roster = tuple(f"n{i}" for i in range(len(models)))
+    sealed = [masker.seal(m, roster[i], 7, roster, spec.nbytes)
+              for i, m in enumerate(models)]
+    secrets = {nid: masker.secret(nid, 7) for nid in roster}
+    seeds, signs = masker.unmask_matrices(sealed, secrets)
+    masked = masked_aggregate_flatmodel(
+        [sm.payload for sm in sealed], weights, seeds=seeds, signs=signs,
+        spec=spec, quantize=True, device=dev, shardings=shardings)
+    return [digest(t) for t in (plain[0].buffer, plain[1], plain[2])], \
+        [digest(t) for t in (masked[0].buffer, masked[1], masked[2])]
+
+
+def world_session_run(engine: str, secure_agg, sim_seconds: float, dev):
+    """The CNN session of ``session_phase`` (or its masked twin) under
+    cuDNN's deterministic algorithms on ``engine``: its trajectory and the
+    digests of every aggregation, the final model and ``world_quant``."""
+    import hashlib
+    from repro_torch.engine import MeshEngine
+
+    with deterministic_cudnn():
+        session = cnn_session(32, 10, engine, secure_agg=secure_agg,
+                              device=dev)
+        eng = session.engine
+        if (engine == "sharded") != isinstance(eng, MeshEngine):
+            raise AssertionError(f"engine {engine!r} gave "
+                                 f"{type(eng).__name__}")
+        means = record_aggregations(session, masked=secure_agg is not None)
+        result = session.run(sim_seconds)
+        final = session._eval_models[max(session._eval_models)].buffer
+        plain, masked = world_quant(session.task,
+                                    getattr(eng, "shardings", None))
+    return {"secure_agg": secure_agg, "rounds": result.rounds_completed,
+            "total_bytes": result.usage["total_bytes"],
+            "round_times": result.round_times, "history": result.history,
+            "history_hash": hashlib.sha256(json.dumps(
+                result.history).encode()).hexdigest()[:16],
+            "aggregations": [digest(c[-1].buffer) for c in means],
+            "final": digest(final), "quant": plain, "masked_quant": masked,
+            "state_lanes": getattr(eng, "state_lanes", None),
+            "shards": getattr(getattr(eng, "shardings", None), "n_shards",
+                              None)}
+
+
+def world_session_body(world, secure_aggs, sim_seconds: float):
+    """One rank of the world's CNN sessions (``engine="sharded"`` inside
+    the world: N over every rank); its sessions and report (launches
+    counted from 0 in the rank)."""
+    from repro_torch import collectives
+    from repro_torch.launch.world import rank_report
+
+    reset_counts()
+    collectives.reset_counts()
+    if world.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(world.device)
+    t0 = time.perf_counter()
+    sessions = [world_session_run("sharded", sa, sim_seconds, world.device)
+                for sa in secure_aggs]
+    return {"sessions": sessions,
+            "report": rank_report(world, time.perf_counter() - t0)}
+
+
+def world_sessions_check(ranks, refs, what: str):
+    """Every rank's sessions bit for bit the batched ones ``refs``."""
+    for r in ranks:
+        for got, want in zip(r["sessions"], refs):
+            for key in ("rounds", "total_bytes", "round_times", "history",
+                        "history_hash", "aggregations", "final", "quant",
+                        "masked_quant"):
+                if got[key] != want[key]:
+                    raise AssertionError(
+                        f"{what}: rank {r['report']['rank']}'s "
+                        f"{got['secure_agg']} session differs from the "
+                        f"batched one in {key}")
+            if got["masked_quant"] != got["quant"]:
+                raise AssertionError(f"{what}: masked quantised aggregate "
+                                     "differs from the plain one")
+
+
+def world_chunk_rows(dev):
+    """B1, B2, B4 and B5 as a rank of the world's CNN sessions launches
+    them: the P = 10 rows of its lane chunk (rank 1 of WORLD_RANKS, 49,152
+    lanes of N = 136,672 at lane base 49,152; B4/B5 with the global
+    n_valid), each bit for bit the matching slice of one launch over the
+    whole stack and within TOL of its plain version (the mean); ms
+    (CUDA-graph replay), the plain version's ms on the same inputs, and
+    the bound at the chunk's shape."""
+    from repro_torch.kernels import fused
+
+    P, N, r = 10, 136_672, 1
+    local_n = fused.shard_align(N, WORLD_RANKS) // WORLD_RANKS
+    base = r * local_n
+    x, w, _ = make_inputs(P, N, 0, seed=500, dev=dev)
+    seeds, signs = mask_terms(P, seed=501, dev=dev)
+    y = torch.stack([fused.apply_mask_flat(x[p], seeds[p], signs[p])
+                     for p in range(P)])
+    xr = x[:, base:base + local_n].contiguous()
+    yr = y[:, base:base + local_n].contiguous()
+    kw = dict(seeds=seeds, signs=signs, base=base, n_valid=N)
+    calls = {
+        "fused.agg": (lambda: fused.aggregate_flat_onepass(xr, w),
+                      lambda: fused._plain_onepass(xr, w)),
+        "fused.agg_quant": (lambda: fused.aggregate_quantize_flat(xr, w),
+                            lambda: fused._plain_onepass_quant(xr, w)),
+        "fused.unmask_agg": (
+            lambda: fused.unmask_aggregate_flat(yr, w, **kw),
+            lambda: fused._plain_unmask_onepass(yr, w, None, seeds, signs,
+                                                base, N)),
+        "fused.unmask_agg_quant": (
+            lambda: fused.unmask_aggregate_quantize_flat(yr, w, **kw),
+            lambda: fused._plain_unmask_onepass_quant(yr, w, None, seeds,
+                                                      signs, base, N))}
+    mean, codes, scales = fused.aggregate_quantize_flat(x, w)
+    sub = slice(base // fused.SUBTILE, (base + local_n) // fused.SUBTILE)
+    want = (mean[base:base + local_n], codes[base:base + local_n],
+            scales[sub])
+    rows = {}
+    for name, (call, plain) in calls.items():
+        got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        for g, wnt in zip(got, want):
+            if not torch.equal(g, wnt):
+                raise AssertionError(f"{name} on a rank's chunk differs "
+                                     "from the slice of one launch")
+        err = float((got[0] - ref[0]).abs().max())
+        if not torch.allclose(got[0], ref[0], rtol=TOL, atol=TOL):
+            raise AssertionError(f"{name} on a rank's chunk is {err} off "
+                                 "its plain version")
+        t_bound, by = bound_ms(name, P, local_n,
+                               P if "unmask" in name else 0, False)
+        rows[name] = {"P": P, "R": P if "unmask" in name else 0,
+                      "N": local_n, "base": base, "n_valid": N,
+                      "ms": time_ms(call, 200),
+                      "plain_ms": time_ms(plain, 5, warmup=1, replays=1),
+                      "bound_ms": t_bound, "bound_by": by,
+                      "max_abs_err": err,
+                      "vs_one_launch": "bit-identical slice"}
+    return rows
+
+
+def world_train(dev, where, mesh_rounds, mesh_sketch):
+    """``launch/train.py --mode mesh --world`` at ``MESH_ARGS`` (MoDeST, 2
+    x 2, ranks on ``where``) for WORLD_TRAIN_ROUNDS rounds, gated against
+    the one-process run's rounds ``mesh_rounds`` and change sketch
+    ``mesh_sketch`` (``launch.train`` on ``dev``) and against a control
+    run here: the same rounds with the update skipped (learning rate 0).
+    Its part of the world line, each rank's report under
+    ``ranks_report``."""
+    from repro_torch.launch import train
+
+    # the control: the one-process rounds with the update skipped
+    skipped = train.main(MESH_ARGS + [
+        "--algo", "modest", "--devices", "4", "--device", str(dev),
+        "--rounds", str(WORLD_TRAIN_ROUNDS), "--lr", "0"])["history"]
+    release()
+    trained = train.main(MESH_ARGS + [
+        "--algo", "modest", "--devices", "4", "--device", where,
+        "--rounds", str(WORLD_TRAIN_ROUNDS), "--world"])
+
+    def loss_gaps(hist):
+        gaps = []
+        for got, want in zip(hist, mesh_rounds):
+            if (got["round"], got["active"]) != (want["round"],
+                                                 want["active"]):
+                raise AssertionError(f"world round {got} against {want}")
+            gaps.append(abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        if len(gaps) != WORLD_TRAIN_ROUNDS:
+            raise AssertionError(f"{len(gaps)} rounds")
+        return gaps
+
+    gaps_train, gaps_skipped = loss_gaps(trained["history"]), \
+        loss_gaps(skipped)
+    sketches = [np.asarray(r["change_sketch"]) for r in trained["ranks"]]
+    want = np.asarray(mesh_sketch)
+    line = {"world": "2 x 2", "rounds": trained["history"],
+            "one_process": mesh_rounds[:WORLD_TRAIN_ROUNDS],
+            "loss_rel_gaps": gaps_train, "loss_rel_bound": WORLD_LOSS_RTOL,
+            "skipped_update_loss_rel_gaps": gaps_skipped,
+            "change_rel_gap": float(np.linalg.norm(sketches[0] - want)
+                                    / np.linalg.norm(want)),
+            "change_rel_bound": WORLD_CHANGE_REL,
+            "change_norm": float(np.linalg.norm(want)),
+            "ranks_alike": all(np.array_equal(x, sketches[0])
+                               for x in sketches)}
+    # round 1 runs before any update: a skipped update shows from round 2
+    if max(gaps_train) > WORLD_LOSS_RTOL or \
+            max(gaps_skipped[1:]) < 4 * WORLD_LOSS_RTOL or \
+            line["change_rel_gap"] > WORLD_CHANGE_REL or \
+            not line["ranks_alike"] or \
+            any(any(r["launches"].values()) for r in trained["ranks"]):
+        raise AssertionError(f"the world's rounds against one process's: "
+                             f"{json.dumps(line)}; ranks {trained['ranks']}")
+    return dict(line, ranks_report=trained["ranks"])
+
+
+def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
+                world_device=None):
+    """The port across ranks (``launch.world``) on the one card, whose
+    ranks share it (gloo, gathers staged through host memory):
+
+    * the CNN session of ``session_phase`` and its masked twin on a world
+      of 4 ranks through ``engine="sharded"`` (N over the ranks): bit for
+      bit the same sessions on the batched engine in this process, both
+      under cuDNN's deterministic algorithms (trajectory, every
+      aggregation, the final model, a fused aggregate→quantize plain and
+      masked); B1, B2, B3, B4, B5 launched on every rank;
+    * ``launch/train.py --mode mesh --full-size --world`` (TinyLlama,
+      MoDeST, P = 2, TP 2 on 2 x 2): its losses within WORLD_LOSS_RTOL of
+      ``mesh_train``'s one-process modest rounds (``mesh_rounds``), which
+      must lie at most a quarter of the way to the gap of a skipped
+      update (the one-process rounds at learning rate 0, run here); the
+      sketch of its replicas' change over the rounds alike on every rank
+      and within WORLD_CHANGE_REL of ``mesh_train``'s (``mesh_sketch``)
+      by relative norm; no kernel launched;
+    * ``launch/serve.py --full-size --set use_flash=true --world`` on 2 x 2
+      at the serve phase's shape and seed, decodes teacher-forced on its
+      tokens: logits within WORLD_LOGITS_REL_L2 of the serve phase's
+      prefill and of the one-process launcher's teacher-forced decodes,
+      22 ``flash_attention`` launches a rank (one prefill) and no other;
+    * a 1-rank world (NCCL) of the plain session, bit for bit too.
+
+    ``world_device`` (None: ``dev``) is where the worlds' ranks run:
+    ``"cuda"`` spreads them over the cards, one a rank where there are
+    enough (NCCL)."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.world import run_world
+
+    t0 = time.perf_counter()
+    chunk_rows = world_chunk_rows(dev)
+    refs = [world_session_run("batched", sa, WORLD_SIM_SECONDS, dev)
+            for sa in (None, "masked")]
+    t_ref = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    where = str(dev) if world_device is None else world_device
+    ranks = run_world(world_session_body, WORLD_RANKS, device=where,
+                      args=((None, "masked"), WORLD_SIM_SECONDS),
+                      timeout=600.0)
+    t_sessions = time.perf_counter() - t1
+    world_sessions_check(ranks, refs, "sessions")
+    for r in ranks:
+        launched = r["report"]["launches"]
+        for name in ("fused.agg", "fused.agg_quant", "fused.mask",
+                     "fused.unmask_agg", "fused.unmask_agg_quant"):
+            if launched[name] <= 0:
+                raise AssertionError(f"rank {r['report']['rank']} never "
+                                     f"launched {name}")
+        lanes = r["sessions"][0]["state_lanes"]
+        if r["sessions"][0]["shards"] != WORLD_RANKS:
+            raise AssertionError(f"{r['sessions'][0]['shards']} shards")
+    t1 = time.perf_counter()
+    nccl = run_world(world_session_body, 1, device=str(dev),
+                     args=((None,), WORLD_SIM_SECONDS), timeout=600.0)
+    t_nccl = time.perf_counter() - t1
+    if nccl[0]["report"]["backend"] != "nccl":
+        raise AssertionError(f"a 1-rank world on {nccl[0]['report']}")
+    world_sessions_check(nccl, refs[:1], "nccl")
+
+    t1 = time.perf_counter()
+    trained = world_train(dev, where, mesh_rounds, mesh_sketch)
+    t_train = time.perf_counter() - t1
+
+    argv = ["--arch", "tinyllama-1.1b", "--full-size", "--devices", "4",
+            "--model-parallel", "2", "--set", "use_flash=true", "--batch",
+            str(SERVE_B), "--prompt-len", str(SERVE_S), "--new-tokens",
+            str(WORLD_NEW), "--seed", "0", "--device", str(dev)]
+    teacher = serve_tokens[:, :WORLD_NEW - 1].numpy()
+    reset_counts()
+    one = serve.main(argv, teacher=teacher)
+    one_launches = read_counts()
+    release()
+    t1 = time.perf_counter()
+    served = serve.main(argv[:-2] + ["--device", where, "--world"],
+                        teacher=teacher)
+    t_serve = time.perf_counter() - t1
+    gaps = [rel_l2(g, w) for g, w in zip(served["step_logits"],
+                                         one["step_logits"])]
+    prefill_gap = rel_l2(served["step_logits"][0], serve_prefill)
+    one_prefill_gap = rel_l2(one["step_logits"][0], serve_prefill)
+    if max(gaps + [prefill_gap]) > WORLD_LOGITS_REL_L2 or len(gaps) != \
+            WORLD_NEW:
+        raise AssertionError(f"world logits off one process's: {gaps}, "
+                             f"prefill {prefill_gap}")
+    for r in served["ranks"]:
+        fl = r["launches"]["flash_attention"]
+        if fl != 22 or sum(r["launches"].values()) != fl:
+            raise AssertionError(f"serve rank {r['rank']} launched "
+                                 f"{r['launches']}, want 22 flash only")
+    if one_launches["flash_attention"] != 22:
+        raise AssertionError(f"one-process launcher: {one_launches}")
+
+    def reports(rs):
+        return [{k: r[k] for k in ("rank", "backend", "launches",
+                                   "staged_bytes", "seconds", "peak_bytes")}
+                for r in rs]
+
+    line = {
+        "chunk_rows": chunk_rows,
+        "sessions": {
+            "ranks": WORLD_RANKS, "sim_seconds": WORLD_SIM_SECONDS,
+            "vs_batched": "bit-identical",
+            "rounds": [s["rounds"] for s in refs],
+            "state_lanes": lanes, "batched_seconds": t_ref,
+            "world_seconds": t_sessions,
+            "ranks_report": reports([r["report"] for r in ranks])},
+        "nccl": {"backend": "nccl", "vs_batched": "bit-identical",
+                 "world_seconds": t_nccl,
+                 "ranks_report": reports([nccl[0]["report"]])},
+        "train": dict(trained, world_seconds=t_train,
+                      ranks_report=reports(trained["ranks_report"])),
+        "serve": {"world": "2 x 2", "prefill_rel_l2": prefill_gap,
+                  "one_process_prefill_rel_l2": one_prefill_gap,
+                  "step_rel_l2": gaps, "world_seconds": t_serve,
+                  "tokens_equal": bool(np.array_equal(
+                      served["tokens"], one["tokens"])),
+                  "prefill_seconds": served["prefill_seconds"],
+                  "one_process_prefill_seconds": one["prefill_seconds"],
+                  "ranks_report": reports(served["ranks"])},
+        "seconds": time.perf_counter() - t0}
+    emit("world", **line)
+    return line
 
 
 def examples_phase():
@@ -4414,6 +4823,8 @@ def main() -> int:
     dryrun_phase(dev, served)
     if any(read_counts().values()):
         raise AssertionError(f"the dry run launched {read_counts()}")
+    serve_tokens = served["tokens"].cpu()
+    serve_prefill = served["flash_logits"][:, -1].float().cpu()
     del served, mesh_served
     trees_check(trees, trees_launches)
     del trees
@@ -4454,14 +4865,35 @@ def main() -> int:
         for name, n in line["launches"].items():
             train_launches[name] = train_launches.get(name, 0) + n
     reset_counts()
-    mesh_train_phase(dev)
+    mesh = mesh_train_phase(dev)
     mesh_launches = read_counts()
+    mesh_rounds = mesh["launcher"]["modest"]["rounds"]
+    mesh_sketch = mesh["change_sketches"]["modest"]
+    del mesh
     if any(mesh_launches.values()):
         raise AssertionError(f"the mesh form launched {mesh_launches}: no "
                              "kernel lies on it")
     gc.collect()
     torch.cuda.empty_cache()
     examples = examples_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens,
+                        serve_prefill)
+    world_launches = {
+        name: [r["launches"][name]
+               for r in world["sessions"]["ranks_report"]]
+        for name in world["chunk_rows"]}
+    world_launches["flash_attention"] = [
+        r["launches"]["flash_attention"]
+        for r in world["serve"]["ranks_report"]]
+    world_rows = dict(world["chunk_rows"])
+    world_rows["flash_attention"] = {k: r[k] for r in rows["flash_attention"]
+                                     if r["shape"] == WORLD_FLASH_ROW
+                                     for k in ("B", "Hq", "Hkv", "S", "hd",
+                                               "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms",
+                                               "max_abs_err")}
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -4485,6 +4917,10 @@ def main() -> int:
             **({"at_mesh_serve": {
                 "launches": mesh_serve_launches[name]}}
                if name == "flash_attention" else {}),
+            **({"at_world": dict(
+                world_rows.get(name, {}),
+                launches_by_rank=world_launches[name])}
+               if name in world_launches else {}),
             **({"at_families": {
                 "launches": family_launches[name],
                 "by_model": {r["model"]: {k: r[k] for k in (

@@ -27,9 +27,29 @@ run without autograd and write into the cache they are given, as the
 reference's donated cache is consumed.
 
 A mesh here is a :class:`~repro_torch.sharding.DeviceMesh` (``launch.mesh``)
-or a tuple of devices, of ``mesh_cfg.n_devices`` entries, and it names one
-device, however many times. A mesh of distinct devices raises
-``NotImplementedError`` (ROADMAP A12b); nothing falls back to one device.
+or a tuple of devices, of ``mesh_cfg.n_devices`` entries. In one process it
+names one device, however many times; a mesh of distinct devices there
+raises ``NotImplementedError``; nothing falls back to one device.
+
+In a world (``launch.world``: one process a device, the mesh its
+``DeviceMesh``) both classes split the tensors over the ranks by their
+specs. The trainer's participants are split over ``data`` (``data_rank``
+granularity: a rank holds P / data replicas) and each replica's leaves
+over ``model`` (tensor parallelism of the dense family,
+``models.layers.tensor_parallel``); ``init_state`` and ``shard_state`` give
+a rank its shards (``sharding.local_shard``), ``gather_state`` the whole
+state back. A step takes the whole batch and the whole ``(P,)`` weights,
+which every rank's host code draws alike, and trains the rank's
+participants on their batch rows; the strategy's mix gathers the P axis
+over ``data`` and applies the one-process arithmetic, so the mix is bit
+for bit the one-process mix of the same replicas (or, where the gathered
+replicas would not fit, reduces a weighted mean's partials over ``data``:
+:meth:`DistributedTrainer.mix_form`). The server splits the
+batch over ``data``, the parameters by ``param_spec`` and the cache by
+``cache_spec`` (kv heads over ``model``); ``prefill`` and ``decode`` take
+the whole batch and return the whole logits on every rank. Other
+families, granularities and a gradient clip under tensor parallelism
+raise ``NotImplementedError`` (ROADMAP A12b-2).
 """
 
 from __future__ import annotations
@@ -38,11 +58,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch import optim
-from repro_torch.config import MeshConfig, ModelConfig, TrainConfig
-from repro_torch.core.strategy import Strategy, build_strategy
+from repro_torch import collectives, optim
+from repro_torch.config import H100, MeshConfig, ModelConfig, TrainConfig
+from repro_torch.core.strategy import (Strategy, build_strategy,
+                                       weighted_mean_share)
 from repro_torch.models import Model, build
-from repro_torch.sharding import DeviceMesh, ShardingPolicy, mesh_device
+from repro_torch.models import layers as L
+from repro_torch.sharding import (DeviceMesh, ShardingPolicy, gather_tree,
+                                  local_shard, mesh_device)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map
 
@@ -92,6 +115,30 @@ def _place(tree, specs, policy: ShardingPolicy, device):
     return treedef.unflatten(out)
 
 
+def _world_of(mesh, cfg: ModelConfig, policy: ShardingPolicy, what: str):
+    """``mesh`` where it is a world's, after checking that this slice
+    splits ``cfg`` there; None outside a world."""
+    if not (isinstance(mesh, DeviceMesh) and mesh.in_world):
+        return None
+    if mesh.axis_size("model") > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{what} of the {cfg.family} family with tensor parallelism "
+            "across ranks (ROADMAP A12b-2: dense only)")
+    if what == "training" and (cfg.participant_granularity != "data_rank"
+                               or "pod" in mesh.axis_names):
+        raise NotImplementedError(
+            f"training at {cfg.participant_granularity!r} granularity on "
+            f"a {mesh.axis_names} world (ROADMAP A12b-2: data_rank on "
+            "data x model)")
+    return mesh
+
+
+def _rows(tree, mesh: DeviceMesh, axis, n_local: int):
+    """Every leaf's rows (dim 0) of this rank's index along ``axis``."""
+    i = mesh.axis_index(axis)
+    return tree_map(lambda x: x[i * n_local:(i + 1) * n_local], tree)
+
+
 def _stack_copies(tree, P):
     """P real copies of every leaf along a new leading axis (each slot is
     then updated on its own, so no slot may be a view of another)."""
@@ -114,6 +161,21 @@ class DistributedTrainer:
         self.strategy: Strategy = build_strategy(strategy, tcfg)
         self.opt = optim.build(tcfg)
         self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
+        self.world = _world_of(self.mesh, cfg, self.policy, "training")
+        if self.world is not None and self.world.axis_size("model") > 1 \
+                and tcfg.grad_clip:
+            raise NotImplementedError(
+                "a gradient clip under tensor parallelism across ranks "
+                "(ROADMAP A12b-2)")
+
+    @property
+    def local_participants(self) -> int:
+        """The participant replicas this process holds (P / data in a
+        world, else P)."""
+        P = self.policy.n_participants
+        if self.world is None:
+            return P
+        return P // self.world.axis_size(self.policy.part_axis)
 
     # ------------------------------------------------------------------ state
 
@@ -132,10 +194,16 @@ class DistributedTrainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         """P copies of one model drawn from ``seed`` on the trainer's
-        device (placed by :meth:`shard_state` where there is a mesh)."""
+        device (placed by :meth:`shard_state` where there is a mesh). In a
+        world, this rank's shard: its P / data copies of its slices of the
+        model."""
         P = self.policy.n_participants
         gen = torch.Generator(device=self.device).manual_seed(seed)
         params = self.model.init(gen, self.device)
+        if self.world is not None:
+            params = local_shard(params, self.policy.param_spec(
+                params, with_participants=False), self.world)
+            P = self.local_participants
         params_P = _stack_copies(params, P)
         opt_P = _stack_copies(self.opt.init(params), P)
         del params
@@ -143,15 +211,63 @@ class DistributedTrainer:
         state = TrainState(params_P, opt_P, server,
                            torch.zeros((), dtype=torch.int32,
                                        device=self.device))
-        if self.mesh is not None:
+        if self.mesh is not None and self.world is None:
             state = self.shard_state(state)
         return state
 
     def shard_state(self, state: TrainState) -> TrainState:
-        """Place a state by :meth:`state_spec`: every spec checked to
-        divide its leaf, every leaf whole on the trainer's device."""
+        """Place a whole state by :meth:`state_spec`: every spec checked
+        to divide its leaf; every leaf whole on the trainer's device, or
+        in a world this rank's slice of it."""
+        if self.world is not None:
+            state = tree_map(lambda x: x.to(self.device), state)
+            return local_shard(state, self.state_spec(state), self.world)
         return _place(state, self.state_spec(state), self.policy,
                       self.device)
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """The whole state from every rank's shards (in a world; every
+        rank takes part and gets it); the state itself outside one."""
+        if self.world is None:
+            return state
+        return gather_tree(state, self.state_spec(self.abstract_state()),
+                           self.world)
+
+    def param_sketch(self, state: TrainState, k: int = 4) -> torch.Tensor:
+        """``k`` seeded Gaussian projections of each parameter leaf of the
+        first replica this process holds: ``(leaves, k)`` float64 on the
+        CPU. In a world each rank projects its slice on the same slice of
+        the whole leaf's directions and the ``model`` axis sums the
+        pieces, so a world and one process give the same numbers for the
+        same replica, up to the order of the sums. The sketch is linear:
+        two runs' changes from one start compare by relative norm without
+        gathering a replica."""
+        tp = self.world is not None and self.world.axis_size("model") > 1
+        whole = self.abstract_state().params
+        one = tree_map(lambda x: torch.empty(tuple(x.shape[1:]),
+                                             dtype=x.dtype, device="meta"),
+                       whole)
+        specs = tree_flatten(one)[1].flatten_up_to(
+            self.policy.param_spec(one, with_participants=False))
+        gen = torch.Generator(device=self.device)
+        out = torch.zeros((len(specs), k), dtype=torch.float64,
+                          device=self.device)
+        for i, (x, w, spec) in enumerate(zip(tree_leaves(state.params),
+                                             tree_leaves(one), specs)):
+            split = tp and any("model" in (a if isinstance(a, tuple)
+                                           else (a,)) for a in spec)
+            if tp and not split and self.world.axis_index("model"):
+                continue            # one model rank holds the whole leaf
+            for j in range(k):
+                gen.manual_seed(i * k + j)
+                r = torch.randn(tuple(w.shape), generator=gen,
+                                device=self.device)
+                if self.world is not None:
+                    r = local_shard([r], [spec], self.world)[0]
+                out[i, j] = torch.sum(x[0].double() * r.double())
+        if tp:
+            collectives.all_reduce(out, self.world.group("model"))
+        return out.cpu()
 
     # ------------------------------------------------------------- shardings
 
@@ -196,16 +312,28 @@ class DistributedTrainer:
         reductions (the clip's global norm, adamw's step count) are per
         participant. ``local_steps`` is read from the batch, as in the
         reference."""
-        from repro_torch.engine.lowering import stacked_value_and_grad
+        from repro_torch.engine.lowering import (looped_value_and_grad,
+                                                 stacked_value_and_grad)
         from repro_torch.models.tasks import refuse_flash_training
 
         cfg, model, opt, strategy = self.cfg, self.model, self.opt, \
             self.strategy
-        grads_of = stacked_value_and_grad(model.loss_fn)
+        world = self.world
+        tp = world is not None and world.axis_size("model") > 1
+        grads_of = (looped_value_and_grad if tp
+                    else stacked_value_and_grad)(model.loss_fn)
         update_of = torch.func.vmap(opt.update)
 
         def train_step(state: TrainState, batch, weights):
             refuse_flash_training(cfg)
+            if world is None:
+                return local_step(state, batch, weights)
+            batch = _rows(batch, world, self.policy.part_axis,
+                          self.local_participants)
+            with L.tensor_parallel(world):
+                return local_step(state, batch, weights)
+
+        def local_step(state: TrainState, batch, weights):
             E = tree_leaves(batch)[0].shape[1]
             micro = [tree_map(lambda x: x[:, e], batch) for e in range(E)]
             params_P, opt_P = state.params, state.opt_state
@@ -227,13 +355,68 @@ class DistributedTrainer:
                     params_P = optim.apply_updates(params_P, upd)
                     step_losses.append(loss)
                 losses = torch.mean(torch.stack(step_losses), dim=0)
-            new_P, server = strategy.mix(state.params, params_P, weights,
-                                         state.server_state, hop)
+            new_P, server = self._mix(state.params, params_P, weights,
+                                      state.server_state, hop)
+            if world is not None:
+                losses = collectives.all_gather(
+                    losses, world.group(self.policy.part_axis))
             metrics = {"loss": torch.mean(losses),
                        "active": torch.sum(weights)}
             return TrainState(new_P, opt_P, server, state.round + 1), metrics
 
         return train_step
+
+    def mix_form(self, new_P) -> str:
+        """How a world's mix meets the other ``data`` ranks: ``"gather"``,
+        the whole P axis and the one-process arithmetic (bit for bit the
+        one-process mix), or ``"reduce"``, a weighted mean's fp32 partials
+        summed over ``data`` (at tolerance: another summation order). The
+        reduction serves a plain weighted mean alone (modest and fedavg
+        without a server optimizer), where the gathered replicas would take
+        more than half the card's memory (``config.H100.hbm_bytes``): the
+        state's own sizes decide, so a configuration takes one form on
+        every device and in every run."""
+        plain_mean = (self.strategy.name in ("modest", "fedavg")
+                      and self.tcfg.server_optimizer in ("avg", "sgd"))
+        need = self.world.axis_size(self.policy.part_axis) * sum(
+            x.numel() * x.element_size() for x in tree_leaves(new_P))
+        return "reduce" if plain_mean and need > H100.hbm_bytes / 2 \
+            else "gather"
+
+    def _mix(self, prev_P, new_P, weights, server_state, hop):
+        """The strategy's mix; in a world, by :meth:`mix_form`: of the
+        whole P axis gathered over ``data`` (this rank's rows kept), or the
+        weighted mean's shares (``strategy.weighted_mean_share``) summed
+        over ``data``."""
+        if self.world is None:
+            return self.strategy.mix(prev_P, new_P, weights, server_state,
+                                     hop)
+        group = self.world.group(self.policy.part_axis)
+        if self.mix_form(new_P) == "reduce":
+            n = self.local_participants
+            i = self.world.axis_index(self.policy.part_axis)
+            share = weighted_mean_share(weights, slice(i * n, (i + 1) * n),
+                                        getattr(torch, self.tcfg.agg_dtype))
+
+            def reduced(x):
+                part = collectives.all_reduce(share(x), group)
+                return part.to(x.dtype)[None].expand(x.shape).contiguous()
+
+            return tree_map(reduced, new_P), server_state
+
+        def whole(tree):
+            return tree_map(lambda x: collectives.all_gather(x, group),
+                            tree)
+
+        # only the server optimizer reads the replicas before the round
+        reads_prev = (self.strategy.name in ("modest", "fedavg")
+                      and self.tcfg.server_optimizer not in ("avg", "sgd"))
+        out, server_state = self.strategy.mix(
+            whole(prev_P) if reads_prev else prev_P, whole(new_P), weights,
+            server_state, hop)
+        out = _rows(out, self.world, self.policy.part_axis,
+                    self.local_participants)
+        return tree_map(lambda x: x.contiguous(), out), server_state
 
     def jit_train_step(self, state_template: Optional[TrainState] = None,
                        batch_template=None, **kw):
@@ -265,6 +448,10 @@ class Server:
         self.policy = ShardingPolicy(cfg, mesh_cfg)
         self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
         self.shard_seq = shard_seq
+        self.world = _world_of(self.mesh, cfg, self.policy, "serving")
+        if self.world is not None and shard_seq:
+            raise NotImplementedError("a cache split by sequence across "
+                                      "ranks (ROADMAP A12b-2)")
 
     def abstract_cache(self, batch_size: int, max_len: int):
         """The cache's shapes and dtypes, on the ``meta`` device."""
@@ -276,14 +463,29 @@ class Server:
         return pspec, cspec
 
     def shard_params(self, params):
-        """Place host-initialized params by their specs on the server's
-        device."""
-        return _place(params, self.policy.param_spec(
-            params, with_participants=False), self.policy, self.device)
+        """Place whole params by their specs on the server's device (in a
+        world: this rank's slices)."""
+        spec = self.policy.param_spec(params, with_participants=False)
+        if self.world is not None:
+            return local_shard(tree_map(lambda x: x.to(self.device), params),
+                               spec, self.world)
+        return _place(params, spec, self.policy, self.device)
 
     def shard_cache(self, cache):
-        return _place(cache, self.policy.cache_spec(
-            cache, shard_seq=self.shard_seq), self.policy, self.device)
+        """Place a whole cache by its specs (in a world: this rank's
+        slices, batch rows over ``data`` and kv heads over ``model``; a
+        spec that splits the sequence raises)."""
+        spec = self.policy.cache_spec(cache, shard_seq=self.shard_seq)
+        if self.world is not None:
+            for s in tree_flatten(cache)[1].flatten_up_to(spec):
+                if len(s) > 2 and s[2] is not None:
+                    raise NotImplementedError(
+                        f"a cache spec {s} splits the sequence (kv heads "
+                        "the model axis does not divide; ROADMAP A12b-2)")
+            cache = tree_map(lambda x: x.to(self.device)
+                             if isinstance(x, torch.Tensor) else x, cache)
+            return local_shard(cache, spec, self.world)
+        return _place(cache, spec, self.policy, self.device)
 
     def jit_prefill(self, params_t, batch_t, cache_t):
         """The prefill callable, :meth:`prefill`: PyTorch compiles nothing,
@@ -300,8 +502,25 @@ class Server:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        return self.model.prefill(params, batch, cache)
+        return self._serve(self.model.prefill, params, batch, cache)
 
     @torch.no_grad()
     def decode(self, params, token, cache):
-        return self.model.decode_step(params, token, cache)
+        return self._serve(self.model.decode_step, params, token, cache)
+
+    def _serve(self, fn, params, batch, cache):
+        """``fn(params, batch, cache)``; in a world, on this rank's batch
+        rows (``data``) and shards (``model``), the logits gathered over
+        ``data``: every rank returns the whole logits and its own
+        cache."""
+        if self.world is None:
+            return fn(params, batch, cache)
+        B = tree_leaves(batch)[0].shape[0]
+        n = self.world.axis_size("data")
+        if B % n:
+            raise ValueError(f"a batch of {B} over {n} data ranks")
+        with L.tensor_parallel(self.world):
+            logits, cache = fn(params, _rows(batch, self.world, "data",
+                                             B // n), cache)
+        return collectives.all_gather(logits, self.world.group("data")), \
+            cache

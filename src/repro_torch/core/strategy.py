@@ -46,15 +46,30 @@ def _weighted_mean_bcast(trees_P, weights, agg_dtype=torch.float32):
     w/Σw is applied *before* the reduction, so that bfloat16 stays in a
     well-conditioned range.
     """
-    w = weights.to(torch.float32)
-    total = torch.clamp_min(torch.sum(w), 1e-9)
-    wn = (w / total).to(agg_dtype)
+    wn = _normalised(weights, agg_dtype)
 
     def leaf(x):
         avg = torch.tensordot(wn, x.to(agg_dtype), dims=([0], [0]))
         return avg[None].expand(x.shape).to(x.dtype)
 
     return tree_map(leaf, trees_P)
+
+
+def _normalised(weights, agg_dtype):
+    w = weights.to(torch.float32)
+    return (w / torch.clamp_min(torch.sum(w), 1e-9)).to(agg_dtype)
+
+
+def weighted_mean_share(weights, rows: slice, agg_dtype=torch.float32):
+    """The share of :func:`_weighted_mean_bcast`'s mean that the replicas
+    ``rows`` of the whole P axis hold, as a function of one leaf holding
+    those rows: its weighted sum in ``agg_dtype``, returned in fp32 and
+    without the P axis. Summed over shares that cover P it is the mean, in
+    another summation order (a world's reduce form of the mix,
+    ``DistributedTrainer.mix_form``)."""
+    wn = _normalised(weights, agg_dtype)[rows]
+    return lambda x: torch.tensordot(wn, x.to(agg_dtype),
+                                     dims=([0], [0])).to(torch.float32)
 
 
 def _mean_P(tree_P):

@@ -335,17 +335,27 @@ class BatchedEngine:
         if buf.device != dev:
             raise ValueError(f"submitted params live on {buf.device}, the "
                              f"task on {dev}")
-        state = self._opt.init(buf)
         # one host->device copy per array for the whole group, then one
         # step per batch index
         xs_d, ys_d, ms_d, act_d = (torch.from_numpy(a).to(dev)
                                    for a in (xs, ys, ms, act))
-        for t in range(T):
-            buf, state = self._step(buf, state, xs_d[t], ys_d[t], ms_d[t],
-                                    act_d[t])
+        # handed over in a list, so that _train holds the stack's only
+        # reference and each step frees the stack before it
+        held = [buf]
+        del buf
+        buf = self._train(held, xs_d, ys_d, ms_d, act_d)
         for s, j in enumerate(jobs):
             self._done[j.key] = (FlatModel(buf[s], self._out_spec(j.params)),
                                  j.params, j.confirmed, j.hp)
+
+    def _train(self, held, xs, ys, ms, act):
+        """The ``(S, N)`` stack (``held``'s one element, taken out) after
+        one step per batch index."""
+        buf = held.pop()
+        state = self._opt.init(buf)
+        for t in range(xs.shape[0]):
+            buf, state = self._step(buf, state, xs[t], ys[t], ms[t], act[t])
+        return buf
 
     def _out_spec(self, params):
         """Results must come back in the *submitted* params' dtypes (e.g. a
@@ -364,29 +374,62 @@ class BatchedEngine:
 
 
 class MeshEngine(BatchedEngine):
-    """BatchedEngine whose aggregations split the flat parameter axis N over
-    a device mesh (a tuple of devices, see :mod:`repro_torch.sharding`).
+    """BatchedEngine whose flat buffers split the parameter axis N over a
+    device mesh (see :mod:`repro_torch.sharding`).
 
-    Aggregation takes the per-shard one-pass path
-    (:meth:`FlatSpec.sharding`, ``kernels.fused.*_sharded``): shard r runs
-    on ``mesh[r]`` and the result is gathered on the mesh's first device,
-    where the task lives, its mean, codes and scales bit-identical to the
-    batched engine's. Cohort training runs on that first device as in
-    ``batched``: the reference's step partitioned over the mesh's devices
-    (GSPMD) needs collectives across cards, which this package does not
-    have yet. Event semantics are untouched — same simulated rounds,
-    durations and byte accounting as ``batched``.
+    In one process the mesh is a tuple of devices. Aggregation takes the
+    per-shard one-pass path (:meth:`FlatSpec.sharding`,
+    ``kernels.fused.*_sharded``): shard r runs on ``mesh[r]`` and the
+    result is gathered on the mesh's first device, where the task lives,
+    its mean, codes and scales bit-identical to the batched engine's.
+    Cohort training runs on that first device as in ``batched``.
+
+    In a world (``launch.world``; ``mesh`` a world's ``DeviceMesh``, split
+    over its ``model`` axis) this is the reference's
+    ``_cohort_ops(task, shardings)``: each rank holds its lane chunk of the
+    ``(S, N)`` parameter and optimizer-state buffers (:func:`shard_align`
+    lanes, zero-padded at the tail); a step gathers the parameter buffer,
+    computes the gradients on the whole (replicated) leaves, and updates
+    the rank's own chunk, elementwise over N, so no value changes. The
+    trained stack is gathered for the session, whose event loop every rank
+    runs whole. Aggregation runs B1 / B2 on the rank's chunk, or B4 / B5
+    at the chunk's ``base`` with the global ``n_valid``, and gathers the
+    chunks. ``state_lanes`` records the lanes of the last group's state.
+
+    Event semantics are untouched — same simulated rounds, durations and
+    byte accounting as ``batched``.
     """
 
     name = "sharded"
+    state_lanes: Optional[Dict[str, tuple]] = None
 
     def __init__(self, task, mesh):
         super().__init__(task)
         self.shardings = task.flat_spec.sharding(mesh)
         self.mesh = self.shardings.mesh
-        if self.mesh[0] != task.device:
-            raise ValueError(f"mesh starts at {self.mesh[0]}, the task lives "
-                             f"on {task.device}")
+        if self.shardings.home != task.device:
+            raise ValueError(f"mesh starts at {self.shardings.home}, the "
+                             f"task lives on {task.device}")
+
+    def _train(self, held, xs, ys, ms, act):
+        sh = self.shardings
+        if sh.group is None:
+            return super()._train(held, xs, ys, ms, act)
+        from repro_torch import collectives
+        from repro_torch.kernels.fused import shard_chunk
+
+        N = held[0].shape[1]
+        _, part = shard_chunk(held.pop(), sh.rank, sh.n_shards)
+        state = self._opt.init(part)
+        grads, update = _world_ops(self.task)
+        for t in range(xs.shape[0]):
+            whole = collectives.all_gather(part, sh.group, dim=1)[:, :N]
+            g = grads(whole, xs[t], ys[t], ms[t])
+            del whole
+            g = [shard_chunk(g, sh.rank, sh.n_shards)[1]]
+            part, state = update(g, state, part, act[t])
+        self.state_lanes = {k: tuple(v.shape) for k, v in state.items()}
+        return collectives.all_gather(part, sh.group, dim=1)[:, :N]
 
     def aggregate(self, models, weights=None):
         return self.task.aggregate(models, weights,
@@ -395,6 +438,47 @@ class MeshEngine(BatchedEngine):
     def aggregate_masked(self, models, seeds, signs, weights=None):
         return self.task.aggregate_masked(models, seeds, signs, weights,
                                           shardings=self.shardings)
+
+
+def _gated_update(opt_update, grad, state, buf, active):
+    """The optimizer's update of the ``(S, n)`` rows ``buf`` by the
+    gradient in the one-element list ``grad``, gated per row by
+    ``active``; elementwise over the lanes. The gradient is taken out of
+    the list, so it is freed once the update has read it: the packed
+    gradient lives only until the update, and the update takes the sum in
+    place (buf + upd, the same bits): (4 + 4 + 4) bytes a lane a member at
+    the update's peak, not 22, which is what lets a published-width MoE
+    layer train in cohorts of two on one card."""
+    with torch.no_grad():
+        upd, nstate = opt_update(grad.pop(), state, buf)
+        keep = active[:, None]
+        nbuf = torch.where(keep, upd.add_(buf), buf)
+        nstate = {k: (torch.where(keep, v, state[k]) if v.dim() == 2
+                      else torch.where(active, v, state[k]))
+                  for k, v in nstate.items()}
+    return nbuf, nstate
+
+
+def _world_ops(task):
+    """(packed stacked gradient of a whole ``(S, N)`` stack, gated update
+    of a lane chunk) for a world's :class:`MeshEngine`, cached on the
+    task."""
+    cached = getattr(task, "_world_ops_cache", None)
+    if cached is not None:
+        return cached
+    spec = task.flat_spec
+    grads = stacked_grads_for(task)
+    opt_update = _cohort_ops(task)[0].update
+
+    def grad_rows(whole, xb, yb, mb):
+        return spec.pack_stacked(grads(spec.unpack_stacked(whole), xb, yb,
+                                       mb))
+
+    def update(grad, state, part, active):
+        return _gated_update(opt_update, grad, state, part, active)
+
+    ops = task._world_ops_cache = (grad_rows, update)
+    return ops
 
 
 def _cohort_ops(task):
@@ -416,21 +500,10 @@ def _cohort_ops(task):
     opt_update = opt.update
 
     def step(buf, state, xb, yb, mb, active):
-        # the unpacked leaves live only through the gradient, the packed
-        # gradient only until the update, and the update takes the sum in
-        # place (buf + upd, the same bits): (4 + 4 + 4) bytes a lane a
-        # member at the update's peak, not 22, which is what lets a
-        # published-width MoE layer train in cohorts of two on one card
-        g = spec.pack_stacked(grads(spec.unpack_stacked(buf), xb, yb, mb))
-        with torch.no_grad():
-            upd, nstate = opt_update(g, state, buf)
-            del g
-            keep = active[:, None]
-            nbuf = torch.where(keep, upd.add_(buf), buf)
-            nstate = {k: (torch.where(keep, v, state[k]) if v.dim() == 2
-                          else torch.where(active, v, state[k]))
-                      for k, v in nstate.items()}
-        return nbuf, nstate
+        # the unpacked leaves live only through the gradient
+        return _gated_update(opt_update, [spec.pack_stacked(
+            grads(spec.unpack_stacked(buf), xb, yb, mb))], state, buf,
+            active)
 
     ops = task._cohort_ops_cache = (opt, step)
     return ops
@@ -446,7 +519,8 @@ def make_engine(kind: Optional[str], task, device=None):
     with its aggregations split over the local cards
     (:func:`repro_torch.launch.mesh.make_engine_mesh`); with fewer than two
     (one card, or the CPU) it falls back to "batched" (sharding would be a
-    no-op).
+    no-op). Inside a world (``launch.world``) "sharded" splits N over every
+    rank of the world, whatever its size.
 
     ``device``: None means the card, like every entry point; a task that
     lives on another device than the one asked for raises.
@@ -463,6 +537,10 @@ def make_engine(kind: Optional[str], task, device=None):
         if not getattr(task, "supports_cohort", False):
             return SequentialEngine(task)
         from repro_torch.launch.mesh import make_engine_mesh
+        from repro_torch.launch.world import current_world
+        world = current_world()
+        if world is not None:                 # N over every rank
+            return MeshEngine(task, world.mesh((world.size,), ("model",)))
         mesh = make_engine_mesh(device)
         if mesh is None:
             return BatchedEngine(task)

@@ -189,6 +189,27 @@ def stacked_value_and_grad(loss_fn):
     return value_and_grad
 
 
+def looped_value_and_grad(loss_fn):
+    """:func:`stacked_value_and_grad` with a Python loop over the members
+    in place of ``vmap``: for a loss that issues collectives (tensor
+    parallelism over a world's ``model`` axis), which ``vmap`` cannot
+    batch. One backward pass of the members' summed losses."""
+    from repro_torch.utils.pytree import tree_flatten, tree_map
+
+    def value_and_grad(ptree, batch):
+        leaves, treedef = tree_flatten(ptree)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        params = treedef.unflatten(leaves)
+        losses = torch.stack([
+            loss_fn(tree_map(lambda x: x[i], params),
+                    tree_map(lambda x: x[i], batch))[0]
+            for i in range(leaves[0].shape[0])])
+        grads = torch.autograd.grad(torch.sum(losses), leaves)
+        return losses.detach(), treedef.unflatten(list(grads))
+
+    return value_and_grad
+
+
 def _token_grads(task):
     """Per-member gradients of one LM's masked loss, any token family
     (:func:`stacked_value_and_grad` of its ``loss_fn``); ``xb`` tokens and

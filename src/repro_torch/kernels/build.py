@@ -30,6 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
+# False in a rank of a world (``launch.world``): its parent built every
+# library, and a rank that would have to run nvcc raises instead
+NVCC_ALLOWED = True
+
 
 def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build"
@@ -76,6 +80,10 @@ def build(names: Iterable[str]) -> List[Path]:
     for name, out in zip(names, outs):
         if out.exists():
             continue
+        if not NVCC_ALLOWED:
+            raise RuntimeError(f"{out} is not built, and this process may "
+                               "not run nvcc (a rank of a world loads the "
+                               "libraries its parent built)")
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         jobs.append((out, tmp, [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),

@@ -28,7 +28,9 @@ The two masked kernels take the reference's lane ``base`` and a global
 ``n_valid``, so one launch can unmask one shard of longer rows. The four
 ``*_sharded`` entry points split N over a mesh of devices (one device may
 stand in it k times) and launch one kernel a shard; their results equal
-one call's bit for bit.
+one call's bit for bit. Over a world's mesh (``FlatShardings`` with a
+process group) each rank launches the kernel on its own chunk alone and
+the chunks' results are gathered on every rank.
 
 These replace the reference package's Pallas kernels ``_agg_kernel``,
 ``_agg_quant_kernel``, ``_unmask_agg_kernel``, ``_unmask_agg_quant_kernel``
@@ -582,25 +584,32 @@ def _mesh_devices(mesh):
     return tuple(torch.device(d) for d in getattr(mesh, "mesh", mesh))
 
 
+def shard_chunk(x, r: int, k: int, device=None):
+    """``(base, x_r)``: lanes ``[base, base + local_n)`` of ``x`` (its last
+    dimension of N lanes), ``local_n = shard_align(N, k) / k`` and ``base =
+    r·local_n``, as a new tensor on ``device`` (None: ``x``'s) with the
+    lanes past N zero: shard r of k. Only bits are copied (a sealed stack
+    comes as its int32 view)."""
+    N = x.shape[-1]
+    local_n = shard_align(N, k) // k
+    lo = min(N, r * local_n)
+    hi = min(N, lo + local_n)
+    xr = torch.zeros(x.shape[:-1] + (local_n,), dtype=x.dtype,
+                     device=x.device if device is None else device)
+    xr[..., :hi - lo] = x[..., lo:hi]
+    return r * local_n, xr
+
+
 def _pad_sharded(x, int_mask, devices):
-    """``[(base, x_r, mask_r)]``: the ``(P, N)`` stack (and its mask) padded
-    with zeros to ``shard_align(N, k)`` and cut into k contiguous
-    ``(P, local_n)`` shards, shard r on ``devices[r]`` starting at lane
-    ``base = r·local_n``. Only bits are copied (a sealed stack comes as its
-    int32 view)."""
-    P, N = x.shape
-    local_n = shard_align(N, len(devices)) // len(devices)
+    """``[(base, x_r, mask_r)]``: the ``(P, N)`` stack (and its mask) as
+    k shards (:func:`shard_chunk`), shard r on ``devices[r]``."""
+    k = len(devices)
     shards = []
     for r, dev in enumerate(devices):
-        lo = min(N, r * local_n)
-        hi = min(N, lo + local_n)
-        xr = torch.zeros((P, local_n), dtype=x.dtype, device=dev)
-        xr[:, :hi - lo] = x[:, lo:hi]
-        mr = None
-        if int_mask is not None:
-            mr = torch.zeros((local_n,), dtype=int_mask.dtype, device=dev)
-            mr[:hi - lo] = int_mask[lo:hi]
-        shards.append((r * local_n, xr, mr))
+        base, xr = shard_chunk(x, r, k, dev)
+        mr = None if int_mask is None else shard_chunk(int_mask, r, k,
+                                                       dev)[1]
+        shards.append((base, xr, mr))
     return shards
 
 
@@ -625,11 +634,34 @@ def _gather(outs, devices, N):
     return mean[:N], codes[:N], scales[:-(-N // SUBTILE)]
 
 
+def _world_chunk(x, int_mask, mesh):
+    """This rank's ``(base, x_r, mask_r)`` of :func:`_pad_sharded`, where
+    ``mesh`` is a world's ``FlatShardings``."""
+    base, xr = shard_chunk(x, mesh.rank, mesh.n_shards)
+    mr = None if int_mask is None else shard_chunk(int_mask, mesh.rank,
+                                                   mesh.n_shards)[1]
+    return base, xr, mr
+
+
+def _world_gather(out, mesh, N):
+    """Every rank's chunk result gathered over the model axis's group, on
+    every rank, trimmed as :func:`_gather` trims."""
+    from repro_torch import collectives
+    if isinstance(out, torch.Tensor):
+        return collectives.all_gather(out, mesh.group)[:N]
+    mean, codes, scales = (collectives.all_gather(o, mesh.group)
+                           for o in out)
+    return mean[:N], codes[:N], scales[:-(-N // SUBTILE)]
+
+
 def _sharded_onepass(x, w, int_mask, mesh, quantize):
     x, w, m = _check_args(x, w, int_mask)
+    agg = aggregate_quantize_flat if quantize else aggregate_flat_onepass
+    if getattr(mesh, "group", None) is not None:       # a world
+        _, xr, mr = _world_chunk(x, m, mesh)
+        return _world_gather(agg(xr, w, mr), mesh, x.shape[1])
     devices = _mesh_devices(mesh)
     ws = _on(w, devices)
-    agg = aggregate_quantize_flat if quantize else aggregate_flat_onepass
     outs = [agg(xr, ws[xr.device], mr)
             for _, xr, mr in _pad_sharded(x, m, devices)]
     return _gather(outs, devices, x.shape[1])
@@ -657,11 +689,16 @@ def aggregate_quantize_flat_sharded(x, w, int_mask=None, *, mesh):
 def _sharded_unmask(y, w, int_mask, seeds, signs, mesh, quantize):
     y, w, m = _check_args(y, w, int_mask)
     _check_mask_args(seeds, signs, y.shape[0], y.device)
-    devices = _mesh_devices(mesh)
     N = y.shape[1]
-    ws, sd, sg = (_on(t, devices) for t in (w, seeds, signs))
     agg = (unmask_aggregate_quantize_flat if quantize
            else unmask_aggregate_flat)
+    if getattr(mesh, "group", None) is not None:       # a world
+        base, yr, mr = _world_chunk(y.view(torch.int32), m, mesh)
+        out = agg(yr.view(torch.float32), w, mr, seeds=seeds, signs=signs,
+                  base=base, n_valid=N)
+        return _world_gather(out, mesh, N)
+    devices = _mesh_devices(mesh)
+    ws, sd, sg = (_on(t, devices) for t in (w, seeds, signs))
     outs = []
     for base, yr, mr in _pad_sharded(y.view(torch.int32), m, devices):
         dev = yr.device

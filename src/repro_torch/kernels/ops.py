@@ -123,9 +123,11 @@ def quantized_delta_pull(codes, scales, theta_ref):
 
 def _sharded(shardings, device):
     """True where ``shardings`` splits the aggregation (more than one
-    shard); its mesh must start at ``device``, where the models live and
-    the result lands."""
-    if shardings is None or shardings.n_shards <= 1:
+    shard, or a world's mesh of any size); its home must be ``device``,
+    where the models live and the result lands (the mesh's first device,
+    or in a world this rank's)."""
+    if shardings is None or (shardings.n_shards <= 1
+                             and shardings.group is None):
         return False
     if shardings.replicated.home != device:
         raise ValueError(f"mesh starts at {shardings.replicated.home}, "

@@ -5,11 +5,13 @@ touches no device state.
 
 The production mesh (``data`` x ``model``, 16 x 16 a pod; ``pod`` x
 ``data`` x ``model`` with ``multi_pod``) is a
-:class:`~repro_torch.sharding.DeviceMesh` whose entries all name one
-device: on one card every entry names the card (256 entries, 512 with
-``multi_pod``), and every tensor lies whole on it, as
-``launch/train.py --mode mesh`` stacks its participants there. A mesh of
-distinct devices is not built here (ROADMAP A12b).
+:class:`~repro_torch.sharding.DeviceMesh`. In one process its entries all
+name one device: on one card every entry names the card (256 entries, 512
+with ``multi_pod``), and every tensor lies whole on it, as
+``launch/train.py --mode mesh`` stacks its participants there. Inside a
+world (:mod:`repro_torch.launch.world`, one process a device) the mesh is
+the world's: its entries are the ranks' devices, each axis has its
+process group, and tensors are split over the ranks by their specs.
 """
 
 from __future__ import annotations
@@ -19,13 +21,22 @@ import math
 import torch
 
 from repro_torch.config import MeshConfig
+from repro_torch.launch.world import current_world
 from repro_torch.sharding import DeviceMesh
 from repro_torch.utils.device import resolve_device
 
 
 def make_mesh(shape, axes, device=None) -> DeviceMesh:
-    """A mesh of ``shape`` over the named ``axes`` whose every entry names
-    ``device`` (None: the card)."""
+    """A mesh of ``shape`` over the named ``axes``. Inside a world, the
+    world's mesh (``World.mesh``; ``device``, if given, must be this
+    rank's); otherwise a mesh whose every entry names ``device`` (None:
+    the card)."""
+    world = current_world()
+    if world is not None:
+        if device is not None and resolve_device(device) != world.device:
+            raise ValueError(f"rank {world.rank} runs on {world.device}, "
+                             f"the caller asked for {device}")
+        return world.mesh(shape, axes)
     return DeviceMesh((resolve_device(device),) * math.prod(shape),
                       tuple(axes), tuple(shape))
 

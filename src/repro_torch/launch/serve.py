@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch 4 --prompt-len 32 --new-tokens 16 [--devices 8] \\
-        [--full-size] [--set use_flash=true] [--device cpu]
+        [--full-size] [--set use_flash=true] [--device cpu] [--world]
 
 Runs the reduced config by default and the published one with
 ``--full-size``, on the card unless ``--device`` names another. Weights come
@@ -21,6 +21,20 @@ serving device: the parameters and the cache are placed by their specs on
 that mesh (each spec checked to divide its tensor) and lie whole on the
 device, so the tokens are those of one-device serving. A model-parallel
 degree that does not divide N stops the launcher.
+
+With ``--world`` as well, the N entries are the devices of a world of N
+ranks, one process a device (``launch.world``): the batch is split over
+``data``, the parameters by their specs and the cache's kv heads over
+``model`` (tensor parallelism; with ``use_flash`` each rank's prefill runs
+the flash kernel on its own heads), every rank holds the whole logits and
+so draws the same tokens, and rank 0 prints the lines. :func:`main` then
+returns rank 0's results with ``ranks``, each rank's report
+(``launch.world.rank_report``).
+
+``main(argv, teacher=ids)`` feeds the decode steps the ``(B, >=
+new_tokens - 1)`` ``ids`` in place of its own greedy tokens and returns
+the last position's logits of the prefill and of every decode step under
+``step_logits`` (fp32, on the CPU).
 """
 
 from __future__ import annotations
@@ -37,7 +51,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def main(argv=None):
+WORLD_TIMEOUT = 3600.0     # seconds a world of the launcher may take
+
+
+def main(argv=None, teacher=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4)
@@ -52,8 +69,35 @@ def main(argv=None):
                     help="override a field of the model's config")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--world", action="store_true",
+                    help="with --devices N: a world of N ranks, one "
+                         "process a device (launch.world)")
     args = ap.parse_args(argv)
+    if args.world:
+        from repro_torch.launch.world import run_world
+        if not args.devices:
+            raise SystemExit("--world needs --devices: the number of ranks")
+        ranks = run_world(_serve_rank, args.devices, device=args.device,
+                          args=(args, teacher), timeout=WORLD_TIMEOUT)
+        return dict(ranks[0], ranks=[r["report"] for r in ranks])
+    return serve(args, teacher)
 
+
+def _serve_rank(world, args, teacher):
+    """One rank of ``--world``: :func:`serve`, its report (the logits of
+    rank 0 alone)."""
+    from repro_torch.launch.world import rank_report
+
+    t0 = time.perf_counter()  # noqa: DL002(a rank's seconds, reported only)
+    out = serve(args, teacher, quiet=world.rank != 0)
+    out["report"] = rank_report(world, time.perf_counter() - t0)  # noqa: DL002(a rank's seconds, reported only)
+    if world.rank != 0:
+        out.pop("step_logits", None)
+    return out
+
+
+def serve(args, teacher=None, quiet: bool = False):
+    """Serve as ``args`` (the parsed options) say; see :func:`main`."""
     from repro_torch import configs
     from repro_torch.config import MeshConfig, parse_overrides
     from repro_torch.core.distributed import Server
@@ -111,9 +155,14 @@ def main(argv=None):
 
     tok = torch.argmax(logits[:, -1:], dim=-1)
     generated = [tok]
+    steps = [logits[:, -1].float().cpu()] if teacher is not None else None
     t0 = time.perf_counter()  # noqa: DL002(prefill/decode throughput timing display)
-    for _ in range(args.new_tokens - 1):
+    for i in range(args.new_tokens - 1):
+        if teacher is not None:
+            tok = torch.as_tensor(teacher[:, i:i + 1], device=dev)
         logits, cache = decode(params, tok, cache)
+        if teacher is not None:
+            steps.append(logits[:, -1].float().cpu())
         tok = torch.argmax(logits[:, -1:], dim=-1)
         generated.append(tok)
     _sync(dev)
@@ -121,14 +170,18 @@ def main(argv=None):
 
     toks = torch.cat(generated, dim=1).cpu().numpy()
     tps = args.batch * (args.new_tokens - 1) / max(t_decode, 1e-9)
-    print(f"[serve] arch={cfg.name} device={dev} devices={mesh.size} "
-          f"batch={args.batch} "
-          f"prefill({args.prompt_len} toks)={t_prefill:.3f}s "
-          f"decode={t_decode:.3f}s ({tps:.1f} tok/s)")
-    print(f"[serve] sample output ids: {toks[0, :12].tolist()}")
-    return {"arch": cfg.name, "devices": mesh.size, "tokens": toks,
-            "prefill_seconds": t_prefill,
-            "decode_seconds": t_decode, "decode_tokens_per_s": tps}
+    if not quiet:
+        print(f"[serve] arch={cfg.name} device={dev} devices={mesh.size} "
+              f"batch={args.batch} "
+              f"prefill({args.prompt_len} toks)={t_prefill:.3f}s "
+              f"decode={t_decode:.3f}s ({tps:.1f} tok/s)")
+        print(f"[serve] sample output ids: {toks[0, :12].tolist()}")
+    out = {"arch": cfg.name, "devices": mesh.size, "tokens": toks,
+           "prefill_seconds": t_prefill,
+           "decode_seconds": t_decode, "decode_tokens_per_s": tps}
+    if steps is not None:
+        out["step_logits"] = steps
+    return out
 
 
 if __name__ == "__main__":

@@ -34,9 +34,20 @@ labels.
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode mesh \\
         --devices 4 --model-parallel 2 --arch tinyllama-1.1b --rounds 5 \\
-        [--device cpu]
+        [--device cpu] [--world]
 
-The options keep the reference launcher's names and defaults.
+With ``--world`` the mesh is a world of ``--devices`` ranks, one process a
+device (``launch.world``; on the card, one card a rank where there are
+enough, else ranks sharing a card; ``--device cpu``: gloo ranks on the
+CPU): the participants are split over ``data`` and each replica's leaves
+over ``model`` (tensor parallelism), every rank draws the same samples,
+batches and weights, and rank 0 prints the round lines. :func:`main`
+returns ``{"history", "ranks"}`` then: rank 0's history and each rank's
+report (``launch.world.rank_report``, its ``history_hash`` and
+``change_sketch`` added).
+
+The options keep the reference launcher's names and defaults, and add
+``--world``.
 """
 
 from __future__ import annotations
@@ -117,10 +128,51 @@ def run_sim(args):
     return res
 
 
+WORLD_TIMEOUT = 3600.0     # seconds a world of the launcher may take
+
+
 def run_mesh(args):
     """Run ``args.rounds`` mesh-form rounds; returns ``{"trainer",
-    "state", "history"}``, one history entry a round (``round``,
-    ``active``, ``loss``, ``seconds``)."""
+    "state", "history", "change_sketch"}``, one history entry a round
+    (``round``, ``active``, ``loss``, ``seconds``) and the sketch of the
+    first replica's change over the rounds
+    (``DistributedTrainer.param_sketch``), or with ``args.world`` the
+    world's ``{"history", "ranks"}``."""
+    if args.world:
+        from repro_torch.launch.world import run_world
+        ranks = run_world(_mesh_rank, _world_size(args), device=args.device,
+                          args=(args,), timeout=WORLD_TIMEOUT)
+        return {"history": ranks[0]["history"], "ranks": ranks}
+    return _mesh_rounds(args)
+
+
+def _world_size(args) -> int:
+    if not args.devices:
+        raise SystemExit("--world needs --devices: the number of ranks")
+    return args.devices
+
+
+def _mesh_rank(world, args):
+    """One rank of ``--mode mesh --world``: the rounds, its report."""
+    import hashlib
+    import json
+
+    from repro_torch.launch.world import rank_report
+
+    t0 = time.perf_counter()  # noqa: DL002(a rank's seconds, reported only)
+    out = _mesh_rounds(args, quiet=world.rank != 0)
+    seconds = time.perf_counter() - t0  # noqa: DL002(a rank's seconds, reported only)
+    hist = [{k: h[k] for k in ("round", "active", "loss")}
+            for h in out["history"]]
+    report = rank_report(world, seconds)
+    report["history"] = out["history"]
+    report["change_sketch"] = out["change_sketch"].tolist()
+    report["history_hash"] = hashlib.sha256(
+        json.dumps(hist).encode()).hexdigest()[:16]
+    return report
+
+
+def _mesh_rounds(args, quiet: bool = False):
     import torch
 
     from repro_torch import configs
@@ -161,6 +213,7 @@ def run_mesh(args):
     rng = np.random.default_rng(args.seed)
 
     state = trainer.init_state(args.seed)
+    start = trainer.param_sketch(state)
     step = trainer.jit_train_step()
     history = []
     for r in range(1, args.rounds + 1):
@@ -184,13 +237,16 @@ def run_mesh(args):
                               torch.as_tensor(weights, device=device))
         loss = float(metrics["loss"])                       # host sync
         seconds = time.time() - t0  # noqa: DL002(per-round step timing display)
-        print(f"[train:mesh] round={r} sample={sample_ids[:4]}... "
-              f"active={int(weights.sum())}/{P} loss={loss:.4f} "
-              f"({seconds:.2f}s)")
+        if not quiet:
+            print(f"[train:mesh] round={r} sample={sample_ids[:4]}... "
+                  f"active={int(weights.sum())}/{P} loss={loss:.4f} "
+                  f"({seconds:.2f}s)")
         history.append({"round": r, "active": int(weights.sum()),
                         "loss": loss, "seconds": seconds})
-    print("[train:mesh] done")
-    return {"trainer": trainer, "state": state, "history": history}
+    if not quiet:
+        print("[train:mesh] done")
+    return {"trainer": trainer, "state": state, "history": history,
+            "change_sketch": trainer.param_sketch(state) - start}
 
 
 def main(argv=None):
@@ -230,6 +286,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--failure-rate", type=float, default=0.0)
     ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--world", action="store_true",
+                    help="mesh mode: a world of --devices ranks, one "
+                         "process a device (launch.world)")
     args = ap.parse_args(argv)
     if args.mode == "mesh":
         return run_mesh(args)

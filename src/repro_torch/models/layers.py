@@ -12,16 +12,102 @@ Conventions, as in the reference:
   layer parity (even layers local).
 * random init draws from a ``torch.Generator`` on the generator's device
   and then moves, so one seed gives the same weights on every device.
+
+Tensor parallelism (a world's ``model`` axis, :func:`tensor_parallel`):
+inside the block the layers take the local shards that
+``sharding.ShardingPolicy``'s rules give a rank and meet in the
+collectives of :mod:`repro_torch.collectives`. The query, key and value
+projections and the MLP's first products are column-parallel (the rank's
+heads, its slice of d_ff), the attention output and the MLP's last product
+row-parallel (the fp32 partials summed over the group); the embedding and
+the LM head are split by vocab (a masked local lookup summed over the
+group, and :func:`vocab_parallel_xent`). A layer reads from its weights'
+shapes whether they are split: a dimension that the rules replicate (a
+vocab or head count the axis does not divide, ``replicate_attention``)
+needs no collective. The residual stream and the norms stay replicated.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.kernels.flash_attention import flash_attention_bshd
+
+
+class TensorParallel(NamedTuple):
+    """The group of the tensor-parallel axis, this rank's index on it and
+    its size."""
+    group: Any
+    rank: int
+    size: int
+
+
+_TP: Optional[TensorParallel] = None
+
+
+@contextmanager
+def tensor_parallel(mesh, axis: str = "model"):
+    """Run the layers inside the block tensor-parallel over ``axis`` of a
+    world's ``mesh`` (a no-op for a mesh outside a world, for None, and
+    for an axis of size 1)."""
+    global _TP
+    prev = _TP
+    if (mesh is not None and getattr(mesh, "in_world", False)
+            and mesh.axis_size(axis) > 1):
+        _TP = TensorParallel(mesh.group(axis), mesh.axis_index(axis),
+                             mesh.axis_size(axis))
+    else:
+        _TP = None
+    try:
+        yield _TP
+    finally:
+        _TP = prev
+
+
+def _copy_in(x, split: bool):
+    """A column-parallel product's input (its gradient summed over the
+    group backward)."""
+    return collectives.copy_to_group(x, _TP.group) if split else x
+
+
+def _reduce_out(y, split: bool):
+    """A row-parallel product's partial output summed over the group."""
+    return collectives.reduce_from_group(y, _TP.group) if split else y
+
+
+def vocab_split(head_w, vocab: int, transposed: bool = False) -> bool:
+    """Whether ``head_w`` (d, V) — (V, d) ``transposed`` — is this rank's
+    vocab slice under :func:`tensor_parallel`."""
+    return _TP is not None and head_w.shape[0 if transposed else 1] != vocab
+
+
+def embed_lookup(table, tokens, vocab: int):
+    """``table[tokens]``; under :func:`tensor_parallel` with the table
+    split by vocab, the rows this rank holds (others zero) summed over the
+    group."""
+    if _TP is None or table.shape[0] == vocab:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens.long() - _TP.rank * n
+    ok = (local >= 0) & (local < n)
+    x = table[torch.where(ok, local, torch.zeros_like(local))]
+    x = torch.where(ok[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+    return collectives.reduce_from_group(x, _TP.group)
+
+
+def vocab_logits(h, head_w, *, transposed: bool = False):
+    """Serving's logits (no autograd) from this rank's vocab slice of the
+    head, gathered over the group along the vocab: every rank holds the
+    whole (..., V) logits."""
+    local = (torch.einsum("...d,vd->...v", h, head_w) if transposed
+             else h @ head_w)
+    return collectives.all_gather(local, _TP.group, dim=-1)
 
 
 def _is_meta(device) -> bool:
@@ -175,10 +261,12 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
     """
     B, S, d = x.shape
     hd = cfg.resolved_head_dim()
-    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    H, KV, split, wk, wv = _local_heads(p, cfg)
+    x = _copy_in(x, split)
+    q = _split_heads(x @ p["wq"], H, hd)
     if kv_override is None:
-        k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
-        v = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
+        k = _split_heads(x @ wk, KV, hd)
+        v = _split_heads(x @ wv, KV, hd)
         if positions is None:
             positions = torch.arange(S, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
@@ -186,21 +274,46 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
         if (cfg.use_flash and not cfg.attn_softcap and not window
                 and not cfg.local_global_alt and S % 128 == 0):
             out = flash_attention_bshd(q, k, v, causal=True)
-            out = out.reshape(B, S, cfg.n_heads * hd) @ p["wo"]
-            return out, (k, v)
+            out = out.reshape(B, S, H * hd) @ p["wo"]
+            return _reduce_out(out, split), (k, v)
         if mask is None:
             mask = causal_mask(S, S, window=window, device=x.device)
     else:
-        enc = kv_override
-        k = _split_heads(enc @ p["wk"], cfg.n_kv_heads, hd)
-        v = _split_heads(enc @ p["wv"], cfg.n_kv_heads, hd)
-    scores = _gqa_scores(q, k, cfg.n_kv_heads)
+        enc = _copy_in(kv_override, split)
+        k = _split_heads(enc @ wk, KV, hd)
+        v = _split_heads(enc @ wv, KV, hd)
+    scores = _gqa_scores(q, k, KV)
     scores = softcap(scores, cfg.attn_softcap)
     if mask is not None:
         scores = torch.where(mask[None, :, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v, cfg.n_heads).to(x.dtype) @ p["wo"]
-    return out, (k, v)
+    out = _gqa_out(probs, v, H).to(x.dtype) @ p["wo"]
+    return _reduce_out(out, split), (k, v)
+
+
+def _local_heads(p, cfg):
+    """``(H, KV, split, wk, wv)``: the query and key/value heads of this
+    rank's attention weights, whether they are split over the
+    tensor-parallel group, and the key and value projections of the kv
+    heads its query heads meet. Where the rules replicate the kv
+    projections (kv heads the axis does not divide) and split the query
+    heads, the rank takes the columns of its own query heads' kv heads."""
+    hd = cfg.resolved_head_dim()
+    H = p["wq"].shape[1] // hd
+    KV = p["wk"].shape[1] // hd
+    wk, wv = p["wk"], p["wv"]
+    split = _TP is not None and H != cfg.n_heads
+    if split and KV == cfg.n_kv_heads:
+        g = cfg.n_heads // cfg.n_kv_heads
+        first = _TP.rank * H
+        lo, hi = first // g, (first + H - 1) // g + 1
+        if H % (hi - lo) or (hi - lo > 1 and H // (hi - lo) != g):
+            raise NotImplementedError(
+                f"{H} query heads a rank over {cfg.n_kv_heads} replicated "
+                "kv heads do not fall into whole groups")
+        wk, wv = wk[:, lo * hd:hi * hd], wv[:, lo * hd:hi * hd]
+        KV = hi - lo
+    return H, KV, split, wk, wv
 
 
 def attention_decode(p, x, cache_k, cache_v, pos: int, cfg, *,
@@ -230,20 +343,22 @@ def attention_decode_masked(p, x, cache_k, cache_v, pos: int, cfg, valid):
                          f"{cache_k.shape[1]} positions")
     B = x.shape[0]
     hd = cfg.resolved_head_dim()
-    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
-    k_new = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
-    v_new = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
+    H, KV, split, wk, wv = _local_heads(p, cfg)
+    x = _copy_in(x, split)
+    q = _split_heads(x @ p["wq"], H, hd)
+    k_new = _split_heads(x @ wk, KV, hd)
+    v_new = _split_heads(x @ wv, KV, hd)
     posv = torch.full((B, 1), pos, device=x.device)
     q = rope(q, posv, cfg.rope_theta)
     k_new = rope(k_new, posv, cfg.rope_theta)
     cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
     cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
-    scores = _gqa_scores(q, cache_k, cfg.n_kv_heads)        # (B,1,KV,G,T)
+    scores = _gqa_scores(q, cache_k, KV)                    # (B,1,KV,G,T)
     scores = softcap(scores, cfg.attn_softcap)
     scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, cache_v, cfg.n_heads).to(x.dtype)
-    return out @ p["wo"], cache_k, cache_v
+    out = _gqa_out(probs, cache_v, H).to(x.dtype)
+    return _reduce_out(out @ p["wo"], split), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +374,12 @@ def swiglu_init(generator, d, d_ff, dtype, device=None):
     }
 
 
-def swiglu(p, x):
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+def swiglu(p, x, d_ff: Optional[int] = None):
+    """The gated MLP; with ``d_ff`` (the config's) and this rank's slice
+    of it under :func:`tensor_parallel`, column- then row-parallel."""
+    split = _TP is not None and d_ff is not None and p["wg"].shape[1] != d_ff
+    x = _copy_in(x, split)
+    return _reduce_out((F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"], split)
 
 
 def gelu_mlp_init(generator, d, d_ff, dtype, device=None):
@@ -311,10 +430,56 @@ def chunked_softmax_xent(h, head_w, labels, chunk, *, softcap_v=0.0,
     return nll / torch.clamp_min(denom, 1.0)
 
 
+def vocab_parallel_xent(h, head_w, labels, chunk: int = 0, *,
+                        softcap_v=0.0, mask=None, head_transposed=False):
+    """:func:`chunked_softmax_xent` with ``head_w`` this rank's vocab slice
+    under :func:`tensor_parallel` (``chunk`` 0: the whole sequence at
+    once). Each rank computes its slice's logits (gemma2's final softcap
+    is elementwise, before the reductions); the max over the vocab, the
+    sum of exponentials and the target's logit are summed (the max: taken)
+    over the group, so every rank holds the whole loss, and the gradient
+    reaches each slice of the head and, summed over the group, ``h``."""
+    B, S, d = h.shape
+    chunk = chunk or S
+    n_chunks = S // chunk
+    if n_chunks * chunk != S:
+        raise ValueError("xent_chunk must divide seq_len")
+    group = _TP.group
+    h = collectives.copy_to_group(h, group)
+    n = head_w.shape[0 if head_transposed else 1]
+    lo = _TP.rank * n
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    denom = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        h_i, l_i = h[:, sl], labels[:, sl]
+        m_i = (torch.ones(l_i.shape, dtype=torch.float32, device=h.device)
+               if mask is None else mask[:, sl].to(torch.float32))
+        if head_transposed:
+            logits = torch.einsum("bcd,vd->bcv", h_i, head_w)
+        else:
+            logits = h_i @ head_w
+        logits = softcap(logits.to(torch.float32), softcap_v)
+        top = collectives.all_reduce(torch.amax(logits.detach(), dim=-1),
+                                     group, "max")
+        sumexp = collectives.reduce_from_group(
+            torch.sum(torch.exp(logits - top[..., None]), dim=-1), group)
+        local = l_i.long() - lo
+        ok = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, torch.where(
+            ok, local, torch.zeros_like(local))[..., None])[..., 0]
+        gold = collectives.reduce_from_group(
+            torch.where(ok, gold, torch.zeros_like(gold)), group)
+        nll = nll + torch.sum((torch.log(sumexp) + top - gold) * m_i)
+        denom = denom + torch.sum(m_i)
+    return nll / torch.clamp_min(denom, 1.0)
+
+
 def shard_activations(x, enabled: bool):
     """The reference constrains the residual stream's feature dim over the
-    mesh's 'model' axis when ``enabled``; the package runs on one device, so
-    this is the identity either way."""
+    mesh's 'model' axis when ``enabled``; here the residual stream stays
+    replicated over the tensor-parallel group (:func:`tensor_parallel`),
+    so this is the identity either way."""
     return x
 
 

@@ -11,7 +11,10 @@ One block definition covers the dense variants:
   here a Python loop indexes it (views, no copies).
 
 Exports the uniform model interface (init / loss_fn / init_cache / prefill /
-decode_step). ``cfg.remat`` (checkpoint each block in the reference) has no
+decode_step). Under ``layers.tensor_parallel`` every function here takes a
+rank's shards of the parameters and the cache (its heads, its slices of
+d_ff and of the vocab) and returns the whole logits or loss on every rank.
+``cfg.remat`` (checkpoint each block in the reference) has no
 effect on a forward pass and is not read. The cache is
 ``{"k", "v": (L,B,T,KV,hd), "pos": int}``; prefill and decode write the new
 keys and values into its tensors in place (the reference's serving loop
@@ -104,7 +107,7 @@ def _block_apply(p, cfg, x, positions, mask):
     if "post_ln1" in p:
         h = L.rms_norm(p["post_ln1"], h, cfg.norm_eps)
     x = x + h
-    h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps), cfg.d_ff)
     if "post_ln2" in p:
         h = L.rms_norm(p["post_ln2"], h, cfg.norm_eps)
     return x + h, kv
@@ -126,15 +129,21 @@ def stack_forward(params, cfg, x, positions, cache=None):
 
 
 def logits_fn(params, cfg, h):
-    if "lm_head" in params:
-        logits = h @ params["lm_head"]
+    """The LM head's fp32 logits (soft-capped); under tensor parallelism
+    with the head split by vocab, the slices gathered over the group."""
+    tied = "lm_head" not in params
+    head = params["embed"] if tied else params["lm_head"]
+    if L.vocab_split(head, cfg.vocab, transposed=tied):
+        logits = L.vocab_logits(h, head, transposed=tied)
+    elif tied:
+        logits = h @ head.T
     else:
-        logits = h @ params["embed"].T
+        logits = h @ head
     return L.softcap(logits.to(torch.float32), cfg.final_softcap)
 
 
 def embed_tokens(params, cfg, tokens):
-    x = params["embed"][tokens]
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
     if cfg.local_global_alt:                     # gemma scales embeddings
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -146,9 +155,14 @@ def loss_fn(params, cfg, batch):
     x = embed_tokens(params, cfg, tokens)
     h = stack_forward(params, cfg, x,
                       torch.arange(tokens.shape[1], device=x.device))
-    if cfg.xent_chunk:
-        tied = "lm_head" not in params
-        head = params["embed"] if tied else params["lm_head"]
+    tied = "lm_head" not in params
+    head = params["embed"] if tied else params["lm_head"]
+    if L.vocab_split(head, cfg.vocab, transposed=tied):
+        loss = L.vocab_parallel_xent(h, head, labels, cfg.xent_chunk,
+                                     softcap_v=cfg.final_softcap,
+                                     mask=batch.get("mask"),
+                                     head_transposed=tied)
+    elif cfg.xent_chunk:
         loss = L.chunked_softmax_xent(h, head, labels, cfg.xent_chunk,
                                       softcap_v=cfg.final_softcap,
                                       mask=batch.get("mask"),
@@ -210,7 +224,8 @@ def decode_step(params, cfg, token, cache):
         if "post_ln1" in p:
             out = L.rms_norm(p["post_ln1"], out, cfg.norm_eps)
         x = x + out
-        h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+        h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps),
+                     cfg.d_ff)
         if "post_ln2" in p:
             h = L.rms_norm(p["post_ln2"], h, cfg.norm_eps)
         x = x + h

@@ -25,19 +25,28 @@ archs up to ~30 B, or FSDP shards for the pod-granularity giants
 participant; ``pod`` (multi-pod) participants at pod granularity, or more
 participant slots at data_rank granularity.
 
-A mesh here may name one device many times, and then every tensor lies
-whole on that device (``core.distributed``): the specs say where each
-piece would go on distinct devices, and placing by them is checked (each
-spec divides its tensor). A mesh of distinct devices is not supported
-(:func:`mesh_device`).
+A mesh comes in two forms.
+
+* In one process it may name one device many times, and then every tensor
+  lies whole on that device (``core.distributed``): the specs say where
+  each piece would go on distinct devices, and placing by them is checked
+  (each spec divides its tensor). One process does not split tensors over
+  distinct devices (:func:`mesh_device` raises).
+* In a world (:mod:`repro_torch.launch.world`: one process a device) a
+  :class:`DeviceMesh` has the ranks' devices as its entries, this
+  process's ``rank`` and a process group an axis. :func:`local_shard`
+  gives a rank its slice of a whole tree by the specs and
+  :func:`gather_tree` puts the slices back together; a
+  :class:`FlatShardings` over a world splits the flat engine's N over
+  its ``model`` axis, one lane chunk a rank.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -50,11 +59,17 @@ class DeviceMesh:
     """A device mesh with named axes, the counterpart of a jax ``Mesh``:
     ``devices`` in row-major order over ``dims``, one size an axis of
     ``axis_names``. ``shape[axis]`` reads as a jax ``Mesh``'s does.
-    Hashable (frozen, hashable fields)."""
+    Hashable (frozen, hashable fields).
+
+    The world form (``launch.world.World.mesh``) also has this process's
+    ``rank`` (its entry) and ``groups``, the process group of each axis
+    (the ranks that differ only in that axis's coordinate)."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...]
     dims: Tuple[int, ...]
+    rank: Optional[int] = None
+    groups: Tuple[Any, ...] = field(default=(), compare=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "devices",
@@ -66,6 +81,9 @@ class DeviceMesh:
         if len(self.devices) != math.prod(self.dims):
             raise ValueError(f"{len(self.devices)} devices for a mesh of "
                              f"dims {self.dims}")
+        if self.rank is not None and not 0 <= self.rank < len(self.devices):
+            raise ValueError(f"rank {self.rank} of a mesh of "
+                             f"{len(self.devices)} entries")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -75,36 +93,133 @@ class DeviceMesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def in_world(self) -> bool:
+        """Whether this is a world's mesh (one process an entry)."""
+        return self.rank is not None
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's coordinate on each axis."""
+        rank, out = self.rank, []
+        for n in reversed(self.dims):
+            out.append(rank % n)
+            rank //= n
+        return tuple(reversed(out))
+
+    def axis_size(self, axis) -> int:
+        """The size of ``axis`` (a name, a tuple of names or None)."""
+        if axis is None:
+            return 1
+        if isinstance(axis, tuple):
+            return math.prod(self.axis_size(a) for a in axis)
+        return self.shape.get(axis, 1)
+
+    def axis_index(self, axis) -> int:
+        """This rank's index along ``axis`` (row-major over a tuple of
+        names, as a ``PartitionSpec`` entry splits a dimension)."""
+        if axis is None:
+            return 0
+        if isinstance(axis, tuple):
+            i = 0
+            for a in axis:
+                i = i * self.axis_size(a) + self.axis_index(a)
+            return i
+        if axis not in self.axis_names:
+            return 0
+        return self.coords[self.axis_names.index(axis)]
+
+    def group(self, axis: str):
+        """The process group of the named ``axis``."""
+        if not self.in_world:
+            raise ValueError("a mesh outside a world has no process groups")
+        return self.groups[self.axis_names.index(axis)]
+
 
 def mesh_device(mesh) -> torch.device:
-    """The one device that ``mesh`` (a :class:`DeviceMesh` or a sequence of
-    devices) names. A mesh of distinct devices raises
-    ``NotImplementedError``: tensors would have to be split across cards
-    (ROADMAP A12b)."""
+    """The device of this process on ``mesh`` (a :class:`DeviceMesh` or a
+    sequence of devices): in a world, this rank's entry; otherwise the one
+    device the mesh names. One process does not split tensors over
+    distinct devices: such a mesh outside a world raises
+    ``NotImplementedError`` naming how to start a world."""
+    if isinstance(mesh, DeviceMesh) and mesh.in_world:
+        return mesh.devices[mesh.rank]
     devices = mesh.devices if isinstance(mesh, DeviceMesh) else tuple(
         torch.device(d) for d in mesh)
     if not devices:
         raise ValueError("a mesh needs at least one device")
     if len(set(devices)) > 1:
         raise NotImplementedError(
-            f"a mesh of distinct devices {sorted(map(str, set(devices)))}: "
-            "a mesh here names one device, on which every tensor lies "
-            "whole (ROADMAP A12b)")
+            f"a mesh of distinct devices {sorted(map(str, set(devices)))} "
+            "in one process: tensors split over devices need one process "
+            "a device; start a world (repro_torch.launch.world.run_world, "
+            "or the launchers' --world) and build the mesh inside it "
+            "(ROADMAP A12b)")
     return devices[0]
+
+
+def _dim_axes(spec, ndim: int):
+    spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    return spec[:ndim]
+
+
+def local_shard(tree, specs, mesh: DeviceMesh):
+    """This rank's slice of every tensor of a whole ``tree``, by ``specs``
+    (a matching tree of specs): each dimension split over its axes, the
+    rank's index along them choosing the contiguous piece. Leaves that are
+    not tensors (a cache's host ``pos``) pass through; a spec that does not
+    divide its dimension raises."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for leaf, spec in zip(leaves, treedef.flatten_up_to(specs)):
+        if isinstance(leaf, torch.Tensor):
+            for d, axis in enumerate(_dim_axes(spec, leaf.dim())):
+                n = mesh.axis_size(axis)
+                if n == 1:
+                    continue
+                if leaf.shape[d] % n:
+                    raise ValueError(f"spec {spec} does not divide a leaf "
+                                     f"of shape {tuple(leaf.shape)}")
+                size = leaf.shape[d] // n
+                leaf = leaf.narrow(d, mesh.axis_index(axis) * size, size)
+            leaf = leaf.contiguous()
+        out.append(leaf)
+    return treedef.unflatten(out)
+
+
+def gather_tree(tree, specs, mesh: DeviceMesh):
+    """The whole tensors back from every rank's :func:`local_shard` slices
+    (collectives over the axes' groups, on every rank)."""
+    from repro_torch import collectives
+
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for leaf, spec in zip(leaves, treedef.flatten_up_to(specs)):
+        if isinstance(leaf, torch.Tensor):
+            for d, axis in enumerate(_dim_axes(spec, leaf.dim())):
+                names = axis if isinstance(axis, tuple) else (axis,)
+                for a in reversed(names):       # the innermost first
+                    if a is not None and mesh.axis_size(a) > 1:
+                        leaf = collectives.all_gather(leaf, mesh.group(a),
+                                                      dim=d)
+        out.append(leaf)
+    return treedef.unflatten(out)
 
 
 @dataclass(frozen=True)
 class FlatPlacement:
     """One flat layout on a mesh, the counterpart of a ``NamedSharding``:
     ``spec`` names for each dimension of the buffer the mesh axis it is
-    split over (None: not split). The buffer itself lives on ``home``."""
+    split over (None: not split). The buffer itself lives on ``home``:
+    the mesh's first device, or in a world this rank's."""
 
     mesh: Tuple[torch.device, ...]
     spec: Tuple[Optional[str], ...]
+    home_index: int = 0
 
     @property
     def home(self) -> torch.device:
-        return self.mesh[0]
+        return self.mesh[self.home_index]
 
 
 @dataclass(frozen=True)
@@ -122,35 +237,62 @@ class FlatShardings:
     pop: FlatPlacement          # (P, N) — population replicas × params
     replicated: FlatPlacement   # weights (P,), (S,) state rows, scalars
     model_axis: str = "model"
+    # a world's: the process group of the model axis and this rank's
+    # shard index on it (None and 0 in one process)
+    group: Any = field(default=None, compare=False)
+    rank: int = 0
 
     @property
     def n_shards(self) -> int:
         return len(self.mesh)
 
+    @property
+    def home(self) -> torch.device:
+        return self.vec.home
+
 
 def flat_shardings(mesh, *, model_axis: str = "model",
                    row_axis: Optional[str] = None) -> FlatShardings:
-    """Build :class:`FlatShardings` for ``mesh`` (a sequence of devices or
-    device names).
+    """Build :class:`FlatShardings` for ``mesh``: a sequence of devices or
+    device names, or a world's :class:`DeviceMesh`, whose ``model_axis``
+    line through this rank becomes the mesh (shard r on the line's rank r,
+    with the axis's process group).
 
     The reference's ``row_axis`` maps the leading S/P axis to a second
-    mesh axis; a mesh here has one axis, so only None (rows whole on every
-    shard, the layout the one-pass aggregation wants) is taken.
+    mesh axis; a mesh here splits N alone, so only None (rows whole on
+    every shard, the layout the one-pass aggregation wants) is taken.
     """
+    group, rank = None, 0
+    if isinstance(mesh, DeviceMesh):
+        if not mesh.in_world:
+            mesh = mesh.devices
+        else:
+            a = mesh.axis_names.index(model_axis)
+            coords = list(mesh.coords)
+            line = []
+            for c in range(mesh.dims[a]):
+                coords[a] = c
+                r = 0
+                for ci, n in zip(coords, mesh.dims):
+                    r = r * n + ci
+                line.append(mesh.devices[r])
+            group, rank = mesh.group(model_axis), mesh.coords[a]
+            mesh = line
     mesh = tuple(torch.device(d) for d in mesh)
     if not mesh:
         raise ValueError("a mesh needs at least one device")
     if row_axis is not None:
-        raise ValueError(f"row_axis={row_axis!r}: a mesh here has the one "
-                         f"axis {model_axis!r}, and rows are not split")
+        raise ValueError(f"row_axis={row_axis!r}: a mesh here splits N "
+                         f"over {model_axis!r} alone, and rows are not "
+                         "split")
 
     def place(*spec):
-        return FlatPlacement(mesh, spec)
+        return FlatPlacement(mesh, spec, rank)
 
     return FlatShardings(mesh=mesh, vec=place(model_axis),
                          stack=place(None, model_axis),
                          pop=place(None, model_axis), replicated=place(),
-                         model_axis=model_axis)
+                         model_axis=model_axis, group=group, rank=rank)
 
 
 class ShardingPolicy:
@@ -448,4 +590,5 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, policy: ShardingPolicy):
 
 
 __all__ = ["DeviceMesh", "FlatPlacement", "FlatShardings", "ShardingPolicy",
-           "flat_shardings", "input_specs", "mesh_device"]
+           "flat_shardings", "gather_tree", "input_specs", "local_shard",
+           "mesh_device"]

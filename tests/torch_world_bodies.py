@@ -1,0 +1,375 @@
+"""Rank bodies of the port's world tests (``tests/test_torch_world*.py``).
+
+A world's ranks start by ``spawn`` and import the function they run from
+its module, so the bodies live here, in a module that imports only torch,
+numpy and the port: a rank starts without importing jax or the reference.
+Every body takes its :class:`~repro_torch.launch.world.World` first and
+returns plain values, numpy arrays or CPU tensors.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import collectives, configs
+from repro_torch.config import MeshConfig, ModestConfig, TrainConfig
+from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map
+
+TRAIN_MESH = MeshConfig(data=4, model=2)
+
+
+# ---------------------------------------------------------------------------
+# the world itself
+# ---------------------------------------------------------------------------
+
+
+def slice_by_spec(a, spec, dims, axes, coords):
+    """numpy's slice of the whole ``a`` that ``spec`` gives the rank at
+    ``coords`` of a mesh of ``dims`` over ``axes``: written out here, apart
+    from ``sharding.local_shard``, as the tests' oracle."""
+    size = dict(zip(axes, dims))
+    at = dict(zip(axes, coords))
+    for d, axis in enumerate(tuple(spec)[:a.ndim]):
+        names = () if axis is None else (
+            axis if isinstance(axis, tuple) else (axis,))
+        n, i = 1, 0
+        for name in names:
+            n *= size.get(name, 1)
+            i = i * size.get(name, 1) + at.get(name, 0)
+        if n > 1:
+            step = a.shape[d] // n
+            a = np.take(a, np.arange(i * step, (i + 1) * step), axis=d)
+    return a
+
+
+def collectives_body(world):
+    """The mesh's groups and coordinates, each collective over them, the
+    staging path (forced on the CPU) and the mesh device."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch.world import current_world
+    from repro_torch.sharding import mesh_device
+
+    mesh = lm.make_mesh_from_config(MeshConfig(data=2, model=2), "cpu")
+    assert current_world() is world
+    assert lm.make_mesh((2, 2), ("data", "model")) is mesh
+    r = float(world.rank)
+    gathered = collectives.all_gather(
+        torch.tensor([[r, r + 0.5]]), mesh.group("model"), dim=1)
+    summed = collectives.all_reduce(torch.tensor([r, 1.0]),
+                                    mesh.group("data"))
+    top = collectives.all_reduce(torch.tensor([r]), mesh.group("model"),
+                                 "max")
+    sent = collectives.broadcast(torch.tensor([r]), 1, mesh.group("data"))
+    halves = collectives.all_gather(
+        torch.full((3,), r, dtype=torch.bfloat16), mesh.group("data"))
+    flags = collectives.all_gather(torch.tensor([world.rank % 2 == 0]),
+                                   mesh.group("model"))
+    collectives.reset_counts()
+    real = collectives._needs_staging
+    collectives._needs_staging = lambda x, group: True
+    try:
+        staged = collectives.all_gather(torch.arange(4.0) + r,
+                                        mesh.group("model"))
+    finally:
+        collectives._needs_staging = real
+    return {"coords": mesh.coords, "device": str(mesh_device(mesh)),
+            "gathered": gathered, "summed": summed, "top": top,
+            "sent": sent, "halves": halves, "flags": flags,
+            "staged": staged,
+            "staged_bytes": collectives.COUNTS["staged_bytes"],
+            "backend": collectives.backend(mesh.group("model"))}
+
+
+def shard_body(world, arch, params_np):
+    """Each rank's shard of a whole tree (``local_shard`` by the specs)
+    against numpy's slice, and ``gather_tree`` back to the whole."""
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.sharding import (ShardingPolicy, gather_tree,
+                                      local_shard)
+
+    cfg = configs.reduced(configs.get_config(arch))
+    mcfg = MeshConfig(data=2, model=2)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    params = params_from_numpy(params_np, "cpu")
+    specs = ShardingPolicy(cfg, mcfg).param_spec(params,
+                                                 with_participants=False)
+    mine = local_shard(params, specs, mesh)
+    want = [slice_by_spec(a, s, mcfg.shape, mcfg.axes, mesh.coords)
+            for a, s in zip(tree_leaves(params_np),
+                            tree_flatten(params)[1].flatten_up_to(specs))]
+    same = all(np.array_equal(m.numpy(), w)
+               for m, w in zip(tree_leaves(mine), want))
+    split = sum(m.numel() < p.numel()
+                for m, p in zip(tree_leaves(mine), tree_leaves(params)))
+    back = gather_tree(mine, specs, mesh)
+    whole = all(torch.equal(b, p) for b, p in zip(tree_leaves(back),
+                                                 tree_leaves(params)))
+    return {"same": same, "split": split, "whole": whole}
+
+
+def failing_body(world):
+    if world.rank == 1:
+        raise ValueError("rank one gives up")
+    time.sleep(600)               # the others wait in vain: killed
+
+
+def hanging_body(world):
+    if world.rank == 1:
+        time.sleep(600)
+    return world.rank
+
+
+def nvcc_body(world):
+    """A rank may only load the kernels its parent built."""
+    from repro_torch.kernels import build
+    try:
+        build.build(["fused_agg"])
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+def engine_body(world):
+    """``make_engine("sharded")`` inside the world."""
+    from repro_torch.engine import MeshEngine, make_engine
+    from repro_torch.models.tasks import cnn_task
+
+    eng = make_engine("sharded", cnn_task(device="cpu"), device="cpu")
+    return {"type": type(eng).__name__, "shards": eng.shardings.n_shards,
+            "rank": eng.shardings.rank,
+            "is_mesh": isinstance(eng, MeshEngine)}
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine across ranks
+# ---------------------------------------------------------------------------
+
+
+def cnn_session(engine, secure_agg, init=None, device="cpu"):
+    """``tests/sharded_child.py``'s session: the paper CNN on 8 nodes in
+    cohorts of 3, from ``init`` (numpy, the reference's) where given."""
+    from repro_torch.data import make_classification_task
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.models.tasks import cnn_task
+    from repro_torch.sim.runner import ModestSession
+
+    task = cnn_task(device=device)
+    if init is not None:
+        task.init_params = lambda seed=0: params_from_numpy(init, device)
+    return ModestSession(
+        n_nodes=8, mcfg=ModestConfig(n_nodes=8, sample_size=3,
+                                     n_aggregators=1, secure_agg=secure_agg),
+        tcfg=TrainConfig(batch_size=10, seed=0), task=task,
+        data=make_classification_task(8, seed=0), seed=0,
+        eval_every_rounds=5, engine=engine, device=device)
+
+
+def quantized_aggregates(task, shardings, device="cpu"):
+    """``sharded_child.fingerprint``'s fused aggregate→quantize of five
+    seeded models, plain and masked (the masked call's codes and scales
+    must equal the plain call's bit for bit)."""
+    from repro_torch.engine.flat import FlatModel
+    from repro_torch.kernels.ops import (aggregate_flatmodel,
+                                         masked_aggregate_flatmodel)
+    from repro_torch.secureagg import PairwiseMasker
+
+    spec = task.flat_spec
+    rng = np.random.default_rng(0)
+    models = [FlatModel(torch.from_numpy(rng.standard_normal(spec.n).astype(
+        np.float32)).to(device), spec) for _ in range(5)]
+    weights = list(rng.random(5) + 0.1)
+    plain = aggregate_flatmodel(models, weights, spec=spec, quantize=True,
+                                device=device, shardings=shardings)
+    masker = PairwiseMasker(0)
+    roster = tuple(f"n{i}" for i in range(len(models)))
+    sealed = [masker.seal(m, roster[i], 7, roster, spec.nbytes)
+              for i, m in enumerate(models)]
+    secrets = {nid: masker.secret(nid, 7) for nid in roster}
+    seeds, signs = masker.unmask_matrices(sealed, secrets)
+    masked = masked_aggregate_flatmodel(
+        [sm.payload for sm in sealed], weights, seeds=seeds, signs=signs,
+        spec=spec, quantize=True, device=device, shardings=shardings)
+    return ([plain[0].buffer, plain[1], plain[2]],
+            [masked[0].buffer, masked[1], masked[2]])
+
+
+def session_body(world, init, secure_aggs, duration):
+    """The CNN session through ``MeshEngine`` on this world, for each of
+    ``secure_aggs``: trajectory, every aggregation's mean, the final model,
+    the state's lanes and the quantised aggregates; rank 0 alone returns
+    the tensors, every rank its own digest of them."""
+    from repro_torch.engine import MeshEngine
+
+    out = []
+    for secure_agg in secure_aggs:
+        t0 = time.perf_counter()
+        session = cnn_session("sharded", secure_agg, init)
+        eng = session.engine
+        assert isinstance(eng, MeshEngine), type(eng)
+        means = []
+        for name in ("aggregate", "aggregate_masked"):
+            inner = getattr(eng, name)
+
+            def call(*a, _inner=inner, **kw):
+                got = _inner(*a, **kw)
+                means.append(got.buffer.clone())
+                return got
+
+            setattr(eng, name, call)
+        res = session.run(duration)
+        last = max(session._eval_models)
+        final = session._eval_models[last].buffer
+        plain, masked = quantized_aggregates(session.task, eng.shardings)
+        tensors = [final, *means, *plain, *masked]
+        out.append({
+            "rounds": res.rounds_completed, "round_times": res.round_times,
+            "total_bytes": res.usage["total_bytes"],
+            "history": res.history, "state_lanes": eng.state_lanes,
+            "n_shards": eng.shardings.n_shards, "flushes": eng.flushes,
+            "digest": [float(t.double().sum()) for t in tensors],
+            "seconds": time.perf_counter() - t0,
+            "tensors": ({"final": final, "means": means, "plain": plain,
+                         "masked": masked} if world.rank == 0 else None)})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh round and serving across ranks
+# ---------------------------------------------------------------------------
+
+
+def _train_cfg():
+    return configs.reduced(configs.get_config("tinyllama-1.1b"))
+
+
+def whole_state(trainer, params):
+    """The trainer's whole state from one model: P copies of ``params``
+    (a tree of tensors) and its optimizer and server state."""
+    from repro_torch.core.distributed import TrainState
+
+    P = trainer.policy.n_participants
+    copies = tree_map(lambda x: x[None].repeat((P,) + (1,) * x.dim()),
+                      params)
+    opt = tree_map(lambda x: x[None].repeat((P,) + (1,) * x.dim()),
+                   trainer.opt.init(params))
+    return TrainState(copies, opt, trainer.strategy.init_state(copies),
+                      torch.zeros((), dtype=torch.int32))
+
+
+def _max_slot_gap(params_P, a=0, b=1):
+    return max(float(torch.max(torch.abs(x[a].float() - x[b].float())))
+               for x in tree_leaves(params_P))
+
+
+def trainer_body(world, params_np, toks, runs):
+    """``runs``: ``[(strategy, [weights of each round], mix)]`` on a 4 x 2
+    world from ``params_np``, ``mix`` ``"auto"`` (the trainer's choice) or
+    ``"reduce"`` (the reduction forced, as where the gathered replicas
+    would not fit); each round's loss and the largest gap between replicas
+    0 and 1 of the gathered parameters, the mix's form, the local shapes,
+    and the final parameters (rank 0), under ``"strategy/mix"``."""
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = _train_cfg()
+    mesh = make_mesh_from_config(TRAIN_MESH, "cpu")
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)}
+    out = {}
+    for name, weights, mix in runs:
+        trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd",
+                                                      lr=0.1),
+                                     TRAIN_MESH, strategy=name, mesh=mesh,
+                                     device="cpu")
+        if mix == "reduce":           # as where memory forbids the gather
+            trainer.mix_form = lambda new_P: "reduce"
+        state = trainer.shard_state(
+            whole_state(trainer, params_from_numpy(params_np, "cpu")))
+        step = trainer.jit_train_step()
+        rounds = []
+        for w in weights:
+            state, m = step(state, batch, torch.tensor(w, dtype=torch.float32))
+            whole = trainer.gather_state(state)
+            rounds.append({"loss": float(m["loss"]),
+                           "active": float(m["active"]),
+                           "gap": _max_slot_gap(whole.params)})
+        out[f"{name}/{mix}"] = {
+            "rounds": rounds, "form": trainer.mix_form(state.params),
+            "local": [tuple(x.shape) for x in tree_leaves(state.params)],
+            "digest": [float(x.double().sum())
+                       for x in tree_leaves(whole.params)],
+            "final": whole.params if world.rank == 0 else None}
+    return out
+
+
+def serve_body(world, params_np, tokens, max_len):
+    """The reduced gemma2-27b served on a 4 x 2 world from ``params_np``:
+    a prefill of ``tokens`` and one greedy decode; the whole logits, and
+    whether every rank's parameter and cache shards are their specs'
+    slices of the whole ones (the cache's against ``one_cache``, the
+    one-process cache, passed back by rank 0)."""
+    from repro_torch.core.distributed import Server
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.reduced(configs.get_config("gemma2-27b"))
+    mesh = make_mesh_from_config(TRAIN_MESH, "cpu")
+    server = Server(cfg, TRAIN_MESH, mesh=mesh, device="cpu")
+    whole = params_from_numpy(params_np, "cpu")
+    params = server.shard_params(whole)
+    cache = server.shard_cache(server.model.init_cache(tokens.shape[0],
+                                                       max_len, "cpu"))
+    pspec, cspec = server.specs(whole, server.model.init_cache(
+        tokens.shape[0], max_len, "cpu"))
+    treedef = tree_flatten(whole)[1]
+    shards_ok = all(np.array_equal(
+        m.numpy(), slice_by_spec(a, s, TRAIN_MESH.shape, TRAIN_MESH.axes,
+                                 mesh.coords))
+        for m, a, s in zip(tree_leaves(params), tree_leaves(params_np),
+                           treedef.flatten_up_to(pspec)))
+    logits, cache = server.prefill(params, {"tokens": torch.as_tensor(
+        tokens)}, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    dlogits, cache = server.decode(params, tok, cache)
+    cache_spec = {k: v for k, v in cspec.items() if k != "pos"}
+    return {"prefill": logits, "decode": dlogits, "tok": tok,
+            "params_are_slices": shards_ok, "coords": mesh.coords,
+            "cache": {k: cache[k] for k in cache_spec},
+            "cache_spec": cache_spec, "pos": cache["pos"]}
+
+
+def grad_body(world, params_np, toks, drop_f=False):
+    """Every leaf's gradient of the reduced TinyLlama's loss on a 1 x 2
+    world (vocab-parallel embedding and loss, column- and row-parallel
+    products), gathered by its spec, and the loss. ``drop_f``: a control
+    with Megatron's *f* made the identity in this rank, so the gradient of
+    a column-parallel product's input is not summed over the group."""
+    if drop_f:
+        from repro_torch import collectives
+        collectives.copy_to_group = lambda x, group: x
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.engine.lowering import looped_value_and_grad
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import (ShardingPolicy, gather_tree,
+                                      local_shard)
+
+    cfg = _train_cfg()
+    mcfg = MeshConfig(data=1, model=2)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    params = params_from_numpy(params_np, "cpu")
+    spec = ShardingPolicy(cfg, mcfg).param_spec(params,
+                                                with_participants=False)
+    mine = tree_map(lambda x: x[None], local_shard(params, spec, mesh))
+    batch = {"tokens": torch.as_tensor(toks)[None],
+             "labels": torch.as_tensor(toks)[None]}
+    with L.tensor_parallel(mesh):
+        loss, grads = looped_value_and_grad(build(cfg).loss_fn)(mine, batch)
+    return {"loss": loss[0],
+            "grads": gather_tree(tree_map(lambda g: g[0], grads), spec,
+                                 mesh),
+            "split": sum(m.numel() < p.numel() for m, p in zip(
+                tree_leaves(mine), tree_leaves(params)))}
