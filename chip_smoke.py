@@ -145,9 +145,11 @@ two main paths and checks that each really went through its kernels:
   Gates: every record complete; the card's allocated bytes and their peak
   (reset first) unchanged across the run; TinyLlama's ``prefill_32k``
   record on the 16 x 16 mesh holds, as its parameters' bytes a device, the
-  serve phase's real full-size parameters under the same specs. Reported:
-  the seconds and how many records exceed ``config.H100.hbm_bytes`` a
-  device;
+  serve phase's real full-size parameters under the same specs; TinyLlama's
+  and qwen3-moe's model collectives (tensor-parallel, the MoE's routing)
+  reckoned in every record. Reported: the seconds, how many records exceed
+  ``config.H100.hbm_bytes`` a device, and those two archs' model
+  collectives a device by shape and mesh, with the remat term apart;
 * examples: the six examples' twins (``examples/torch_*.py``) at the
   reference's defaults: ``quickstart`` (12 nodes, the paper CNN at full
   width, 60 simulated s), ``compare_fl_dl`` (FedAvg, D-SGD and MoDeST, 24
@@ -167,11 +169,17 @@ two main paths and checks that each really went through its kernels:
   --world`` (TinyLlama, MoDeST, P = 2, TP 2, 3 rounds); ``launch/serve.py
   --full-size --set use_flash=true --world`` on 2 x 2 at the serve phase's
   shape and seed, decodes teacher-forced on its tokens; a 1-rank NCCL
-  world of the plain session. Gates: every rank's sessions bit for bit
-  the same sessions on the batched engine in this process (both under
-  cuDNN's deterministic algorithms: trajectory and history hash, every
-  aggregation, the final model, a fused aggregate→quantize plain and
-  masked), B1, B2, B3, B4 and B5 launched on every rank; the mesh rounds'
+  world of the plain session; then qwen3-moe with its experts over
+  ``model`` (``world_moe``): ``launch/serve.py --full-size --set
+  n_layers=4 --set use_flash=true --world`` on 2 x 2 at the families
+  phase's shape (B 4, 1,024 tokens), 3 decodes teacher-forced on its
+  tokens, and ``launch/train.py --mode mesh --full-size --set n_layers=1
+  --world`` (MoDeST, P = 2, TP 2, 3 rounds). Gates: every rank's
+  sessions bit for bit the same sessions on the batched engine in this
+  process (both under cuDNN's deterministic algorithms: trajectory and
+  history hash, every aggregation, the final model, a fused
+  aggregate→quantize plain and masked), B1, B2, B3, B4 and B5 launched
+  on every rank; the mesh rounds'
   losses within ``WORLD_LOSS_RTOL`` of ``mesh_train``'s one-process rounds,
   a quarter of what the one-process rounds at learning rate 0 (a skipped
   update) read; the sketch of the replicas' change over the rounds
@@ -181,8 +189,17 @@ two main paths and checks that each really went through its kernels:
   the serve phase's prefill and of the one-process launcher's
   teacher-forced decodes, 22 ``flash_attention`` launches a rank and no
   other; B1, B2, B4, B5 on a rank's lane chunk bit for bit the slice of
-  one launch (``chunk_rows``, timed). Reported: each world's backend,
-  seconds, and each rank's launches, seconds, staged bytes and peak.
+  one launch (``chunk_rows``, timed); the MoE serve's prefill logits
+  within ``WORLD_LOGITS_REL_L2`` of the families phase's one-process bf16
+  run, every step's distance from that run's fp32 logits within
+  ``WORLD_MOE_ERR_RATIO`` times its bf16 run's, 4 ``flash_attention``
+  launches a rank (B 2, 16 / 2 heads, hd 128) and no other; the MoE
+  round's losses within ``WORLD_MOE_LOSS_RTOL`` and its change sketch held
+  as TinyLlama's, against its own one-process rounds and their control
+  at learning rate 0. Reported: each world's backend, seconds, and each
+  rank's launches, seconds, staged bytes and peak; the share of the MoE
+  serve's (token, choice) slots routed to another expert than in one
+  process, by step.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -208,7 +225,7 @@ kernel's limit, every block size a launcher can choose, P·R = 6144);
 ``nonfinite`` holds B2, B5 and B7 to the reference's quantisation of a
 NaN and an Inf lane (scale NaN or Inf, codes 0). B9 is also held and
 timed at the four layouts of the families phase's prefills and at a rank's
-share of the world phase's serve. ``fused_ptxas`` prints
+share of each of the world phase's two serves. ``fused_ptxas`` prints
 the registers and spills of every kernel of ``fused_agg.cu``, each of
 which must be built for sm_90a with no spill.
 
@@ -1131,7 +1148,8 @@ def flash_rows(rows, dev):
     (where the reference's tiling raises, ROADMAP C3), causal and not, fp32
     and bf16, at starcoder2-15b's heads (hd 128, bf16, causal) and at the
     four layouts of the families phase's prefills and at a rank's share of
-    the world phase's 2 x 2 serve (B 2, 16 / 2 heads; bf16, causal), timed
+    the world phase's 2 x 2 serves (TinyLlama: B 2, 16 / 2 heads;
+    qwen3-moe: B 2, 16 / 2 heads at hd 128, S 1024; bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1156,6 +1174,11 @@ def flash_rows(rows, dev):
     # data, 32 / 4 heads halved over model
     cases.append((SERVE_B // 2, 32 // 2, 4 // 2, SERVE_S, 64,
                   torch.bfloat16, True, WORLD_FLASH_ROW))
+    # and a rank's share in its qwen3-moe serve: half the batch, half of
+    # the query and kv heads (hd 128)
+    B, Hq, Hkv, S, hd = layouts[WORLD_MOE_ARCH]
+    cases.append((B // 2, Hq // 2, Hkv // 2, S, hd, torch.bfloat16, True,
+                  WORLD_MOE_FLASH_ROW))
     for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
         name = arch or (
             f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
@@ -3547,7 +3570,11 @@ def family_model(dev, arch, over, B, S_text, n_attn):
         decode_tokens_per_s=B * FAMILY_NEW / decode_s,
         flash_launches_per_prefill=warm_launches, peak_memory_bytes=peak,
         sample_ids=gen[0, :12].tolist())
+    ref = None
     if cfg.family == "moe":
+        ref = dict(moe_world_reference(cfg, params, batch,
+                                       gen[:, :WORLD_NEW - 1], dev),
+                   tokens=gen.cpu())
         line["depth_cut"] = {"published_layers": 48, "run": cfg.n_layers}
         line["experts"] = {"n": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
                            "d_ff": cfg.moe_d_ff_expert,
@@ -3564,7 +3591,60 @@ def family_model(dev, arch, over, B, S_text, n_attn):
         dev)
     del params, server, batch, prefill_logits
     release()
-    return line, flash_attention.launches - launches0
+    return line, flash_attention.launches - launches0, ref
+
+
+def moe_world_reference(cfg, params, batch, teacher, dev):
+    """The world phase's one-process reference for the MoE: a prefill of
+    ``batch`` and a decode of each column of ``teacher`` (teacher-forced),
+    in bf16 and, as the control, with the weights widened exactly to fp32;
+    for each, every step's last-position logits and every layer's routing
+    of every step (``recorded_routes``), on the CPU."""
+    from repro_torch.core.distributed import Server
+    from repro_torch.utils.pytree import tree_map
+
+    B, S = batch["tokens"].shape
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        p = params if dtype == "bfloat16" else tree_map(
+            lambda t: t.to(torch.float32), params)
+        srv = Server(cfg.with_(param_dtype=dtype), device=dev)
+        steps = []
+
+        def run():
+            cache = srv.model.init_cache(B, S + teacher.shape[1] + 8, dev)
+            logits, cache = srv.prefill(p, batch, cache)
+            steps.append(logits[:, -1].float().cpu())
+            for i in range(teacher.shape[1]):
+                logits, cache = srv.decode(p, teacher[:, i:i + 1], cache)
+                steps.append(logits[:, -1].float().cpu())
+
+        routes = recorded_routes(run, cfg.n_layers * (1 + teacher.shape[1]))
+        out[dtype] = {"step_logits": steps, "routes": routes}
+        del p, srv
+    return out
+
+
+def recorded_routes(run, n_calls: int):
+    """``run()`` with ``models.moe.routing`` wrapped to keep the top-k
+    expert indices of its first ``n_calls`` calls, token by token
+    ((Gn x G, k)), on the CPU; the port's function is put back after."""
+    from repro_torch.models import moe
+
+    real, routes = moe.routing, []
+
+    def recording(p, cfg, xg):
+        r = real(p, cfg, xg)
+        if len(routes) < n_calls:
+            routes.append(r["idx"].reshape(-1, r["idx"].shape[-1]).cpu())
+        return r
+
+    moe.routing = recording
+    try:
+        run()
+    finally:
+        moe.routing = real
+    return routes
 
 
 def families_phase(dev):
@@ -3573,15 +3653,19 @@ def families_phase(dev):
     model's memory given back before the next; then the serving launcher at
     every new arch's reduced config and whisper-large-v3 at full size.
     Counted: the caller sets the counts to 0 just before and reads them
-    just after. Returns the lines and the flash launches the phase made."""
+    just after. Returns the lines, the flash launches the phase made and
+    qwen3-moe's one-process reference for the world phase (``moe_ref``:
+    prefill and teacher-forced decode logits, tokens, routing)."""
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
-    lines, flash = {}, 0
+    lines, flash, moe_ref = {}, 0, None
     for arch, over, B, S_text, n_attn in FAMILY_MODELS:
-        line, launched = family_model(dev, arch, over, B, S_text, n_attn)
+        line, launched, ref = family_model(dev, arch, over, B, S_text,
+                                           n_attn)
         emit("family", **line)
         lines[arch], flash = line, flash + launched
+        moe_ref = ref if ref is not None else moe_ref
     launcher = {}
     for arch in FAMILY_LAUNCHER_ARCHS:
         out = serve.main(["--arch", arch, "--seed", "0"])
@@ -3600,7 +3684,8 @@ def families_phase(dev):
          models={a: {k: line[k] for k in (
              "prefill_seconds", "decode_tokens_per_s", "peak_memory_bytes",
              "flash_launches_per_prefill")} for a, line in lines.items()})
-    return {"lines": lines, "flash_launches": flash, "seconds": seconds}
+    return {"lines": lines, "flash_launches": flash, "seconds": seconds,
+            "moe_ref": moe_ref}
 
 
 # ---------------------------------------------------------------------------
@@ -4105,6 +4190,18 @@ def dryrun_phase(dev, served):
         raise AssertionError(f"dry-run params {rec['memory']['by_part']} "
                              f"against {real} bytes a device on the card")
     args = [r["memory"]["argument_size_in_bytes"] for r in records]
+    # the model's collectives (tensor-parallel and the MoE's routing) a
+    # device, by shape and mesh, with the backward's recomputation apart
+    model_bytes = {
+        arch: {f"{r['shape']}/{r['mesh']}": {
+            "bytes": r["collectives"]["model"]["bytes"],
+            "counts": r["collectives"]["model"]["counts"],
+            "remat_bytes": r["collectives"]["remat"]["bytes"]}
+            for r in records if r["arch"] == arch}
+        for arch in ("tinyllama-1.1b", "qwen3-moe-30b-a3b")}
+    if not all(v["bytes"] for m in model_bytes.values()
+               for v in m.values()):
+        raise AssertionError(f"model collectives not reckoned: {model_bytes}")
     emit("dryrun", records=len(records), seconds=seconds,
          allocated_bytes=before, peak_bytes=peak,
          over_hbm=sum(a > H100.hbm_bytes for a in args),
@@ -4113,7 +4210,8 @@ def dryrun_phase(dev, served):
          + records[int(np.argmax(args))]["shape"] + "/"
          + records[int(np.argmax(args))]["mesh"],
          tinyllama_prefill_params_bytes=real,
-         tinyllama_prefill=rec["memory"])
+         tinyllama_prefill=rec["memory"],
+         model_collective_bytes_per_device=model_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -4212,6 +4310,30 @@ WORLD_FLASH_ROW = "world_rank"  # flash_rows' row at a rank's serve share
 WORLD_LOGITS_REL_L2 = 5e-2
 WORLD_LOSS_RTOL = 1e-4
 WORLD_CHANGE_REL = 0.4
+# qwen3-moe across ranks (experts over model): the serve at the families
+# phase's shape and depth against its one-process run, and a mesh round at
+# one of its 48 layers (N = 1,245,452,288) held as TinyLlama's is. The
+# prefill's logits are held to WORLD_LOGITS_REL_L2 of one process's (0.0129
+# read; its bf16 prefill lies 0.0150 from its fp32 one). A decode of 4
+# tokens moves by whole experts where a near tie between the k-th and next
+# expert flips, in the world (0.034-0.091 read, predicted 0.02-0.04: PERF.md
+# section 6, PR 31) as in one process's bf16 against fp32: so each step's
+# logits are held by their distance from the fp32 logits, at most
+# WORLD_MOE_ERR_RATIO times one process's bf16 distance (the control, read
+# in every run), as the flash path's bf16 error is held to the plain one's.
+WORLD_MOE_ERR_RATIO = 2.0
+# The MoE round's losses: before any update (round 1) the world's forward
+# already reads 9.8e-5 from one process's (routing flips between near-tied
+# experts), and a skipped update moves the loss by as little (1.1e-4, 7e-5;
+# dev31_2, PERF.md section 6, PR 31): the bound sits 5-10 times above the
+# forward noise predicted, and the change sketch holds the update.
+WORLD_MOE_LOSS_RTOL = 1e-3
+WORLD_MOE_ARCH = "qwen3-moe-30b-a3b"
+WORLD_MOE_FLASH_ROW = "world_rank_moe"
+WORLD_MOE_MESH_ARGS = ["--mode", "mesh", "--arch", WORLD_MOE_ARCH,
+                       "--full-size", "--set", "n_layers=1",
+                       "--model-parallel", "2", "--failure-rate", "0.3",
+                       "--seed", "0"]
 
 
 def digest(t) -> str:
@@ -4383,24 +4505,28 @@ def world_chunk_rows(dev):
     return rows
 
 
-def world_train(dev, where, mesh_rounds, mesh_sketch):
-    """``launch/train.py --mode mesh --world`` at ``MESH_ARGS`` (MoDeST, 2
-    x 2, ranks on ``where``) for WORLD_TRAIN_ROUNDS rounds, gated against
-    the one-process run's rounds ``mesh_rounds`` and change sketch
+def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
+                loss_rtol=WORLD_LOSS_RTOL, loss_control=True):
+    """``launch/train.py --mode mesh --world`` at ``argv`` (None:
+    ``MESH_ARGS``; MoDeST, 2 x 2, ranks on ``where``) for
+    WORLD_TRAIN_ROUNDS rounds, gated against the one-process run's rounds
+    ``mesh_rounds`` (losses within ``loss_rtol``) and change sketch
     ``mesh_sketch`` (``launch.train`` on ``dev``) and against a control
-    run here: the same rounds with the update skipped (learning rate 0).
-    Its part of the world line, each rank's report under
-    ``ranks_report``."""
+    run here: the same rounds with the update skipped (learning rate 0),
+    whose loss gaps must pass 4 bounds where ``loss_control`` and whose
+    sketch must lie further than the bound. Its part of the world line,
+    each rank's report under ``ranks_report``."""
     from repro_torch.launch import train
 
+    argv = (MESH_ARGS if argv is None else argv) + [
+        "--algo", "modest", "--devices", "4", "--rounds",
+        str(WORLD_TRAIN_ROUNDS)]
     # the control: the one-process rounds with the update skipped
-    skipped = train.main(MESH_ARGS + [
-        "--algo", "modest", "--devices", "4", "--device", str(dev),
-        "--rounds", str(WORLD_TRAIN_ROUNDS), "--lr", "0"])["history"]
+    control = train.main(argv + ["--device", str(dev), "--lr", "0"])
+    skipped, skipped_sketch = control["history"], control["change_sketch"]
+    del control
     release()
-    trained = train.main(MESH_ARGS + [
-        "--algo", "modest", "--devices", "4", "--device", where,
-        "--rounds", str(WORLD_TRAIN_ROUNDS), "--world"])
+    trained = train.main(argv + ["--device", where, "--world"])
 
     def loss_gaps(hist):
         gaps = []
@@ -4419,8 +4545,10 @@ def world_train(dev, where, mesh_rounds, mesh_sketch):
     want = np.asarray(mesh_sketch)
     line = {"world": "2 x 2", "rounds": trained["history"],
             "one_process": mesh_rounds[:WORLD_TRAIN_ROUNDS],
-            "loss_rel_gaps": gaps_train, "loss_rel_bound": WORLD_LOSS_RTOL,
+            "loss_rel_gaps": gaps_train, "loss_rel_bound": loss_rtol,
             "skipped_update_loss_rel_gaps": gaps_skipped,
+            "skipped_update_change_rel_gap": float(np.linalg.norm(
+                np.asarray(skipped_sketch) - want) / np.linalg.norm(want)),
             "change_rel_gap": float(np.linalg.norm(sketches[0] - want)
                                     / np.linalg.norm(want)),
             "change_rel_bound": WORLD_CHANGE_REL,
@@ -4428,8 +4556,9 @@ def world_train(dev, where, mesh_rounds, mesh_sketch):
             "ranks_alike": all(np.array_equal(x, sketches[0])
                                for x in sketches)}
     # round 1 runs before any update: a skipped update shows from round 2
-    if max(gaps_train) > WORLD_LOSS_RTOL or \
-            max(gaps_skipped[1:]) < 4 * WORLD_LOSS_RTOL or \
+    if max(gaps_train) > loss_rtol or (
+            loss_control and max(gaps_skipped[1:]) < 4 * loss_rtol) or \
+            line["skipped_update_change_rel_gap"] <= WORLD_CHANGE_REL or \
             line["change_rel_gap"] > WORLD_CHANGE_REL or \
             not line["ranks_alike"] or \
             any(any(r["launches"].values()) for r in trained["ranks"]):
@@ -4438,8 +4567,143 @@ def world_train(dev, where, mesh_rounds, mesh_sketch):
     return dict(line, ranks_report=trained["ranks"])
 
 
+def world_moe_serve_body(world, argv, teacher, n_calls):
+    """A rank of the qwen3-moe serve world: the serving launcher's own rank
+    (``launch.serve._serve_rank``, what ``--world`` runs) on ``argv``, with
+    the routing of its first ``n_calls`` MoE layers kept (the prefill's and
+    the decodes', ``recorded_routes``)."""
+    from repro_torch.launch import serve
+
+    out = {}
+    routes = recorded_routes(lambda: out.update(serve._serve_rank(
+        world, serve.parse_args(argv), teacher)), n_calls)
+    return dict(out, routes=routes, coords=world.rank)
+
+
+def world_moe(dev, where, moe_ref):
+    """qwen3-moe across ranks on 2 x 2 worlds whose ranks share the card:
+    ``world_moe_serve``, then ``world_moe_train``."""
+    serve_line = world_moe_serve(where, moe_ref)
+    release()
+    return {"serve": serve_line, "train": world_moe_train(dev, where)}
+
+
+def world_moe_serve(where, moe_ref):
+    """qwen3-moe's serve across ranks (experts over ``model``):
+
+    * ``launch/serve.py --full-size --set n_layers=4 --set use_flash=true
+      --world`` at the families phase's shape and seed (its ranks run the
+      launcher's own rank function, ``world_moe_serve_body``), decodes
+      teacher-forced on the families phase's greedy tokens, against the
+      one-process reference ``moe_ref`` (``moe_world_reference``: bf16, and
+      fp32 as the control). Gates: the prefill's logits within
+      WORLD_LOGITS_REL_L2 of one process's bf16 ones; at every step the
+      world's distance from the fp32 logits at most WORLD_MOE_ERR_RATIO
+      times one process's bf16 distance (or WORLD_LOGITS_REL_L2, where
+      that is larger): a decode of 4 tokens moves by whole experts where a
+      near tie flips, in one process's bf16 as in the world; each rank
+      launches ``flash_attention`` once a layer, on its 2 rows and 16 / 2
+      heads, and nothing else. Reported: the shares of (token, choice)
+      slots routed to another expert than one process's bf16 run (and
+      than its fp32 run), by step.
+    """
+    from repro_torch.launch.world import run_world
+
+    arch, over, B, S, n_attn = next(m for m in FAMILY_MODELS
+                                    if m[0] == WORLD_MOE_ARCH)
+    L = over["n_layers"]
+    argv = ["--arch", arch, "--full-size", "--devices", "4",
+            "--model-parallel", "2", "--set", "use_flash=true", "--batch",
+            str(B), "--prompt-len", str(S), "--new-tokens", str(WORLD_NEW),
+            "--seed", "0", "--device", where]
+    argv += [a for k, v in over.items() for a in ("--set", f"{k}={v}")]
+    teacher = moe_ref["tokens"][:, :WORLD_NEW - 1].numpy()
+    t0 = time.perf_counter()
+    ranks = run_world(world_moe_serve_body, 4, device=where,
+                      args=(argv, teacher, L * WORLD_NEW), timeout=600.0)
+    t_serve = time.perf_counter() - t0
+    served = ranks[0]
+    one, exact = moe_ref["bfloat16"], moe_ref["float32"]
+    steps = served["step_logits"]
+    gaps = [rel_l2(g, w) for g, w in zip(steps, one["step_logits"])]
+    world_err = [rel_l2(g, w) for g, w in zip(steps, exact["step_logits"])]
+    one_err = [rel_l2(g, w) for g, w in zip(one["step_logits"],
+                                            exact["step_logits"])]
+    bounds = [max(WORLD_MOE_ERR_RATIO * e, WORLD_LOGITS_REL_L2)
+              for e in one_err]
+    for r in ranks:
+        fl = r["report"]["launches"]["flash_attention"]
+        if fl != n_attn or sum(r["report"]["launches"].values()) != fl:
+            raise AssertionError(f"moe serve rank {r['coords']} launched "
+                                 f"{r['report']['launches']}, want {n_attn}"
+                                 " flash only")
+    # every step's routes, tokens in batch order: model rank 0 of each
+    # data rank holds its rows' (every model rank routes alike)
+    world_routes = [torch.cat([r["routes"][i] for r in ranks
+                               if r["coords"] % 2 == 0])
+                    for i in range(L * WORLD_NEW)]
+
+    def flip_shares(xs, ys):
+        """The share of (token, choice) slots whose experts differ, by
+        step (the mean over its L layers)."""
+        if [x.shape for x in xs] != [y.shape for y in ys]:
+            raise AssertionError("moe routes of another shape")
+        by_call = [float((x != y).float().mean()) for x, y in zip(xs, ys)]
+        return [float(np.mean(by_call[i * L:(i + 1) * L]))
+                for i in range(WORLD_NEW)]
+
+    serve_line = {
+        "world": "2 x 2", "arch": arch, "depth_cut": over, "batch": B,
+        "prompt_len": S, "step_rel_l2": gaps,
+        "prefill_rel_l2_bound": WORLD_LOGITS_REL_L2,
+        "world_vs_fp32_rel_l2": world_err,
+        "one_process_bf16_vs_fp32_rel_l2": one_err,
+        "vs_fp32_bounds": bounds, "err_ratio_bound": WORLD_MOE_ERR_RATIO,
+        "routing_flip_share_by_step": flip_shares(world_routes,
+                                                  one["routes"]),
+        "routing_flip_share_vs_fp32_by_step": flip_shares(world_routes,
+                                                          exact["routes"]),
+        "one_process_bf16_vs_fp32_flip_share_by_step": flip_shares(
+            one["routes"], exact["routes"]),
+        "tokens_equal": bool(np.array_equal(
+            served["tokens"], moe_ref["tokens"][:, :WORLD_NEW].numpy())),
+        "prefill_seconds": served["prefill_seconds"],
+        "decode_seconds": served["decode_seconds"],
+        "world_seconds": t_serve,
+        "ranks_report": [r["report"] for r in ranks]}
+    if len(gaps) != WORLD_NEW or gaps[0] > WORLD_LOGITS_REL_L2 or any(
+            e > b for e, b in zip(world_err, bounds)):
+        raise AssertionError(f"moe world logits: {json.dumps(serve_line)}")
+    return serve_line
+
+
+def world_moe_train(dev, where):
+    """``launch/train.py --mode mesh --full-size --set n_layers=1 --world``
+    of qwen3-moe (MoDeST, P = 2, TP 2; 3 rounds), held by ``world_train``
+    against the same rounds in one process here: its change sketch within
+    WORLD_CHANGE_REL and alike on every rank, no kernel launched, the
+    losses within WORLD_MOE_LOSS_RTOL. The control at learning rate 0 is
+    read too; its loss gaps are reported and not required to pass 4
+    bounds: a skipped update moves the MoE's loss by about its forward
+    noise across ranks (routing flips), so here the sketch, which the
+    control puts 1 away, is what sees a skipped update."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    one = train.main(WORLD_MOE_MESH_ARGS + [
+        "--algo", "modest", "--devices", "4", "--rounds",
+        str(WORLD_TRAIN_ROUNDS), "--device", str(dev)])
+    rounds, sketch = one["history"], one["change_sketch"]
+    del one
+    release()
+    trained = world_train(dev, where, rounds, sketch, WORLD_MOE_MESH_ARGS,
+                          loss_rtol=WORLD_MOE_LOSS_RTOL, loss_control=False)
+    return dict(trained, arch=WORLD_MOE_ARCH, depth_cut={"n_layers": 1},
+                world_seconds=time.perf_counter() - t0)
+
+
 def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
-                world_device=None):
+                moe_ref, world_device=None):
     """The port across ranks (``launch.world``) on the one card, whose
     ranks share it (gloo, gathers staged through host memory):
 
@@ -4462,7 +4726,9 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
       tokens: logits within WORLD_LOGITS_REL_L2 of the serve phase's
       prefill and of the one-process launcher's teacher-forced decodes,
       22 ``flash_attention`` launches a rank (one prefill) and no other;
-    * a 1-rank world (NCCL) of the plain session, bit for bit too.
+    * a 1-rank world (NCCL) of the plain session, bit for bit too;
+    * qwen3-moe's serve and mesh round, its experts over ``model``
+      (``world_moe``, against the families phase's ``moe_ref``).
 
     ``world_device`` (None: ``dev``) is where the worlds' ranks run:
     ``"cuda"`` spreads them over the cards, one a rank where there are
@@ -4533,6 +4799,9 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
     if one_launches["flash_attention"] != 22:
         raise AssertionError(f"one-process launcher: {one_launches}")
 
+    release()
+    moe = world_moe(dev, where, moe_ref)
+
     def reports(rs):
         return [{k: r[k] for k in ("rank", "backend", "launches",
                                    "staged_bytes", "seconds", "peak_bytes")}
@@ -4560,6 +4829,10 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                   "prefill_seconds": served["prefill_seconds"],
                   "one_process_prefill_seconds": one["prefill_seconds"],
                   "ranks_report": reports(served["ranks"])},
+        "moe_serve": dict(moe["serve"], ranks_report=reports(
+            moe["serve"]["ranks_report"])),
+        "moe_train": dict(moe["train"], ranks_report=reports(
+            moe["train"]["ranks_report"])),
         "seconds": time.perf_counter() - t0}
     emit("world", **line)
     return line
@@ -4857,6 +5130,7 @@ def main() -> int:
         raise AssertionError(f"families phase launches {family_launches}, "
                              f"want {families['flash_launches']} of "
                              "flash_attention only")
+    moe_ref = families["moe_ref"]
     del families
     release()
     families_train = lm_families_train_phase()
@@ -4879,7 +5153,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     world = world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens,
-                        serve_prefill)
+                        serve_prefill, moe_ref)
+    del moe_ref
     world_launches = {
         name: [r["launches"][name]
                for r in world["sessions"]["ranks_report"]]
@@ -4888,12 +5163,18 @@ def main() -> int:
         r["launches"]["flash_attention"]
         for r in world["serve"]["ranks_report"]]
     world_rows = dict(world["chunk_rows"])
-    world_rows["flash_attention"] = {k: r[k] for r in rows["flash_attention"]
-                                     if r["shape"] == WORLD_FLASH_ROW
-                                     for k in ("B", "Hq", "Hkv", "S", "hd",
-                                               "ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "max_abs_err")}
+
+    def flash_row(shape):
+        return {k: r[k] for r in rows["flash_attention"]
+                if r["shape"] == shape
+                for k in ("B", "Hq", "Hkv", "S", "hd", "ms", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms",
+                          "max_abs_err")}
+
+    world_rows["flash_attention"] = dict(flash_row(WORLD_FLASH_ROW), moe=dict(
+        flash_row(WORLD_MOE_FLASH_ROW), arch=WORLD_MOE_ARCH,
+        launches_by_rank=[r["launches"]["flash_attention"]
+                          for r in world["moe_serve"]["ranks_report"]]))
 
     kernels = []
     for name, meta in KERNELS.items():

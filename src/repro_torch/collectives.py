@@ -26,7 +26,9 @@ over a gloo group (several ranks sharing one card) is therefore staged
 through host memory: the tensor is copied to the CPU, gathered there and
 the result copied back onto the card. ``COUNTS["staged_bytes"]`` adds the
 bytes of both copies; the arithmetic stays on the card in every rank.
-``COUNTS`` also counts the calls of each collective.
+``COUNTS`` also counts the calls of each collective, and
+``COUNTS["all_reduce_bytes"]`` the bytes of each all-reduce's operand (one
+rank's, as ``launch/dryrun.py`` reckons a device's).
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-COUNTS = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
-          "staged_bytes": 0}
+COUNTS = {"all_reduce": 0, "all_reduce_bytes": 0, "all_gather": 0,
+          "broadcast": 0, "staged_bytes": 0}
 
 
 def reset_counts() -> None:
@@ -62,6 +64,7 @@ def _op(op: str):
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Reduce ``t`` over ``group`` in place and return it."""
     COUNTS["all_reduce"] += 1
+    COUNTS["all_reduce_bytes"] += t.numel() * t.element_size()
     dist.all_reduce(t, op=_op(op), group=group)
     return t
 

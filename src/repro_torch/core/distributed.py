@@ -35,11 +35,12 @@ In a world (``launch.world``: one process a device, the mesh its
 ``DeviceMesh``) both classes split the tensors over the ranks by their
 specs. The trainer's participants are split over ``data`` (``data_rank``
 granularity: a rank holds P / data replicas) and each replica's leaves
-over ``model`` (tensor parallelism of the dense family,
-``models.layers.tensor_parallel``); ``init_state`` and ``shard_state`` give
-a rank its shards (``sharding.local_shard``), ``gather_state`` the whole
-state back. A step takes the whole batch and the whole ``(P,)`` weights,
-which every rank's host code draws alike, and trains the rank's
+over ``model`` (tensor parallelism of the dense family and expert
+parallelism of the MoE, ``models.layers.tensor_parallel``);
+``init_state`` and ``shard_state`` give a rank its shards
+(``sharding.local_shard``), ``gather_state`` the whole state back. A step
+takes the whole batch and the whole ``(P,)`` weights, which every rank's
+host code draws alike, and trains the rank's
 participants on their batch rows; the strategy's mix gathers the P axis
 over ``data`` and applies the one-process arithmetic, so the mix is bit
 for bit the one-process mix of the same replicas (or, where the gathered
@@ -47,7 +48,9 @@ replicas would not fit, reduces a weighted mean's partials over ``data``:
 :meth:`DistributedTrainer.mix_form`). The server splits the
 batch over ``data``, the parameters by ``param_spec`` and the cache by
 ``cache_spec`` (kv heads over ``model``); ``prefill`` and ``decode`` take
-the whole batch and return the whole logits on every rank. Other
+the whole batch and return the whole logits on every rank; a MoE batch
+whose rank's tokens would route in other groups than one process's, where
+a group could drop slots, raises (``models.moe.rank_groups_match``). Other
 families, granularities and a gradient clip under tensor parallelism
 raise ``NotImplementedError`` (ROADMAP A12b-2).
 """
@@ -64,6 +67,7 @@ from repro_torch.core.strategy import (Strategy, build_strategy,
                                        weighted_mean_share)
 from repro_torch.models import Model, build
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.sharding import (DeviceMesh, ShardingPolicy, gather_tree,
                                   local_shard, mesh_device)
 from repro_torch.utils.device import resolve_device
@@ -120,10 +124,10 @@ def _world_of(mesh, cfg: ModelConfig, policy: ShardingPolicy, what: str):
     splits ``cfg`` there; None outside a world."""
     if not (isinstance(mesh, DeviceMesh) and mesh.in_world):
         return None
-    if mesh.axis_size("model") > 1 and cfg.family != "dense":
+    if mesh.axis_size("model") > 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{what} of the {cfg.family} family with tensor parallelism "
-            "across ranks (ROADMAP A12b-2: dense only)")
+            "across ranks (ROADMAP A12b-2: dense and moe only)")
     if what == "training" and (cfg.participant_granularity != "data_rank"
                                or "pod" in mesh.axis_names):
         raise NotImplementedError(
@@ -515,10 +519,17 @@ class Server:
         cache."""
         if self.world is None:
             return fn(params, batch, cache)
-        B = tree_leaves(batch)[0].shape[0]
+        tokens = tree_leaves(batch)[0]
+        B = tokens.shape[0]
         n = self.world.axis_size("data")
         if B % n:
             raise ValueError(f"a batch of {B} over {n} data ranks")
+        if self.cfg.family == "moe" and not moe.rank_groups_match(
+                self.cfg, tokens.numel(), n):
+            raise NotImplementedError(
+                f"routing {tokens.numel()} tokens in groups split over {n} "
+                "data ranks, where a group could drop other slots than one "
+                "process's (ROADMAP A12b-2)")
         with L.tensor_parallel(self.world):
             logits, cache = fn(params, _rows(batch, self.world, "data",
                                              B // n), cache)

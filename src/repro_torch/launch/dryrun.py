@@ -26,10 +26,18 @@ Each record holds:
   (``core/strategy.py``): ``modest`` and ``fedavg`` one all-reduce of one
   participant's parameters on a device in the aggregation's dtype, plus the
   fp32 sum of the weights; ``dsgd`` one collective-permute a parameter leaf
-  of its fp32 shard; ``local`` none; prefill and decode none. The
-  tensor-parallel collectives of the forward and backward passes are not
-  reckoned (``reckoned`` says so). ``total_bytes`` is the bytes on one
-  device times the device count, as the roofline reads it.
+  of its fp32 shard; ``local`` none (``strategy``). Then the collectives
+  that the model's own layout puts into a train, prefill or decode step
+  (``model``, :func:`model_collectives`): the tensor-parallel reductions of
+  the forward and backward passes, the MoE's routing collectives, the
+  backward's recomputation under ``cfg.remat`` (also apart, in ``remat``)
+  and a train step's metrics. They are reckoned for the dense and MoE
+  families at ``data_rank`` granularity, as XLA's compile of the reference
+  places and combines them, in the program's dtypes (XLA's CPU backend
+  widens a bf16 all-reduce to fp32; the wire here is the program's);
+  ``reckoned`` names what is not (the other families' tensor-parallel
+  collectives, FSDP, a cache split by sequence). ``total_bytes`` is the
+  bytes on one device times the device count, as the roofline reads it.
 * ``roofline``: ``roofline.analytic_terms`` on ``config.H100`` with the
   collective bytes above; ``raw_hlo_flops`` and ``raw_hlo_bytes`` are None
   (there is no compiled module).
@@ -46,7 +54,7 @@ import math
 import os
 import time
 import traceback
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,6 +63,7 @@ from repro_torch.config import (SHAPES, H100, MeshConfig, ShapeConfig,
                                 TrainConfig, parse_overrides)
 from repro_torch.core.distributed import DistributedTrainer, Server
 from repro_torch.launch.mesh import make_mesh_from_config, mesh_config
+from repro_torch.models import moe
 from repro_torch.roofline import analytic_terms
 from repro_torch.sharding import ShardingPolicy, _k, input_specs
 from repro_torch.utils.pytree import tree_flatten, tree_flatten_with_path
@@ -86,8 +95,7 @@ LONG_CTX_WINDOW = 8192
 HOST_SCALAR_BYTES = 4
 # bytes a returned leaf takes in the output tuple's index table
 TUPLE_ENTRY_BYTES = 8
-COLLECTIVES_RECKONED = ("strategy aggregation only; tensor-parallel "
-                        "collectives not reckoned")
+COLLECTIVES_RECKONED = "strategy aggregation and the model's collectives"
 
 
 def effective_config(arch: str, shape_name: str):
@@ -282,6 +290,254 @@ def strategy_collectives(strategy: str, params_t, params_spec,
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
+class Collective(NamedTuple):
+    """One collective of the step as XLA's partitioner places it and its
+    all-reduce combiner groups it: one op over the mesh ``axis``, moving
+    ``operands`` (``(shape on one device, dtype)`` each: an all-reduce's
+    operands, an all-gather's result, as ``utils/hlo.py::collective_bytes``
+    counts them), run ``times`` a step (layers x local steps). ``remat``
+    marks a recomputation of the forward pass inside the backward one."""
+    kind: str
+    what: str
+    axis: str
+    operands: tuple
+    times: int = 1
+    remat: bool = False
+
+    def nbytes(self, widen: bool = False) -> int:
+        """Bytes a step on one device; ``widen`` counts 16-bit floats at 4
+        bytes, as XLA's CPU backend widens them."""
+        def size(dt):
+            n = getattr(torch, dt).itemsize
+            return 4 if widen and dt in ("bfloat16", "float16") else n
+        return self.times * sum(math.prod(s) * size(dt)
+                                for s, dt in self.operands)
+
+
+def summarize(colls, widen: bool = False) -> dict:
+    """``{"bytes": {kind: n}, "counts": {kind: n}}`` of a list of
+    :class:`Collective`."""
+    out: dict = {"bytes": {}, "counts": {}}
+    for c in colls:
+        out["bytes"][c.kind] = out["bytes"].get(c.kind, 0) + c.nbytes(widen)
+        out["counts"][c.kind] = out["counts"].get(c.kind, 0) + c.times
+    return out
+
+
+def _splits(spec, dim: int) -> bool:
+    axis = spec[dim] if dim < len(spec) else None
+    return "model" in (axis if isinstance(axis, tuple) else (axis,))
+
+
+def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
+                      params_spec, *, micro: int = 1, b_micro: int = 1):
+    """The collectives the model's own layout puts into a train, prefill
+    or decode step, besides the strategy's aggregation: ``(list of
+    Collective, [what is not reckoned])``.
+
+    Reckoned from one participant's parameter specs (``params_spec``, the
+    layer axis first under ``layers``) and the model's products, for the
+    dense and MoE families at ``data_rank`` granularity, as XLA's compile
+    of the reference shows them (held exactly at a 4 x 2 mesh by
+    ``tests/test_torch_dryrun.py``):
+
+    * a row-parallel product's output (attention's ``wo``, the MLP's
+      ``wd``, the MoE's combine over the experts) and a vocab-parallel
+      lookup: one all-reduce each, in the activations' dtype;
+    * backward, the input gradients of the column-parallel products of one
+      input (``wq``, ``wk``, ``wv``; ``wg``, ``wu``): one all-reduce of
+      one operand each (XLA sums them apart, then combines the ops);
+    * a vocab-parallel loss: the fp32 max and sum of exponentials over the
+      vocab, and one op of the target's logit with the gradient of ``h``;
+    * the MoE: the router's softmax over experts split by ``model``, the
+      top k's gathers (over ``model`` and, as XLA replicates the top k's
+      operand, over the participants), the slot positions' sum over
+      experts, the aux loss with the combine; backward, the gates', the
+      softmax's and ``xg``'s gradients (router and dispatch paths in one
+      op), and the router's gradient gathered over ``model`` at the end.
+      Serving splits the token groups over ``data``: the groups where
+      ``data`` divides their count, else the tokens of a group (a decode),
+      which adds the priority's gather and the dispatch's all-reduce over
+      ``data``;
+    * ``cfg.remat``: the backward pass recomputes the forward's collectives
+      that it needs (attention's output, the router's), once again;
+    * a train step's metrics: one all-reduce of two fp32 scalars over the
+      participant axis.
+    """
+    train = shape.kind == "train"
+    colls, notes = [], []
+    if train and policy._axes_size(policy.part_axis) > 1:
+        colls.append(Collective("all-reduce", "metrics (loss, active)",
+                                _axis_name(policy.part_axis),
+                                (((), "float32"), ((), "float32"))))
+    M = policy._axes_size("model")
+    if cfg.family not in ("dense", "moe"):
+        notes.append("tensor-parallel collectives not reckoned")
+        return colls, notes
+    if policy.fsdp_axis is not None:
+        notes.append("tensor-parallel and FSDP collectives not reckoned "
+                     f"({cfg.participant_granularity!r} granularity)")
+        return colls, notes
+    if M == 1 or policy._replicated:
+        return colls, notes
+
+    specs = dict(_flat_specs(params_spec))
+    at = cfg.param_dtype
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.n_heads % M or cfg.n_kv_heads % M:
+        notes.append("head resharding where the model axis splits a head "
+                     "not reckoned")
+    if train:
+        P_loc = policy.n_participants // policy._axes_size(policy.part_axis)
+        lead = (P_loc, b_micro)
+        S, top_times = shape.seq_len, micro
+    else:
+        Dn = policy._axes_size("data")
+        B = shape.global_batch
+        shard_seq = shape.name == "long_500k"
+        if shard_seq:
+            notes.append("attention over a cache split by sequence not "
+                         "reckoned")
+        lead = (B // Dn if not shard_seq and B % Dn == 0 else B,)
+        S = shape.seq_len if shape.kind == "prefill" else 1
+        top_times = 1
+    act = lead + (S, d)
+    times = L * top_times
+
+    def add(kind, what, axis, operands, n=times, remat=False):
+        colls.append(Collective(kind, what, axis, tuple(operands), n, remat))
+
+    attn_in = [w for w in ("wq", "wk", "wv")
+               if _splits(specs[f"layers/attn/{w}"], 2)]
+    attn_out = _splits(specs["layers/attn/wo"], 1)
+    if attn_out:
+        add("all-reduce", "attention output (row-parallel wo)", "model",
+            [(act, at)])
+        if train and cfg.remat:
+            add("all-reduce", "attention output, recomputed", "model",
+                [(act, at)], remat=True)
+    if cfg.family == "dense":
+        if _splits(specs["layers/mlp/wd"], 1):
+            add("all-reduce", "MLP output (row-parallel wd)", "model",
+                [(act, at)])
+        mlp_in = [w for w in ("wg", "wu")
+                  if _splits(specs[f"layers/mlp/{w}"], 2)]
+    else:
+        mlp_in = []
+        if "layers/moe/dense/wd" in specs and _splits(
+                specs["layers/moe/dense/wd"], 1):
+            add("all-reduce", "dense residual output (row-parallel wd)",
+                "model", [(act, at)])
+        if "layers/moe/dense/wg" in specs:
+            mlp_in = [w for w in ("wg", "wu")
+                      if _splits(specs[f"layers/moe/dense/{w}"], 2)]
+        if _splits(specs["layers/moe/wg"], 1):
+            _moe_collectives(cfg, shape, policy, lead, S, train, add, times)
+    if train:
+        if mlp_in:
+            add("all-reduce", "MLP input gradients (column-parallel)",
+                "model", [(act, at)] * len(mlp_in))
+        if attn_in:
+            add("all-reduce", "attention input gradients (column-parallel)",
+                "model", [(act, at)] * len(attn_in))
+    tied = "lm_head" not in specs
+    if _splits(specs["embed"], 0):
+        add("all-reduce", "vocab-parallel embedding", "model", [(act, at)],
+            n=top_times)
+    if train and (_splits(specs["embed"], 0) if tied
+                  else _splits(specs["lm_head"], 1)):
+        chunks = (S // cfg.xent_chunk) if cfg.xent_chunk else 1
+        tok = lead + (S // chunks,)
+        n = top_times * chunks
+        add("all-reduce", "vocab-parallel loss: max", "model",
+            [(tok, "float32")], n=n)
+        add("all-reduce", "vocab-parallel loss: sum of exponentials",
+            "model", [(tok, "float32")], n=n)
+        add("all-reduce", "vocab-parallel loss: target logit and the "
+            "gradient of h", "model",
+            [(tok + (d,), at), (tok + (1,), "float32")], n=n)
+    return colls, notes
+
+
+def _moe_collectives(cfg, shape, policy, lead, S, train, add, times):
+    """The MoE layer's collectives (see :func:`model_collectives`), its
+    experts split over ``model``."""
+    M = policy._axes_size("model")
+    E, k, d, at = (cfg.moe_num_experts, cfg.moe_top_k, cfg.d_model,
+                   cfg.param_dtype)
+    f32 = "float32"
+    if train:
+        tokens = lead[1] * S
+        G = min(cfg.moe_group_size, tokens)
+        Gn = -(-tokens // G)
+        P_loc = lead[0]
+        grp = (P_loc, Gn, G)
+        part = policy._axes_size(policy.part_axis)
+        router = [("all-reduce", "router softmax: max over experts", "model",
+                   [(grp, f32)]),
+                  ("all-reduce", "router softmax: sum over experts", "model",
+                   [(grp, f32)]),
+                  ("all-gather", "top k: router probabilities over experts",
+                   "model", [(grp + (E,), f32)])]
+        if part > 1:
+            router.append(("all-gather", "top k: router probabilities over "
+                           "participants", _axis_name(policy.part_axis),
+                           [((P_loc * part, Gn, G, E), f32)]))
+        router.append(("all-reduce", "slot positions: sum over experts",
+                       "model", [((P_loc, Gn, G * k), f32)]))
+        for c in router:
+            add(*c)
+        add("all-reduce", "combine over experts, with the aux loss", "model",
+            [(grp + (d,), at), ((P_loc,), f32)])
+        if cfg.remat:
+            for kind, what, axis, ops in router:
+                add(kind, what + ", recomputed", axis, ops, remat=True)
+        add("all-reduce", "gates' gradient", "model", [(grp + (k,), f32)])
+        add("all-reduce", "router softmax's gradient", "model", [(grp, f32)])
+        add("all-reduce", "xg's gradient (router and dispatch)", "model",
+            [(grp + (d,), f32), (grp + (d,), at)])
+        add("all-gather", "router's gradient over experts", "model",
+            [((P_loc, cfg.n_layers, d, E), f32)], n=times // cfg.n_layers)
+        return
+    Dn = policy._axes_size("data")
+    tokens = shape.global_batch * S
+    G = min(cfg.moe_group_size, tokens)
+    Gn = -(-tokens // G)
+    C = moe.capacity(cfg, G)
+    Gn_loc, G_loc = Gn, G
+    if Dn > 1 and shape.name != "long_500k":
+        add("all-gather", "top k: router probabilities over data", "data",
+            [((Gn, G, E), f32)])
+        if Gn % Dn == 0:
+            Gn_loc = Gn // Dn
+        else:
+            G_loc = G // Dn
+            add("all-gather", "slot priorities over data", "data",
+                [((Gn, G * k, E // M), f32)])
+    add("all-reduce", "slot positions: sum over experts", "model",
+        [((Gn_loc, G_loc * k), f32)])
+    if G_loc != G:
+        add("all-reduce", "dispatch over the group's tokens", "data",
+            [((Gn, E // M, C, d), at)])
+    add("all-reduce", "combine over experts", "model",
+        [((Gn_loc, G_loc, d), at)])
+
+
+def _axis_name(axis) -> str:
+    return ",".join(axis) if isinstance(axis, tuple) else str(axis)
+
+
+def _flat_specs(params_spec):
+    """``(path, spec)`` of every leaf of a parameter spec tree (a spec is a
+    tuple, so the tree is walked by its dicts)."""
+    for key, val in params_spec.items():
+        if isinstance(val, dict):
+            for sub, spec in _flat_specs(val):
+                yield f"{key}/{sub}", spec
+        else:
+            yield key, val
+
+
 # ---------------------------------------------------------------------------
 # records
 # ---------------------------------------------------------------------------
@@ -318,16 +574,30 @@ def reckon(cfg, shape: ShapeConfig, mesh_cfg: MeshConfig, *,
         "output_by_part": out_by_part,
         "reckoned": True,
     }
+    params_t, params_spec = parts["arguments"]["params"]
     if shape.kind == "train":
-        params_t, params_spec = parts["arguments"]["params"]
-        coll = strategy_collectives(strategy, params_t, params_spec, policy,
-                                    agg_dtype)
+        own = strategy_collectives(strategy, params_t, params_spec, policy,
+                                   agg_dtype)
+        treedef = tree_flatten(params_t)[1]
+        one_spec = treedef.unflatten(
+            [s[1:] for s in treedef.flatten_up_to(params_spec)])
+        model, notes = model_collectives(
+            cfg, shape, policy, one_spec, micro=parts["micro_steps"],
+            b_micro=parts["micro_batch"])
     else:
-        coll = {"bytes": {}, "counts": {}}
+        own = {"bytes": {}, "counts": {}}
+        model, notes = model_collectives(cfg, shape, policy, params_spec)
+    by_model = summarize(model)
+    coll = {key: {k: own[key].get(k, 0) + by_model[key].get(k, 0)
+                  for k in sorted(set(own[key]) | set(by_model[key]))}
+            for key in ("bytes", "counts")}
     per_device = int(sum(coll["bytes"].values()))
-    record["collectives"] = {**coll, "per_device_bytes": per_device,
-                             "total_bytes": per_device * mesh_cfg.n_devices,
-                             "reckoned": COLLECTIVES_RECKONED}
+    record["collectives"] = {
+        **coll, "per_device_bytes": per_device,
+        "total_bytes": per_device * mesh_cfg.n_devices,
+        "strategy": own, "model": by_model,
+        "remat": summarize([c for c in model if c.remat]),
+        "reckoned": "; ".join([COLLECTIVES_RECKONED] + notes)}
     record["roofline"] = analytic_terms(
         cfg, shape,
         n_participants=policy.n_participants,

@@ -54,7 +54,8 @@ def _sync(device):
 WORLD_TIMEOUT = 3600.0     # seconds a world of the launcher may take
 
 
-def main(argv=None, teacher=None):
+def parse_args(argv=None):
+    """The options of :func:`main` (``sys.argv[1:]`` when None)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4)
@@ -72,7 +73,11 @@ def main(argv=None, teacher=None):
     ap.add_argument("--world", action="store_true",
                     help="with --devices N: a world of N ranks, one "
                          "process a device (launch.world)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None, teacher=None):
+    args = parse_args(argv)
     if args.world:
         from repro_torch.launch.world import run_world
         if not args.devices:

@@ -47,7 +47,8 @@ report (``launch.world.rank_report``, its ``history_hash`` and
 ``change_sketch`` added).
 
 The options keep the reference launcher's names and defaults, and add
-``--world``.
+``--world`` and, for the mesh mode, the serving launcher's ``--set
+KEY=VALUE`` (a field of the model's config, such as a depth cut).
 """
 
 from __future__ import annotations
@@ -176,7 +177,7 @@ def _mesh_rounds(args, quiet: bool = False):
     import torch
 
     from repro_torch import configs
-    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.config import MeshConfig, TrainConfig, parse_overrides
     from repro_torch.core.distributed import DistributedTrainer
     from repro_torch.core.hashing import select_sample
     from repro_torch.data import make_lm_task
@@ -199,6 +200,7 @@ def _mesh_rounds(args, quiet: bool = False):
     cfg = configs.get_config(args.arch)
     if not args.full_size:
         cfg = configs.reduced(cfg)
+    cfg = cfg.with_(**parse_overrides(args.set))
     tcfg = TrainConfig(optimizer="sgd", lr=args.lr,
                        batch_size=args.batch_size, seed=args.seed)
     trainer = DistributedTrainer(cfg, tcfg, mesh_cfg, strategy=args.algo,
@@ -286,6 +288,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--failure-rate", type=float, default=0.0)
     ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--set", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="mesh mode: override a field of the model's config "
+                         "(a depth cut: --set n_layers=1)")
     ap.add_argument("--world", action="store_true",
                     help="mesh mode: a world of --devices ranks, one "
                          "process a device (launch.world)")

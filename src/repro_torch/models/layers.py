@@ -21,10 +21,11 @@ projections and the MLP's first products are column-parallel (the rank's
 heads, its slice of d_ff), the attention output and the MLP's last product
 row-parallel (the fp32 partials summed over the group); the embedding and
 the LM head are split by vocab (a masked local lookup summed over the
-group, and :func:`vocab_parallel_xent`). A layer reads from its weights'
-shapes whether they are split: a dimension that the rules replicate (a
-vocab or head count the axis does not divide, ``replicate_attention``)
-needs no collective. The residual stream and the norms stay replicated.
+group, and :func:`vocab_parallel_xent`); the MoE's experts by their
+leading axis (:func:`expert_split`, ``models/moe.py``). A layer reads from
+its weights' shapes whether they are split: a dimension that the rules
+replicate (a vocab or head count the axis does not divide,
+``replicate_attention``) needs no collective. The residual stream and the norms stay replicated.
 """
 
 from __future__ import annotations
@@ -84,6 +85,15 @@ def vocab_split(head_w, vocab: int, transposed: bool = False) -> bool:
     """Whether ``head_w`` (d, V) — (V, d) ``transposed`` — is this rank's
     vocab slice under :func:`tensor_parallel`."""
     return _TP is not None and head_w.shape[0 if transposed else 1] != vocab
+
+
+def expert_split(n_local: int, n_all: int):
+    """``(slice, group)`` under :func:`tensor_parallel` where a weight's
+    leading expert axis of ``n_all`` is split (this rank holds ``n_local``):
+    the experts this rank holds and the group; else None."""
+    if _TP is None or n_local == n_all:
+        return None
+    return slice(_TP.rank * n_local, (_TP.rank + 1) * n_local), _TP.group
 
 
 def embed_lookup(table, tokens, vocab: int):

@@ -12,6 +12,18 @@ The tree is the reference's, keys sorted; the fp32 ``router`` stays fp32 in
 a bf16 model. Layers are stacked along a leading axis and a Python loop
 indexes them (views); the cache is the dense family's
 (``transformer.init_cache``), written in place, with a host-integer ``pos``.
+
+Expert parallelism (a world's ``model`` axis, ``layers.tensor_parallel``),
+by the reference's specs (``moe/w[gud]`` split by expert): a rank holds
+``E / model`` experts of ``wg``, ``wu`` and ``wd``. The router, the routing
+and the load-balance loss stay replicated (every rank routes every token
+alike). A rank takes its experts' slices of ``dispatch`` and ``combine``,
+fills and runs only their buffers, and the group sums the combined outputs
+(Megatron's *g*). Megatron's *f* goes on the dispatch's input ``xg`` and on
+``combine`` before they are sliced, so that ``xg``'s and the router's
+gradients are whole and alike on every rank. Attention, arctic's dense
+residual (column- and row-parallel ``swiglu``), the embedding and the head
+split as in the dense family.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import collectives
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils.device import resolve_device
@@ -104,7 +117,7 @@ def routing(p, cfg, xg):
     gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = gates[..., :k], idx[..., :k]                   # (Gn,G,k)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    C = max(4, int(math.ceil(G * k / E * cfg.moe_capacity_factor)))
+    C = capacity(cfg, G)
     flat = F.one_hot(idx, E).to(torch.float32).reshape(Gn, G * k, E)
     prio = torch.cumsum(flat, dim=1) - flat                     # slots ahead
     pos = torch.sum(prio * flat, dim=-1)                        # (Gn,G*k)
@@ -140,15 +153,24 @@ def moe_ffn(p, cfg, x):
     del disp
 
     dt = x.dtype
-    buffers = torch.einsum("gtec,gtd->gecd", dispatch.to(dt), xg)
+    split = L.expert_split(p["wg"].shape[0], E)
+    x_in, disp_e, comb_e = xg, dispatch, combine
+    if split is not None:                       # this rank's experts only
+        sl, group = split
+        x_in = collectives.copy_to_group(xg, group)
+        disp_e = dispatch[:, :, sl]
+        comb_e = _combine_in(combine, group)[:, :, sl]
+    buffers = torch.einsum("gtec,gtd->gecd", disp_e.to(dt), x_in)
     h = F.silu(torch.einsum("gecd,edf->gecf", buffers, p["wg"]))
     h = h * torch.einsum("gecd,edf->gecf", buffers, p["wu"])
     expert_out = torch.einsum("gecf,efd->gecd", h, p["wd"])
-    out = torch.einsum("gecd,gtec->gtd", expert_out, combine.to(dt))
+    out = torch.einsum("gecd,gtec->gtd", expert_out, comb_e.to(dt))
+    if split is not None:
+        out = collectives.reduce_from_group(out, split[1])
 
     out = out.reshape(Gn * G, d)[:tokens].reshape(B, S, d)
     if "dense" in p:                                            # arctic
-        out = out + L.swiglu(p["dense"], x)
+        out = out + L.swiglu(p["dense"], x, cfg.moe_dense_ff)
 
     # Switch-style load-balance loss: E·Σ_e f_e·p_e == 1 at uniform routing
     f = dispatch.sum(dim=3).mean(dim=(0, 1)) / k                # token share
@@ -157,9 +179,46 @@ def moe_ffn(p, cfg, x):
     return out, aux
 
 
+def capacity(cfg, G: int) -> int:
+    """The slots an expert has in a group of ``G`` tokens."""
+    return max(4, int(math.ceil(G * cfg.moe_top_k / cfg.moe_num_experts
+                                * cfg.moe_capacity_factor)))
+
+
+def rank_groups_match(cfg, tokens: int, n: int) -> bool:
+    """Whether routing ``tokens // n`` contiguous tokens of ``tokens`` on
+    each of ``n`` ranks (a world's serving splits the batch over ``data``)
+    gives one process's dispatch: the rank's tokens fill whole groups of
+    the one-process grouping, or no group on either side can drop a slot
+    (each expert's capacity holds every token of a group)."""
+    G_all = min(cfg.moe_group_size, tokens)
+    local = tokens // n
+    G = min(cfg.moe_group_size, local)
+    if local % G_all == 0 and G == G_all:
+        return True
+    return capacity(cfg, G_all) >= G_all and capacity(cfg, G) >= G
+
+
+def _combine_in(combine, group):
+    """Megatron's *f* on the combine weights, before a rank takes its
+    experts' slice: the identity forward; backward, the group's sum of the
+    slices' gradients, so each rank's gates (and the router) get the whole
+    gradient."""
+    return collectives.copy_to_group(combine, group)
+
+
 # ---------------------------------------------------------------------------
 # model interface
 # ---------------------------------------------------------------------------
+
+
+def _logits(params, cfg, h):
+    """The head's fp32 logits; a head split by vocab has its slices
+    gathered over the group."""
+    head = params["lm_head"]
+    if L.vocab_split(head, cfg.vocab):
+        return L.vocab_logits(h, head).to(torch.float32)
+    return (h @ head).to(torch.float32)
 
 
 def _block(p, cfg, x, positions, mask):
@@ -190,11 +249,14 @@ def _stack(params, cfg, x, positions, mask, cache=None):
 
 def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
-    x = params["embed"][tokens]
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
     S = tokens.shape[1]
     mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
     h, aux = _stack(params, cfg, x, torch.arange(S, device=x.device), mask)
-    if cfg.xent_chunk:
+    if L.vocab_split(params["lm_head"], cfg.vocab):
+        xent = L.vocab_parallel_xent(h, params["lm_head"], labels,
+                                     cfg.xent_chunk, mask=batch.get("mask"))
+    elif cfg.xent_chunk:
         xent = L.chunked_softmax_xent(h, params["lm_head"], labels,
                                       cfg.xent_chunk, mask=batch.get("mask"))
     else:
@@ -211,17 +273,16 @@ def init_cache(cfg, batch_size, max_len, device=None):
 def prefill(params, cfg, batch, cache):
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = params["embed"][tokens]
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
     mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
     h, _ = _stack(params, cfg, x, torch.arange(S, device=x.device), mask,
                   cache)
-    return ((h[:, -1:] @ params["lm_head"]).to(torch.float32),
-            dict(cache, pos=S))
+    return _logits(params, cfg, h[:, -1:]), dict(cache, pos=S)
 
 
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
-    x = params["embed"][token]
+    x = L.embed_lookup(params["embed"], token, cfg.vocab)
     kpos = torch.arange(cache["k"].shape[2], device=x.device)
     valid = kpos <= pos
     if cfg.window:
@@ -235,5 +296,4 @@ def decode_step(params, cfg, token, cache):
         h, _ = moe_ffn(p["moe"], cfg, L.rms_norm(p["ln2"], x, cfg.norm_eps))
         x = x + h
     h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return ((h @ params["lm_head"]).to(torch.float32),
-            dict(cache, pos=pos + 1))
+    return _logits(params, cfg, h), dict(cache, pos=pos + 1)

@@ -7,16 +7,19 @@ Three tiers, all exact:
   devices compiles the reference on a 4 x 2 ``data`` x ``model`` mesh, as
   ``tests/test_distributed.py`` does: the train steps of the reduced
   TinyLlama (batch ``(4, 1, 2, 32)``, SGD) under every strategy, in fp32,
-  with bf16 parameters and with a bf16 aggregation, and a prefill (B 8,
-  S 64) and a decode of three families. The port's reckoning at
-  ``MeshConfig(data=4, model=2)`` must give XLA's per-device argument bytes
-  (less the leaves that ``jax.jit`` drops because the step does not read
-  them, each named in ``UNUSED``), its output bytes, and each strategy's
-  collective bytes and counts: XLA's, less those of the ``local`` step,
-  which are the tensor-parallel collectives the port does not reckon. A
-  bf16 aggregation is reduced in bf16 in the lowered program, but XLA's
-  CPU backend widens the all-reduce to fp32; the test checks both facts
-  and holds the port's 2 bytes a lane to XLA's 4.
+  with bf16 parameters and with a bf16 aggregation; the ``local`` steps of
+  the reduced qwen3-moe, and of both with ``remat`` on (``MODEL_CASES``);
+  and a prefill (B 8, S 64) and a decode of three families. The port's
+  reckoning at ``MeshConfig(data=4, model=2)`` must give XLA's per-device
+  argument bytes (less the leaves that ``jax.jit`` drops because the step
+  does not read them, each named in ``UNUSED``), its output bytes, and
+  every step's collective bytes and counts by kind: the strategy's (XLA's
+  less the ``local`` step's) and the whole figure, the model's
+  tensor-parallel and routing collectives and the remat term included. A
+  bf16 aggregation, and a bf16 model's activations, are reduced in bf16 in
+  the lowered program, but XLA's CPU backend widens every all-reduce to
+  fp32; the tests check both facts and hold the port's 2 bytes an element
+  to XLA's 4.
 * **Against the reference's specs at the production meshes.** For every
   arch of ``configs.ASSIGNED``, every shape and both meshes, the port's
   argument bytes equal the same sum over the reference's ``jax.eval_shape``
@@ -51,7 +54,7 @@ from repro.core.distributed import Server as JServer
 from repro.sharding import ShardingPolicy as JPolicy
 from repro.sharding import input_specs as j_input_specs
 from repro_torch import configs
-from repro_torch.config import SHAPES, MeshConfig, ShapeConfig
+from repro_torch.config import H100, SHAPES, MeshConfig, ShapeConfig
 from repro_torch.launch import dryrun
 from test_torch_threads import one_torch_thread  # noqa: F401
 
@@ -69,6 +72,9 @@ TRAIN_CASES = ([("float32", "float32", s) for s in STRATEGIES]
                + [("bfloat16", "float32", s) for s in ("modest", "dsgd",
                                                       "local")]
                + [("float32", "bfloat16", "modest")])
+# (arch, remat) of the fp32 ``local`` steps compiled besides TRAIN_CASES
+MODEL_CASES = [("qwen3-moe-30b-a3b", False), ("tinyllama-1.1b", True),
+               ("qwen3-moe-30b-a3b", True)]
 # leaves that jax.jit drops from the compiled step's arguments because the
 # step does not read them: a dense or MoE prefill writes the cache's
 # position and never reads it (RWKV's prefill adds to it)
@@ -80,7 +86,7 @@ def _xla_script() -> str:
     return textwrap.dedent(f"""
         import os
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-        import json
+        import json, re
         import jax, jax.numpy as jnp
         from repro import configs
         from repro.config import MeshConfig, ShapeConfig, TrainConfig
@@ -123,7 +129,25 @@ def _xla_script() -> str:
                     ln.split("=", 1)[1].split("[", 1)[0].strip(" (")
                     for ln in compiled.as_text().splitlines()
                     if " all-reduce(" in ln}})
+                # the dtypes of the products whose outputs are the
+                # activations (P, B, S, d) in the program as lowered
+                r["activation_dots"] = sorted({{
+                    t for ln in lowered.as_text().splitlines()
+                    if "dot_general" in ln
+                    for t in re.findall(r"-> tensor<4x2x32x256x(\\w+)>", ln)}})
                 out[f"train/{{pdt}}/{{adt}}/{{strategy}}"] = r
+            for arch, remat in {MODEL_CASES!r}:
+                cfg = configs.reduced(configs.get_config(arch)).with_(
+                    remat=remat)
+                tr = DistributedTrainer(
+                    cfg, TrainConfig(optimizer="sgd"), mcfg,
+                    strategy="local", mesh=mesh)
+                st = tr.abstract_state()
+                b = {{k: jax.ShapeDtypeStruct((4, 1, 2, 32), jnp.int32)
+                     for k in ("tokens", "labels")}}
+                w = jax.ShapeDtypeStruct((4,), jnp.float32)
+                out[f"model/{{arch}}/{{remat}}"] = rec(
+                    tr.jit_train_step(st, b).lower(st, b, w).compile())
             for arch in {SERVE_ARCHS!r}:
                 cfg = configs.reduced(configs.get_config(arch))
                 srv = Server(cfg, mcfg, mesh=mesh)
@@ -155,6 +179,30 @@ def _train(pdt, adt, strategy):
         param_dtype=pdt)
     return dryrun.reckon(cfg, TRAIN_SHAPE, SMALL_MESH, strategy=strategy,
                          agg_dtype=adt)
+
+
+def _model_case(arch, remat):
+    """The fp32 ``local`` step of a ``MODEL_CASES`` entry, with XLA's batch
+    of one micro step of two sequences a participant."""
+    cfg = configs.reduced(configs.get_config(arch)).with_(remat=remat)
+    return dryrun.reckon(cfg, TRAIN_SHAPE, SMALL_MESH, strategy="local",
+                         micro_override=1)
+
+
+def _model_list(cfg, kind="train"):
+    """The model's collectives as :func:`dryrun.model_collectives` lists
+    them for ``cfg`` at the small mesh."""
+    shape = TRAIN_SHAPE if kind == "train" else SERVE_SHAPES[kind]
+    parts = dryrun.step_parts(cfg, shape, SMALL_MESH, strategy="local",
+                              micro_override=1)
+    tree, spec = parts["arguments"]["params"]
+    if kind == "train":
+        treedef = dryrun.tree_flatten(tree)[1]
+        spec = treedef.unflatten([s[1:] for s in
+                                  treedef.flatten_up_to(spec)])
+        return dryrun.model_collectives(cfg, shape, parts["policy"], spec,
+                                        micro=1, b_micro=2)[0]
+    return dryrun.model_collectives(cfg, shape, parts["policy"], spec)[0]
 
 
 def _serve(kind, arch):
@@ -206,7 +254,8 @@ def test_strategy_collectives_equal_xla(xla, case):
     """The strategy's own collectives are XLA's less the ``local`` step's
     (same parameter dtype), by kind, bytes and count."""
     pdt, adt, strategy = case
-    got = _train(*case)["collectives"]
+    rec = _train(*case)["collectives"]
+    got = rec["strategy"]
     xrec = xla["train/" + "/".join(case)]
     want = xrec["collectives"]
     base = xla[f"train/{pdt}/float32/local"]["collectives"]
@@ -223,17 +272,90 @@ def test_strategy_collectives_equal_xla(xla, case):
         diff["bytes"]["all-reduce"] = lanes * 2 + 4
     assert got["bytes"] == diff["bytes"]
     assert got["counts"] == diff["counts"]
-    assert got["per_device_bytes"] == sum(diff["bytes"].values())
-    assert got["total_bytes"] == got["per_device_bytes"] * 8
-    assert "tensor-parallel collectives not reckoned" in got["reckoned"]
+    assert rec["total_bytes"] == rec["per_device_bytes"] * 8
+    assert "not reckoned" not in rec["reckoned"]
 
 
 def test_local_step_reckons_no_collective_where_xla_has_tensor_parallel_ones(
         xla):
+    """The ``local`` step has no strategy collective, and its model
+    collectives are XLA's 13 all-reduces, 1,049,352 bytes a device: per
+    layer the attention's and the MLP's row-parallel outputs forward, the
+    q/k/v and g/u input gradients backward (one op each, 3 and 2
+    operands); the vocab-parallel embedding, the loss's max, sum and
+    target logit (with ``h``'s gradient); the metrics over ``data``."""
     got = _train("float32", "float32", "local")["collectives"]
-    assert got["bytes"] == {} and got["total_bytes"] == 0
+    assert got["strategy"] == {"bytes": {}, "counts": {}}
+    assert got["bytes"] == {"all-reduce": 1_049_352}
+    assert got["counts"] == {"all-reduce": 13}
+    assert got["total_bytes"] == 8 * 1_049_352
     assert xla["train/float32/float32/local"]["collectives"]["bytes"] == {
         "all-reduce": 1_049_352}
+    assert xla["train/float32/float32/local"]["collectives"]["counts"] == {
+        "all-reduce": 13}
+    assert got["remat"] == {"bytes": {}, "counts": {}}
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids="/".join)
+def test_train_step_collectives_equal_xla(xla, case):
+    """The whole step, strategy and model together, is XLA's figure by
+    kind, bytes and count. With bf16 parameters the activations' products
+    are bf16 in the program as lowered and every compiled all-reduce is
+    fp32 (XLA's CPU backend widens them): the port reckons the program's
+    2 bytes an element, held here at XLA's 4."""
+    pdt, adt, strategy = case
+    rec = _train(*case)["collectives"]
+    xrec = xla["train/" + "/".join(case)]
+    want = xrec["collectives"]
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b")).with_(
+        param_dtype=pdt)
+    model = _model_list(cfg)
+    assert dryrun.summarize(model) == rec["model"]
+    wide = dryrun.summarize(model, widen=True)
+    strat = dict(rec["strategy"]["bytes"])
+    if adt == "bfloat16":
+        strat["all-reduce"] = (strat["all-reduce"] - 4) * 2 + 4
+    got = {k: wide["bytes"].get(k, 0) + strat.get(k, 0)
+           for k in set(wide["bytes"]) | set(strat)}
+    assert got == want["bytes"]
+    assert rec["counts"] == want["counts"]
+    assert rec["per_device_bytes"] == sum(rec["bytes"].values())
+    assert xrec["activation_dots"] == [{"float32": "f32",
+                                        "bfloat16": "bf16"}[pdt]]
+    if pdt == "bfloat16":
+        assert xrec["all_reduce_dtypes"] == ["f32"]
+        assert rec["bytes"]["all-reduce"] < want["bytes"]["all-reduce"]
+        assert {dt for c in model for _, dt in c.operands} == {
+            "bfloat16", "float32"}
+    elif adt == "float32":
+        assert rec["bytes"] == want["bytes"]
+
+
+@pytest.mark.parametrize("arch,remat", MODEL_CASES,
+                         ids=[f"{a}/remat={r}" for a, r in MODEL_CASES])
+def test_model_collectives_equal_xla(xla, arch, remat):
+    """The reduced qwen3-moe's ``local`` step (experts over ``model``: the
+    router's softmax and top k, the slot positions, the combine, their
+    gradients and the router's gradient gathered), and both families with
+    ``remat``: every kind's bytes and count exactly. The remat term is what
+    XLA's backward recomputes (the attention's output; the MoE's router
+    collectives, not its combine), and equals XLA's remat step less its
+    plain one."""
+    got = _model_case(arch, remat)["collectives"]
+    want = xla[f"model/{arch}/{remat}"]["collectives"]
+    assert got["bytes"] == want["bytes"]
+    assert got["counts"] == want["counts"]
+    if remat:
+        plain = (xla["train/float32/float32/local"] if arch ==
+                 "tinyllama-1.1b" else xla[f"model/{arch}/False"])
+        plain = plain["collectives"]
+        for key in ("bytes", "counts"):
+            assert got["remat"][key] == {
+                k: v - plain[key].get(k, 0) for k, v in want[key].items()}
+    else:
+        assert got["remat"] == {"bytes": {}, "counts": {}}
+    if arch == "qwen3-moe-30b-a3b":
+        assert set(got["bytes"]) == {"all-reduce", "all-gather"}
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -241,14 +363,27 @@ def test_local_step_reckons_no_collective_where_xla_has_tensor_parallel_ones(
 def test_serve_step_bytes_equal_xla(xla, arch, kind):
     """Argument bytes exactly, less the named unused leaves (whose bytes
     are exactly the gap); output bytes (logits, cache, tuple index)
-    exactly; no collective reckoned."""
+    exactly; the collectives XLA's where the family's are reckoned (the
+    dense row-parallel outputs and embedding; the MoE's top k gathered over
+    ``data``, slot positions, combine and, for a decode, whose tokens split
+    the group over ``data``, the priorities' gather and the dispatch's
+    all-reduce), and none with the flag for RWKV-6."""
     got, want = _serve(kind, arch), xla[f"{kind}/{arch}"]
     mem = got["memory"]
     assert mem["argument_size_in_bytes"] - _unused_bytes(kind, arch) == \
         want["argument"]
     assert mem["output_size_in_bytes"] == want["output"]
     assert set(mem["by_part"]) == {"params", "batch", "cache"}
-    assert got["collectives"]["bytes"] == {}
+    coll = got["collectives"]
+    if arch == "rwkv6-1.6b":
+        assert coll["bytes"] == {} and coll["counts"] == {}
+        assert "tensor-parallel collectives not reckoned" in coll["reckoned"]
+    else:
+        assert coll["bytes"] == want["collectives"]["bytes"]
+        assert coll["counts"] == want["collectives"]["counts"]
+        assert coll["bytes"]
+        assert "not reckoned" not in coll["reckoned"]
+    assert coll["strategy"] == {"bytes": {}, "counts": {}}
 
 
 def test_unused_leaves_are_dropped_only_where_named(xla):
@@ -379,6 +514,36 @@ def test_production_argument_bytes_equal_reference_specs(arch, multi_pod):
             assert rec["roofline"][key] == jterms[key], (shape_name, key)
         assert rec["roofline"]["raw_hlo_flops"] is None
         assert rec["roofline"]["raw_hlo_bytes"] is None
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_records_reckon_dense_and_moe_and_flag_the_rest(
+        multi_pod):
+    """At the production meshes the dense and MoE families' records carry
+    their model collectives (the remat term in a train step) and the
+    roofline's collective term reads the whole figure; RWKV-6, Hymba,
+    Whisper and LLaVA keep "tensor-parallel collectives not reckoned", and
+    the FSDP archs (``pod`` granularity) say that theirs are not."""
+    for arch in configs.ASSIGNED:
+        cfg = configs.get_config(arch)
+        for shape_name in ("train_4k", "decode_32k"):
+            rec = dryrun.dryrun_one(arch, shape_name, multi_pod=multi_pod,
+                                    verbose=False)
+            coll = rec["collectives"]
+            assert coll["per_device_bytes"] == sum(coll["bytes"].values())
+            chips = MeshConfig(multi_pod=multi_pod).n_devices
+            assert rec["roofline"]["collective_s"] == \
+                coll["total_bytes"] / (chips * H100.ici_bandwidth)
+            if cfg.participant_granularity == "pod":
+                assert "FSDP collectives not reckoned" in coll["reckoned"]
+            elif cfg.family in ("dense", "moe"):
+                assert "tensor-parallel" not in coll["reckoned"]
+                assert coll["model"]["bytes"]["all-reduce"] > 0
+                if shape_name == "train_4k":
+                    assert coll["remat"]["bytes"]["all-reduce"] > 0
+            else:
+                assert "tensor-parallel collectives not reckoned" in \
+                    coll["reckoned"]
 
 
 def test_train_micro_window_and_artifact_names_equal_reference():

@@ -74,7 +74,8 @@ def test_collectives_over_the_mesh_groups():
         assert o["staged_bytes"] == 4 * 4 * (1 + 2)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b",
+                                  "qwen3-moe-30b-a3b"])
 def test_each_rank_holds_its_specs_slice(arch):
     """``local_shard`` gives each rank of a 2 x 2 world numpy's slice of
     every leaf by its spec (split leaves included), and ``gather_tree``
@@ -176,7 +177,9 @@ def test_world_refuses_what_this_slice_does_not_split(what):
     """In a world (a mesh with a rank) the trainer and server refuse, with
     ``NotImplementedError`` naming A12b-2, what is not split across ranks
     yet; nothing falls back to one device. No process is started: the
-    refusals come before any collective."""
+    refusals come before any collective. The MoE splits now (its cases,
+    named as before, refuse RWKV-6 under tensor parallelism instead), and
+    its trainer and server are built."""
     from repro_torch.config import H100, MeshConfig, TrainConfig
     from repro_torch.core.distributed import DistributedTrainer, Server
 
@@ -184,17 +187,20 @@ def test_world_refuses_what_this_slice_does_not_split(what):
     mcfg = MeshConfig(data=4, model=2)
     dense = configs.reduced(configs.get_config("tinyllama-1.1b"))
     moe = configs.reduced(configs.get_config("qwen3-moe-30b-a3b"))
+    rwkv = configs.reduced(configs.get_config("rwkv6-1.6b"))
     kw = dict(mesh=mesh, device="cpu")
+    assert DistributedTrainer(moe, TrainConfig(), mcfg, **kw).world is mesh
+    assert Server(moe, mcfg, **kw).world is mesh
     with pytest.raises(NotImplementedError, match="A12b-2"):
         if what == "moe_tp":
-            DistributedTrainer(moe, TrainConfig(), mcfg, **kw)
+            DistributedTrainer(rwkv, TrainConfig(), mcfg, **kw)
         elif what == "grad_clip":
             DistributedTrainer(dense, TrainConfig(grad_clip=1.0), mcfg, **kw)
         elif what == "chip_granularity":
             DistributedTrainer(dense.with_(participant_granularity="chip"),
                                TrainConfig(), mcfg, **kw)
         elif what == "moe_serve_tp":
-            Server(moe, mcfg, **kw)
+            Server(rwkv, mcfg, **kw)
         else:
             Server(dense, mcfg, shard_seq=True, **kw)
     assert mesh_device(mesh) == torch.device("cpu")

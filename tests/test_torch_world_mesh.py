@@ -151,7 +151,8 @@ def trained(reference):
                       args=(reference["init"], reference["toks"],
                             [("modest", MODEST, "auto"),
                              ("dsgd", DSGD, "auto"),
-                             ("modest", MODEST, "reduce")]), **WORLD)
+                             ("modest", MODEST, "reduce"),
+                             ("local", DSGD, "auto")]), **WORLD)
     one = {name: _one_process(reference, name, w)
            for name, w in (("modest", MODEST), ("dsgd", DSGD))}
     return world, one
@@ -191,6 +192,39 @@ def test_world_round_equals_one_process_and_reference(reference, trained,
         assert all(r["gap"] < 1e-5 for r in got["rounds"])
     else:
         assert got["rounds"][0]["gap"] > 1e-6
+
+
+def test_world_local_step_all_reduces_beside_the_reckoning(trained):
+    """The ``local`` step of the 4 x 2 world issues the dense family's
+    tensor-parallel all-reduces through ``collectives``: 13 calls, 656,128
+    bytes a rank. The dry run reckons XLA's program at this mesh: 13
+    all-reduces, 1,049,352 bytes (``tests/test_torch_dryrun.py`` holds it
+    to XLA's compile). The terms that separate them: XLA reduces the input
+    gradients of q, k, v and of g, u apart (five operands a layer), where
+    Megatron's *f* sums each block input's gradient once (two), 3 x L
+    activations of (1, 2, 32, 256) fp32; and XLA all-reduces the metrics
+    (loss, active: 8 bytes) over ``data``, where the world gathers the
+    losses. The remat term is 0 here (the reduced config has no remat; the
+    port never recomputes)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.config import ShapeConfig
+
+    world, _ = trained
+    cfg = _train_cfg()
+    rec = dryrun.reckon(cfg, ShapeConfig("train_small", S, 4 * B, "train"),
+                        bodies.TRAIN_MESH, strategy="local")["collectives"]
+    act = 1 * B * S * cfg.d_model * 4
+    split_operands = 3 * cfg.n_layers * act
+    metrics = 8
+    assert rec["remat"] == {"bytes": {}, "counts": {}}
+    assert rec["bytes"] == {"all-reduce": 1_049_352}
+    for r in world:
+        counts = r["local/auto"]["rounds"][0]["counts"]
+        assert counts["all_reduce"] == 13 == rec["counts"]["all-reduce"]
+        assert counts["all_reduce_bytes"] == 656_128
+        assert counts["all_reduce_bytes"] + split_operands + metrics == \
+            rec["bytes"]["all-reduce"]
+        assert counts["all_gather"] > 0          # the losses, and the mix
 
 
 @pytest.fixture(scope="module")

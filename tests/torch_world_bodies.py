@@ -268,8 +268,9 @@ def trainer_body(world, params_np, toks, runs):
     world from ``params_np``, ``mix`` ``"auto"`` (the trainer's choice) or
     ``"reduce"`` (the reduction forced, as where the gathered replicas
     would not fit); each round's loss and the largest gap between replicas
-    0 and 1 of the gathered parameters, the mix's form, the local shapes,
-    and the final parameters (rank 0), under ``"strategy/mix"``."""
+    0 and 1 of the gathered parameters and the collectives the step
+    issued (``collectives.COUNTS``), the mix's form, the local shapes, and
+    the final parameters (rank 0), under ``"strategy/mix"``."""
     from repro_torch.core.distributed import DistributedTrainer
     from repro_torch.engine.flat import params_from_numpy
     from repro_torch.launch.mesh import make_mesh_from_config
@@ -290,11 +291,14 @@ def trainer_body(world, params_np, toks, runs):
         step = trainer.jit_train_step()
         rounds = []
         for w in weights:
+            collectives.reset_counts()
             state, m = step(state, batch, torch.tensor(w, dtype=torch.float32))
+            counts = dict(collectives.COUNTS)
             whole = trainer.gather_state(state)
             rounds.append({"loss": float(m["loss"]),
                            "active": float(m["active"]),
-                           "gap": _max_slot_gap(whole.params)})
+                           "gap": _max_slot_gap(whole.params),
+                           "counts": counts})
         out[f"{name}/{mix}"] = {
             "rounds": rounds, "form": trainer.mix_form(state.params),
             "local": [tuple(x.shape) for x in tree_leaves(state.params)],
@@ -373,3 +377,91 @@ def grad_body(world, params_np, toks, drop_f=False):
                                  mesh),
             "split": sum(m.numel() < p.numel() for m, p in zip(
                 tree_leaves(mine), tree_leaves(params)))}
+
+
+# ---------------------------------------------------------------------------
+# the MoE across ranks (experts over ``model``)
+# ---------------------------------------------------------------------------
+
+MOE_MESH = MeshConfig(data=2, model=2)
+
+
+def moe_grad_body(world, arch, params_np, toks, drop_f=False):
+    """Every leaf's gradient of a reduced MoE's loss (qwen3-moe or arctic,
+    whose dense residual splits too) on a 1 x 2 world, gathered by its
+    spec, the loss, and the number of leaves split. ``drop_f``: a control
+    with Megatron's *f* left off ``combine`` in this rank (the slices'
+    gradients not summed over the group before they reach the gates)."""
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.engine.lowering import looped_value_and_grad
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.sharding import (ShardingPolicy, gather_tree,
+                                      local_shard)
+
+    if drop_f:
+        moe._combine_in = lambda combine, group: combine
+    cfg = configs.reduced(configs.get_config(arch))
+    mcfg = MeshConfig(data=1, model=2)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    params = params_from_numpy(params_np, "cpu")
+    spec = ShardingPolicy(cfg, mcfg).param_spec(params,
+                                                with_participants=False)
+    mine = tree_map(lambda x: x[None], local_shard(params, spec, mesh))
+    batch = {"tokens": torch.as_tensor(toks)[None],
+             "labels": torch.as_tensor(toks)[None]}
+    collectives.reset_counts()
+    with L.tensor_parallel(mesh):
+        loss, grads = looped_value_and_grad(build(cfg).loss_fn)(mine, batch)
+    counts = dict(collectives.COUNTS)
+    return {"loss": loss[0], "counts": counts,
+            "grads": gather_tree(tree_map(lambda g: g[0], grads), spec,
+                                 mesh),
+            "split": sum(m.numel() < p.numel() for m, p in zip(
+                tree_leaves(mine), tree_leaves(params)))}
+
+
+def moe_world_body(world, params_np, toks, weights, serve_np, tokens,
+                   max_len):
+    """The reduced qwen3-moe on a 2 x 2 world: MoDeST rounds of ``weights``
+    (P = 2 over ``data``, experts over ``model``), each round's loss and
+    the final parameters (rank 0); then, from ``serve_np``, a prefill of
+    ``tokens`` and one greedy decode, with the local shapes of the experts
+    and the cache."""
+    from repro_torch.core.distributed import DistributedTrainer, Server
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.reduced(configs.get_config("qwen3-moe-30b-a3b"))
+    mesh = make_mesh_from_config(MOE_MESH, "cpu")
+    trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd", lr=0.1),
+                                 MOE_MESH, strategy="modest", mesh=mesh,
+                                 device="cpu")
+    state = trainer.shard_state(
+        whole_state(trainer, params_from_numpy(params_np, "cpu")))
+    step = trainer.jit_train_step()
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)}
+    losses = []
+    for w in weights:
+        state, m = step(state, batch, torch.tensor(w, dtype=torch.float32))
+        losses.append(float(m["loss"]))
+    whole = trainer.gather_state(state)
+    experts = tuple(state.params["layers"]["moe"]["wg"].shape)
+
+    server = Server(cfg, MOE_MESH, mesh=mesh, device="cpu")
+    params = server.shard_params(params_from_numpy(serve_np, "cpu"))
+    cache = server.shard_cache(server.model.init_cache(tokens.shape[0],
+                                                       max_len, "cpu"))
+    collectives.reset_counts()
+    logits, cache = server.prefill(params, {"tokens": torch.as_tensor(
+        tokens)}, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    dlogits, cache = server.decode(params, tok, cache)
+    return {"losses": losses, "experts": experts,
+            "final": whole.params if world.rank == 0 else None,
+            "prefill": logits, "decode": dlogits, "tok": tok,
+            "served_experts": tuple(params["layers"]["moe"]["wg"].shape),
+            "cache": tuple(cache["k"].shape), "pos": cache["pos"],
+            "serve_counts": dict(collectives.COUNTS)}
