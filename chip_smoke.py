@@ -147,9 +147,10 @@ two main paths and checks that each really went through its kernels:
   record on the 16 x 16 mesh holds, as its parameters' bytes a device, the
   serve phase's real full-size parameters under the same specs; TinyLlama's
   and qwen3-moe's model collectives (tensor-parallel, the MoE's routing)
-  reckoned in every record. Reported: the seconds, how many records exceed
-  ``config.H100.hbm_bytes`` a device, and those two archs' model
-  collectives a device by shape and mesh, with the remat term apart;
+  reckoned in every record, and RWKV-6's and Hymba's. Reported: the
+  seconds, how many records exceed ``config.H100.hbm_bytes`` a device, and
+  those four archs' model collectives a device by shape and mesh, with
+  the remat term apart;
 * examples: the six examples' twins (``examples/torch_*.py``) at the
   reference's defaults: ``quickstart`` (12 nodes, the paper CNN at full
   width, 60 simulated s), ``compare_fl_dl`` (FedAvg, D-SGD and MoDeST, 24
@@ -174,7 +175,11 @@ two main paths and checks that each really went through its kernels:
   n_layers=4 --set use_flash=true --world`` on 2 x 2 at the families
   phase's shape (B 4, 1,024 tokens), 3 decodes teacher-forced on its
   tokens, and ``launch/train.py --mode mesh --full-size --set n_layers=1
-  --world`` (MoDeST, P = 2, TP 2, 3 rounds). Gates: every rank's
+  --world`` (MoDeST, P = 2, TP 2, 3 rounds); then RWKV-6 and Hymba with
+  their heads and d_inner over ``model`` (``world_recurrent``): the same
+  serve at the families phase's shapes and full depth (Hymba with
+  flash) and the mesh round at 2 layers (RWKV-6's also in fp32). Gates:
+  every rank's
   sessions bit for bit the same sessions on the batched engine in this
   process (both under cuDNN's deterministic algorithms: trajectory and
   history hash, every aggregation, the final model, a fused
@@ -196,10 +201,17 @@ two main paths and checks that each really went through its kernels:
   launches a rank (B 2, 16 / 2 heads, hd 128) and no other; the MoE
   round's losses within ``WORLD_MOE_LOSS_RTOL`` and its change sketch held
   as TinyLlama's, against its own one-process rounds and their control
-  at learning rate 0. Reported: each world's backend, seconds, and each
-  rank's launches, seconds, staged bytes and peak; the share of the MoE
-  serve's (token, choice) slots routed to another expert than in one
-  process, by step.
+  at learning rate 0; RWKV-6's and Hymba's serves held as the MoE's
+  decodes at every step (and the prefill within one process's own bf16
+  distance from fp32 where that passes ``WORLD_LOGITS_REL_L2``), 32
+  ``flash_attention`` launches a Hymba rank (B 2, 25 / 5 heads) and no
+  other, none on an RWKV-6 rank; their rounds by ``world_recurrent_train``
+  (Hymba's sketch against its control; RWKV-6's bf16 rounds by C12's rule
+  against a one-process run from weights moved by one ulp, its update in
+  fp32). Reported: each world's backend, seconds, and each rank's
+  launches, seconds, staged bytes and peak; the share of the MoE serve's
+  (token, choice) slots routed to another expert than in one process, by
+  step.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.
@@ -225,7 +237,7 @@ kernel's limit, every block size a launcher can choose, P·R = 6144);
 ``nonfinite`` holds B2, B5 and B7 to the reference's quantisation of a
 NaN and an Inf lane (scale NaN or Inf, codes 0). B9 is also held and
 timed at the four layouts of the families phase's prefills and at a rank's
-share of each of the world phase's two serves. ``fused_ptxas`` prints
+share of each of the world phase's three flash serves. ``fused_ptxas`` prints
 the registers and spills of every kernel of ``fused_agg.cu``, each of
 which must be built for sm_90a with no spill.
 
@@ -1149,7 +1161,8 @@ def flash_rows(rows, dev):
     and bf16, at starcoder2-15b's heads (hd 128, bf16, causal) and at the
     four layouts of the families phase's prefills and at a rank's share of
     the world phase's 2 x 2 serves (TinyLlama: B 2, 16 / 2 heads;
-    qwen3-moe: B 2, 16 / 2 heads at hd 128, S 1024; bf16, causal), timed
+    qwen3-moe: B 2, 16 / 2 heads at hd 128, S 1024; Hymba: B 2, 25 / 5
+    heads, S 512; bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1179,6 +1192,11 @@ def flash_rows(rows, dev):
     B, Hq, Hkv, S, hd = layouts[WORLD_MOE_ARCH]
     cases.append((B // 2, Hq // 2, Hkv // 2, S, hd, torch.bfloat16, True,
                   WORLD_MOE_FLASH_ROW))
+    # and a rank's share in its Hymba serve: half the batch, every head
+    # (the axis divides neither 25 nor 5: the attention runs replicated)
+    B, Hq, Hkv, S, hd = layouts["hymba-1.5b"]
+    cases.append((B // 2, Hq, Hkv, S, hd, torch.bfloat16, True,
+                  WORLD_HYMBA_FLASH_ROW))
     for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
         name = arch or (
             f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
@@ -3571,10 +3589,11 @@ def family_model(dev, arch, over, B, S_text, n_attn):
         flash_launches_per_prefill=warm_launches, peak_memory_bytes=peak,
         sample_ids=gen[0, :12].tolist())
     ref = None
-    if cfg.family == "moe":
-        ref = dict(moe_world_reference(cfg, params, batch,
-                                       gen[:, :WORLD_NEW - 1], dev),
+    if cfg.family in ("moe", "ssm", "hybrid"):
+        ref = dict(world_reference(cfg, params, batch,
+                                   gen[:, :WORLD_NEW - 1], dev),
                    tokens=gen.cpu())
+    if cfg.family == "moe":
         line["depth_cut"] = {"published_layers": 48, "run": cfg.n_layers}
         line["experts"] = {"n": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
                            "d_ff": cfg.moe_d_ff_expert,
@@ -3594,12 +3613,13 @@ def family_model(dev, arch, over, B, S_text, n_attn):
     return line, flash_attention.launches - launches0, ref
 
 
-def moe_world_reference(cfg, params, batch, teacher, dev):
-    """The world phase's one-process reference for the MoE: a prefill of
-    ``batch`` and a decode of each column of ``teacher`` (teacher-forced),
-    in bf16 and, as the control, with the weights widened exactly to fp32;
-    for each, every step's last-position logits and every layer's routing
-    of every step (``recorded_routes``), on the CPU."""
+def world_reference(cfg, params, batch, teacher, dev):
+    """The world phase's one-process reference for a family it serves
+    across ranks (the MoE, RWKV-6, Hymba): a prefill of ``batch`` and a
+    decode of each column of ``teacher`` (teacher-forced), in bf16 and, as
+    the control, with the weights widened exactly to fp32; for each, every
+    step's last-position logits and, for the MoE, every layer's routing of
+    every step (``recorded_routes``), on the CPU."""
     from repro_torch.core.distributed import Server
     from repro_torch.utils.pytree import tree_map
 
@@ -3619,7 +3639,12 @@ def moe_world_reference(cfg, params, batch, teacher, dev):
                 logits, cache = srv.decode(p, teacher[:, i:i + 1], cache)
                 steps.append(logits[:, -1].float().cpu())
 
-        routes = recorded_routes(run, cfg.n_layers * (1 + teacher.shape[1]))
+        if cfg.family == "moe":
+            routes = recorded_routes(run,
+                                     cfg.n_layers * (1 + teacher.shape[1]))
+        else:
+            run()
+            routes = None
         out[dtype] = {"step_logits": steps, "routes": routes}
         del p, srv
     return out
@@ -3654,18 +3679,20 @@ def families_phase(dev):
     every new arch's reduced config and whisper-large-v3 at full size.
     Counted: the caller sets the counts to 0 just before and reads them
     just after. Returns the lines, the flash launches the phase made and
-    qwen3-moe's one-process reference for the world phase (``moe_ref``:
-    prefill and teacher-forced decode logits, tokens, routing)."""
+    the one-process references of qwen3-moe, RWKV-6 and Hymba for the
+    world phase (``world_refs``: prefill and teacher-forced decode logits,
+    tokens, the MoE's routing)."""
     from repro_torch.launch import serve
 
     t0 = time.perf_counter()
-    lines, flash, moe_ref = {}, 0, None
+    lines, flash, world_refs = {}, 0, {}
     for arch, over, B, S_text, n_attn in FAMILY_MODELS:
         line, launched, ref = family_model(dev, arch, over, B, S_text,
                                            n_attn)
         emit("family", **line)
         lines[arch], flash = line, flash + launched
-        moe_ref = ref if ref is not None else moe_ref
+        if ref is not None:
+            world_refs[arch] = ref
     launcher = {}
     for arch in FAMILY_LAUNCHER_ARCHS:
         out = serve.main(["--arch", arch, "--seed", "0"])
@@ -3685,7 +3712,7 @@ def families_phase(dev):
              "prefill_seconds", "decode_tokens_per_s", "peak_memory_bytes",
              "flash_launches_per_prefill")} for a, line in lines.items()})
     return {"lines": lines, "flash_launches": flash, "seconds": seconds,
-            "moe_ref": moe_ref}
+            "world_refs": world_refs}
 
 
 # ---------------------------------------------------------------------------
@@ -4198,7 +4225,8 @@ def dryrun_phase(dev, served):
             "counts": r["collectives"]["model"]["counts"],
             "remat_bytes": r["collectives"]["remat"]["bytes"]}
             for r in records if r["arch"] == arch}
-        for arch in ("tinyllama-1.1b", "qwen3-moe-30b-a3b")}
+        for arch in ("tinyllama-1.1b", "qwen3-moe-30b-a3b", "rwkv6-1.6b",
+                     "hymba-1.5b")}
     if not all(v["bytes"] for m in model_bytes.values()
                for v in m.values()):
         raise AssertionError(f"model collectives not reckoned: {model_bytes}")
@@ -4334,6 +4362,20 @@ WORLD_MOE_MESH_ARGS = ["--mode", "mesh", "--arch", WORLD_MOE_ARCH,
                        "--full-size", "--set", "n_layers=1",
                        "--model-parallel", "2", "--failure-rate", "0.3",
                        "--seed", "0"]
+# RWKV-6 and Hymba across ranks (heads and d_inner over model; PR 32): the
+# serves at the families phase's shapes and full depth, held as the MoE's
+# (the prefill within WORLD_LOGITS_REL_L2 of one process's bf16 logits;
+# each step's distance from the fp32 control at most WORLD_MOE_ERR_RATIO
+# times one process's bf16 distance, or WORLD_LOGITS_REL_L2 where that is
+# larger), and their mesh rounds at 2 layers held as TinyLlama's: losses
+# within WORLD_RECURRENT_LOSS_RTOL, to which the same rounds at learning
+# rate 0 must lie at least 4 bounds away; the change sketch within
+# WORLD_CHANGE_REL, alike on every rank. The bounds are set from the
+# predictions (forward noise 1e-5-1e-4, a skipped update 1e-3-1e-2 at
+# rounds 2-3) written before the first run (PERF.md section 6, PR 32).
+WORLD_RECURRENT = ("rwkv6-1.6b", "hymba-1.5b")
+WORLD_RECURRENT_LOSS_RTOL = 2.5e-4
+WORLD_HYMBA_FLASH_ROW = "world_rank_hymba"
 
 
 def digest(t) -> str:
@@ -4506,7 +4548,8 @@ def world_chunk_rows(dev):
 
 
 def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
-                loss_rtol=WORLD_LOSS_RTOL, loss_control=True):
+                loss_rtol=WORLD_LOSS_RTOL, loss_control=True, own=None,
+                loss_rounds=WORLD_TRAIN_ROUNDS, change_control=True):
     """``launch/train.py --mode mesh --world`` at ``argv`` (None:
     ``MESH_ARGS``; MoDeST, 2 x 2, ranks on ``where``) for
     WORLD_TRAIN_ROUNDS rounds, gated against the one-process run's rounds
@@ -4514,8 +4557,14 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
     ``mesh_sketch`` (``launch.train`` on ``dev``) and against a control
     run here: the same rounds with the update skipped (learning rate 0),
     whose loss gaps must pass 4 bounds where ``loss_control`` and whose
-    sketch must lie further than the bound. Its part of the world line,
-    each rank's report under ``ranks_report``."""
+    sketch must lie further than the bound where ``change_control``.
+    Chaotic models (RWKV-6, ROADMAP C12) hold only their first
+    ``loss_rounds`` losses to ``loss_rtol``; with ``own``, the ``(rounds,
+    sketch)`` of a one-process run from weights moved by about one ulp
+    (``nudged_init``), the later rounds and the sketch are held within
+    twice that run's gaps where that is larger (C12's rule), else the
+    later rounds are reported. Its part of the world line, each rank's
+    report under ``ranks_report``."""
     from repro_torch.launch import train
 
     argv = (MESH_ARGS if argv is None else argv) + [
@@ -4543,28 +4592,77 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
         loss_gaps(skipped)
     sketches = [np.asarray(r["change_sketch"]) for r in trained["ranks"]]
     want = np.asarray(mesh_sketch)
+
+    def change_gap(sketch):
+        return float(np.linalg.norm(np.asarray(sketch) - want)
+                     / np.linalg.norm(want))
+
+    loss_bounds = [loss_rtol] * loss_rounds + [None] * (
+        WORLD_TRAIN_ROUNDS - loss_rounds)
+    change_bound = WORLD_CHANGE_REL
+    line = {}
+    if own is not None:
+        own_gaps, own_change = loss_gaps(own[0]), change_gap(own[1])
+        loss_bounds = loss_bounds[:loss_rounds] + [
+            max(loss_rtol, 2 * g) for g in own_gaps[loss_rounds:]]
+        change_bound = max(WORLD_CHANGE_REL, 2 * own_change)
+        line = {"one_ulp_loss_rel_gaps": own_gaps,
+                "one_ulp_change_rel_gap": own_change}
     line = {"world": "2 x 2", "rounds": trained["history"],
             "one_process": mesh_rounds[:WORLD_TRAIN_ROUNDS],
             "loss_rel_gaps": gaps_train, "loss_rel_bound": loss_rtol,
+            "loss_rel_bounds": loss_bounds,
             "skipped_update_loss_rel_gaps": gaps_skipped,
-            "skipped_update_change_rel_gap": float(np.linalg.norm(
-                np.asarray(skipped_sketch) - want) / np.linalg.norm(want)),
-            "change_rel_gap": float(np.linalg.norm(sketches[0] - want)
-                                    / np.linalg.norm(want)),
-            "change_rel_bound": WORLD_CHANGE_REL,
+            "skipped_update_change_rel_gap": change_gap(skipped_sketch),
+            "change_rel_gap": change_gap(sketches[0]),
+            "change_rel_bound": change_bound,
             "change_norm": float(np.linalg.norm(want)),
             "ranks_alike": all(np.array_equal(x, sketches[0])
-                               for x in sketches)}
+                               for x in sketches), **line}
     # round 1 runs before any update: a skipped update shows from round 2
-    if max(gaps_train) > loss_rtol or (
-            loss_control and max(gaps_skipped[1:]) < 4 * loss_rtol) or \
-            line["skipped_update_change_rel_gap"] <= WORLD_CHANGE_REL or \
-            line["change_rel_gap"] > WORLD_CHANGE_REL or \
+    if any(b is not None and g > b
+           for g, b in zip(gaps_train, loss_bounds)) or (
+            loss_control and max(gaps_skipped[1:]) < 4 * loss_rtol) or (
+            change_control
+            and line["skipped_update_change_rel_gap"] <= change_bound) or \
+            line["change_rel_gap"] > change_bound or \
             not line["ranks_alike"] or \
             any(any(r["launches"].values()) for r in trained["ranks"]):
         raise AssertionError(f"the world's rounds against one process's: "
                              f"{json.dumps(line)}; ranks {trained['ranks']}")
     return dict(line, ranks_report=trained["ranks"])
+
+
+@contextlib.contextmanager
+def nudged_init(seed: int = 7):
+    """``DistributedTrainer.init_state`` with every floating leaf moved by
+    about one ulp of its dtype (times 1 +- eps, the sign drawn from
+    ``seed``, alike in every replica): a one-process run under it reads a
+    model's own sensitivity to rounding (ROADMAP C12's probe)."""
+    from repro_torch.core.distributed import DistributedTrainer, TrainState
+    from repro_torch.utils.pytree import tree_map
+
+    real = DistributedTrainer.init_state
+
+    def init_state(self, seed0=0):
+        state = real(self, seed0)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        def nudge(x):
+            if not x.is_floating_point():
+                return x
+            sign = torch.randint(0, 2, tuple(x.shape[1:]), generator=gen,
+                                 device=x.device) * 2 - 1
+            eps = torch.finfo(x.dtype).eps
+            return (x.double() * (1 + sign * eps)).to(x.dtype)
+
+        return TrainState(tree_map(nudge, state.params), *state[1:])
+
+    DistributedTrainer.init_state = init_state
+    try:
+        yield
+    finally:
+        DistributedTrainer.init_state = real
 
 
 def world_moe_serve_body(world, argv, teacher, n_calls):
@@ -4595,7 +4693,7 @@ def world_moe_serve(where, moe_ref):
       --world`` at the families phase's shape and seed (its ranks run the
       launcher's own rank function, ``world_moe_serve_body``), decodes
       teacher-forced on the families phase's greedy tokens, against the
-      one-process reference ``moe_ref`` (``moe_world_reference``: bf16, and
+      one-process reference ``moe_ref`` (``world_reference``: bf16, and
       fp32 as the control). Gates: the prefill's logits within
       WORLD_LOGITS_REL_L2 of one process's bf16 ones; at every step the
       world's distance from the fp32 logits at most WORLD_MOE_ERR_RATIO
@@ -4702,8 +4800,135 @@ def world_moe_train(dev, where):
                 world_seconds=time.perf_counter() - t0)
 
 
+def world_recurrent(dev, where, arch, ref):
+    """RWKV-6 or Hymba across ranks on 2 x 2 worlds whose ranks share the
+    card: ``world_recurrent_serve``, then ``world_recurrent_train``."""
+    serve_line = world_recurrent_serve(where, arch, ref)
+    release()
+    return {"serve": serve_line, "train": world_recurrent_train(dev, where,
+                                                                 arch)}
+
+
+def world_recurrent_serve(where, arch, ref):
+    """``launch/serve.py --full-size --world`` of RWKV-6 or Hymba (Hymba
+    with ``--set use_flash=true``) at the families phase's shape, seed and
+    full depth, decodes teacher-forced on its greedy tokens, against the
+    one-process reference ``ref`` (``world_reference``: bf16, and fp32 as
+    the control). Gates: at every step the world's distance from the fp32
+    logits at most WORLD_MOE_ERR_RATIO times one process's bf16 distance
+    (or WORLD_LOGITS_REL_L2 where that is larger); the prefill's logits
+    within WORLD_LOGITS_REL_L2 of one process's bf16 ones, or within one
+    process's own bf16 distance from fp32 where that is larger (RWKV-6's
+    bf16 prefill lies 0.30 from its fp32 one at 24 layers: ROADMAP C12);
+    a Hymba rank launches ``flash_attention`` once a layer, on its 2 rows
+    and every head, an RWKV-6 rank no kernel, and nothing else."""
+    from repro_torch.launch import serve
+
+    _, over, B, S, n_attn = next(m for m in FAMILY_MODELS if m[0] == arch)
+    argv = ["--arch", arch, "--full-size", "--devices", "4",
+            "--model-parallel", "2", "--batch", str(B), "--prompt-len",
+            str(S), "--new-tokens", str(WORLD_NEW), "--seed", "0",
+            "--device", where, "--world"]
+    argv += ["--set", "use_flash=true"] if n_attn else []
+    argv += [a for k, v in over.items() for a in ("--set", f"{k}={v}")]
+    teacher = ref["tokens"][:, :WORLD_NEW - 1].numpy()
+    t0 = time.perf_counter()
+    served = serve.main(argv, teacher=teacher)
+    t_serve = time.perf_counter() - t0
+    one, exact = ref["bfloat16"], ref["float32"]
+    steps = served["step_logits"]
+    gaps = [rel_l2(g, w) for g, w in zip(steps, one["step_logits"])]
+    world_err = [rel_l2(g, w) for g, w in zip(steps, exact["step_logits"])]
+    one_err = [rel_l2(g, w) for g, w in zip(one["step_logits"],
+                                            exact["step_logits"])]
+    bounds = [max(WORLD_MOE_ERR_RATIO * e, WORLD_LOGITS_REL_L2)
+              for e in one_err]
+    prefill_bound = max(WORLD_LOGITS_REL_L2, one_err[0])
+    for r in served["ranks"]:
+        if r["launches"].get("flash_attention", 0) != n_attn or sum(
+                r["launches"].values()) != n_attn:
+            raise AssertionError(f"{arch} serve rank {r['rank']} launched "
+                                 f"{r['launches']}, want {n_attn} flash "
+                                 "and nothing else")
+    line = {
+        "world": "2 x 2", "arch": arch, "depth_cut": over or None,
+        "batch": B, "prompt_len": S, "step_rel_l2": gaps,
+        "prefill_rel_l2_bound": prefill_bound,
+        "world_vs_fp32_rel_l2": world_err,
+        "one_process_bf16_vs_fp32_rel_l2": one_err,
+        "vs_fp32_bounds": bounds, "err_ratio_bound": WORLD_MOE_ERR_RATIO,
+        "tokens_equal": bool(np.array_equal(
+            served["tokens"], ref["tokens"][:, :WORLD_NEW].numpy())),
+        "prefill_seconds": served["prefill_seconds"],
+        "decode_seconds": served["decode_seconds"],
+        "world_seconds": t_serve, "ranks_report": served["ranks"]}
+    if len(gaps) != WORLD_NEW or gaps[0] > prefill_bound or any(
+            e > b for e, b in zip(world_err, bounds)) or not all(
+            torch.isfinite(g).all() for g in steps):
+        raise AssertionError(f"{arch} world logits: {json.dumps(line)}")
+    return line
+
+
+def world_recurrent_train(dev, where, arch):
+    """``launch/train.py --mode mesh --full-size --set n_layers=2
+    --world`` of RWKV-6 or Hymba (MoDeST, P = 2, TP 2; 3 rounds), held by
+    ``world_train`` against the same rounds in one process here, its
+    change sketch alike on every rank, no kernel launched:
+
+    * Hymba: losses within WORLD_RECURRENT_LOSS_RTOL, the change sketch
+      within WORLD_CHANGE_REL; the learning-rate-0 control's sketch lies
+      past the bound (its loss gaps are reported: a skipped update moves
+      Hymba's loss by about the world's forward noise at this scale);
+    * RWKV-6 (ROADMAP C12: the per-head norm of a near-zero first output
+      amplifies rounding). In bf16 an ulp's move of one process's weights
+      moves its update as far as skipping it does, so round 1 (before any
+      update) is held to WORLD_RECURRENT_LOSS_RTOL and the later rounds
+      and the sketch within twice a one-process run from weights moved by
+      about one bf16 ulp (``nudged_init``). The update is held in fp32
+      (``--set param_dtype=float32``): rounds 1-2 within WORLD_LOSS_RTOL,
+      the lr-0 control past 4 bounds, the sketch within WORLD_CHANGE_REL
+      and the control's past it; round 3, two chaotic updates on, is
+      reported."""
+    from repro_torch.launch import train
+
+    argv = ["--mode", "mesh", "--arch", arch, "--full-size", "--set",
+            "n_layers=2", "--model-parallel", "2", "--failure-rate", "0.3",
+            "--seed", "0"]
+    one_argv = ["--algo", "modest", "--devices", "4", "--rounds",
+                str(WORLD_TRAIN_ROUNDS), "--device", str(dev)]
+
+    def one_process(args):
+        out = train.main(args + one_argv)
+        rounds, sketch = out["history"], out["change_sketch"]
+        del out
+        release()
+        return rounds, sketch
+
+    t0 = time.perf_counter()
+    rounds, sketch = one_process(argv)
+    if arch != "rwkv6-1.6b":
+        trained = world_train(dev, where, rounds, sketch, argv,
+                              loss_rtol=WORLD_RECURRENT_LOSS_RTOL,
+                              loss_control=False)
+        return dict(trained, arch=arch, depth_cut={"n_layers": 2},
+                    world_seconds=time.perf_counter() - t0)
+    with nudged_init():
+        own = one_process(argv)
+    trained = world_train(dev, where, rounds, sketch, argv,
+                          loss_rtol=WORLD_RECURRENT_LOSS_RTOL,
+                          loss_control=False, own=own, loss_rounds=1,
+                          change_control=False)
+    t1 = time.perf_counter()
+    argv32 = argv + ["--set", "param_dtype=float32"]
+    rounds32, sketch32 = one_process(argv32)
+    fp32 = world_train(dev, where, rounds32, sketch32, argv32, loss_rounds=2)
+    return dict(trained, arch=arch, depth_cut={"n_layers": 2},
+                world_seconds=t1 - t0,
+                fp32=dict(fp32, world_seconds=time.perf_counter() - t1))
+
+
 def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
-                moe_ref, world_device=None):
+                world_refs, world_device=None):
     """The port across ranks (``launch.world``) on the one card, whose
     ranks share it (gloo, gathers staged through host memory):
 
@@ -4728,7 +4953,10 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
       22 ``flash_attention`` launches a rank (one prefill) and no other;
     * a 1-rank world (NCCL) of the plain session, bit for bit too;
     * qwen3-moe's serve and mesh round, its experts over ``model``
-      (``world_moe``, against the families phase's ``moe_ref``).
+      (``world_moe``, against the families phase's reference);
+    * RWKV-6's and Hymba's serves at full depth and their 2-layer mesh
+      rounds, their heads and d_inner over ``model``
+      (``world_recurrent``, against the families phase's references).
 
     ``world_device`` (None: ``dev``) is where the worlds' ranks run:
     ``"cuda"`` spreads them over the cards, one a rank where there are
@@ -4800,7 +5028,14 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
         raise AssertionError(f"one-process launcher: {one_launches}")
 
     release()
-    moe = world_moe(dev, where, moe_ref)
+    moe = world_moe(dev, where, world_refs[WORLD_MOE_ARCH])
+    recurrent = {}
+    for arch in WORLD_RECURRENT:
+        release()
+        t1 = time.perf_counter()
+        recurrent[arch] = dict(world_recurrent(dev, where, arch,
+                                               world_refs[arch]),
+                               seconds=time.perf_counter() - t1)
 
     def reports(rs):
         return [{k: r[k] for k in ("rank", "backend", "launches",
@@ -4833,6 +5068,16 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
             moe["serve"]["ranks_report"])),
         "moe_train": dict(moe["train"], ranks_report=reports(
             moe["train"]["ranks_report"])),
+        "recurrent": {arch: {
+            "seconds": rec["seconds"],
+            "serve": dict(rec["serve"], ranks_report=reports(
+                rec["serve"]["ranks_report"])),
+            "train": dict(rec["train"], ranks_report=reports(
+                rec["train"]["ranks_report"]), **({"fp32": dict(
+                    rec["train"]["fp32"], ranks_report=reports(
+                        rec["train"]["fp32"]["ranks_report"]))}
+                    if "fp32" in rec["train"] else {}))}
+            for arch, rec in recurrent.items()},
         "seconds": time.perf_counter() - t0}
     emit("world", **line)
     return line
@@ -5130,7 +5375,7 @@ def main() -> int:
         raise AssertionError(f"families phase launches {family_launches}, "
                              f"want {families['flash_launches']} of "
                              "flash_attention only")
-    moe_ref = families["moe_ref"]
+    world_refs = families["world_refs"]
     del families
     release()
     families_train = lm_families_train_phase()
@@ -5153,8 +5398,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     world = world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens,
-                        serve_prefill, moe_ref)
-    del moe_ref
+                        serve_prefill, world_refs)
+    del world_refs
     world_launches = {
         name: [r["launches"][name]
                for r in world["sessions"]["ranks_report"]]
@@ -5174,7 +5419,12 @@ def main() -> int:
     world_rows["flash_attention"] = dict(flash_row(WORLD_FLASH_ROW), moe=dict(
         flash_row(WORLD_MOE_FLASH_ROW), arch=WORLD_MOE_ARCH,
         launches_by_rank=[r["launches"]["flash_attention"]
-                          for r in world["moe_serve"]["ranks_report"]]))
+                          for r in world["moe_serve"]["ranks_report"]]),
+        hymba=dict(flash_row(WORLD_HYMBA_FLASH_ROW), arch="hymba-1.5b",
+                   launches_by_rank=[
+                       r["launches"]["flash_attention"] for r in
+                       world["recurrent"]["hymba-1.5b"]["serve"][
+                           "ranks_report"]]))
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -35,8 +35,11 @@ In a world (``launch.world``: one process a device, the mesh its
 ``DeviceMesh``) both classes split the tensors over the ranks by their
 specs. The trainer's participants are split over ``data`` (``data_rank``
 granularity: a rank holds P / data replicas) and each replica's leaves
-over ``model`` (tensor parallelism of the dense family and expert
-parallelism of the MoE, ``models.layers.tensor_parallel``);
+over ``model`` (tensor parallelism of the dense, RWKV-6 and Hymba
+families and expert parallelism of the MoE,
+``models.layers.tensor_parallel``), by the specs under the world's rules
+(``sharding``: ``token_shift_whole``, ``in_proj_halves``,
+``attention_whole``);
 ``init_state`` and ``shard_state`` give a rank its shards
 (``sharding.local_shard``), ``gather_state`` the whole state back. A step
 takes the whole batch and the whole ``(P,)`` weights, which every rank's
@@ -47,12 +50,13 @@ for bit the one-process mix of the same replicas (or, where the gathered
 replicas would not fit, reduces a weighted mean's partials over ``data``:
 :meth:`DistributedTrainer.mix_form`). The server splits the
 batch over ``data``, the parameters by ``param_spec`` and the cache by
-``cache_spec`` (kv heads over ``model``); ``prefill`` and ``decode`` take
+``cache_spec`` (kv heads or RWKV-6's state heads over ``model``, under
+the same rules); ``prefill`` and ``decode`` take
 the whole batch and return the whole logits on every rank; a MoE batch
 whose rank's tokens would route in other groups than one process's, where
-a group could drop slots, raises (``models.moe.rank_groups_match``). Other
-families, granularities and a gradient clip under tensor parallelism
-raise ``NotImplementedError`` (ROADMAP A12b-2).
+a group could drop slots, raises (``models.moe.rank_groups_match``). The
+audio and vlm families, other granularities and a gradient clip under
+tensor parallelism raise ``NotImplementedError`` (ROADMAP A12b-2).
 """
 
 from __future__ import annotations
@@ -68,10 +72,12 @@ from repro_torch.core.strategy import (Strategy, build_strategy,
 from repro_torch.models import Model, build
 from repro_torch.models import layers as L
 from repro_torch.models import moe
-from repro_torch.sharding import (DeviceMesh, ShardingPolicy, gather_tree,
-                                  local_shard, mesh_device)
+from repro_torch.sharding import (DeviceMesh, ShardingPolicy, _k,
+                                  axis_names, gather_tree, local_shard,
+                                  mesh_device)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map
+from repro_torch.utils.pytree import (tree_flatten, tree_flatten_with_path,
+                                      tree_leaves, tree_map)
 
 
 class TrainState(NamedTuple):
@@ -124,10 +130,12 @@ def _world_of(mesh, cfg: ModelConfig, policy: ShardingPolicy, what: str):
     splits ``cfg`` there; None outside a world."""
     if not (isinstance(mesh, DeviceMesh) and mesh.in_world):
         return None
-    if mesh.axis_size("model") > 1 and cfg.family not in ("dense", "moe"):
+    if mesh.axis_size("model") > 1 and cfg.family not in (
+            "dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{what} of the {cfg.family} family with tensor parallelism "
-            "across ranks (ROADMAP A12b-2: dense and moe only)")
+            "across ranks (ROADMAP A12b-2: dense, moe, ssm and hybrid "
+            "only)")
     if what == "training" and (cfg.participant_granularity != "data_rank"
                                or "pod" in mesh.axis_names):
         raise NotImplementedError(
@@ -206,7 +214,7 @@ class DistributedTrainer:
         params = self.model.init(gen, self.device)
         if self.world is not None:
             params = local_shard(params, self.policy.param_spec(
-                params, with_participants=False), self.world)
+                params, with_participants=False, world=True), self.world)
             P = self.local_participants
         params_P = _stack_copies(params, P)
         opt_P = _stack_copies(self.opt.init(params), P)
@@ -251,15 +259,14 @@ class DistributedTrainer:
         one = tree_map(lambda x: torch.empty(tuple(x.shape[1:]),
                                              dtype=x.dtype, device="meta"),
                        whole)
-        specs = tree_flatten(one)[1].flatten_up_to(
-            self.policy.param_spec(one, with_participants=False))
+        specs = tree_flatten(one)[1].flatten_up_to(self.policy.param_spec(
+            one, with_participants=False, world=self.world is not None))
         gen = torch.Generator(device=self.device)
         out = torch.zeros((len(specs), k), dtype=torch.float64,
                           device=self.device)
         for i, (x, w, spec) in enumerate(zip(tree_leaves(state.params),
                                              tree_leaves(one), specs)):
-            split = tp and any("model" in (a if isinstance(a, tuple)
-                                           else (a,)) for a in spec)
+            split = tp and any("model" in axis_names(a) for a in spec)
             if tp and not split and self.world.axis_index("model"):
                 continue            # one model rank holds the whole leaf
             for j in range(k):
@@ -278,20 +285,24 @@ class DistributedTrainer:
     def state_spec(self, state: TrainState):
         """The state's specs: parameter and optimizer leaves carry (P, ...)
         (the parameter rules of one participant, P's axis prepended);
-        the server state takes the parameter rules, the round none."""
+        the server state takes the parameter rules, the round none (in a
+        world, under the world's rules)."""
         part = self.policy.part_axis
+        world = self.world is not None
 
         def stacked(tree):
             one = tree_map(lambda x: torch.empty(
                 tuple(x.shape[1:]), dtype=x.dtype, device="meta"), tree)
-            specs = self.policy.param_spec(one, with_participants=False)
+            specs = self.policy.param_spec(one, with_participants=False,
+                                           world=world)
             treedef = tree_flatten(one)[1]
             return treedef.unflatten(
                 [(part,) + s for s in treedef.flatten_up_to(specs)])
 
         if tree_leaves(state.server_state):
             server_spec = self.policy.param_spec(state.server_state,
-                                                 with_participants=False)
+                                                 with_participants=False,
+                                                 world=world)
         else:
             server_spec = tree_map(lambda _: (), state.server_state)
         return TrainState(stacked(state.params), stacked(state.opt_state),
@@ -462,14 +473,20 @@ class Server:
         return self.model.init_cache(batch_size, max_len, "meta")
 
     def specs(self, params_t, cache_t):
-        pspec = self.policy.param_spec(params_t, with_participants=False)
-        cspec = self.policy.cache_spec(cache_t, shard_seq=self.shard_seq)
+        """The parameters' and the cache's specs (in a world, under the
+        world's rules)."""
+        world = self.world is not None
+        pspec = self.policy.param_spec(params_t, with_participants=False,
+                                       world=world)
+        cspec = self.policy.cache_spec(cache_t, shard_seq=self.shard_seq,
+                                       world=world)
         return pspec, cspec
 
     def shard_params(self, params):
         """Place whole params by their specs on the server's device (in a
         world: this rank's slices)."""
-        spec = self.policy.param_spec(params, with_participants=False)
+        spec = self.policy.param_spec(params, with_participants=False,
+                                      world=self.world is not None)
         if self.world is not None:
             return local_shard(tree_map(lambda x: x.to(self.device), params),
                                spec, self.world)
@@ -477,12 +494,16 @@ class Server:
 
     def shard_cache(self, cache):
         """Place a whole cache by its specs (in a world: this rank's
-        slices, batch rows over ``data`` and kv heads over ``model``; a
-        spec that splits the sequence raises)."""
-        spec = self.policy.cache_spec(cache, shard_seq=self.shard_seq)
+        slices, batch rows over ``data`` and kv or state heads over
+        ``model``, under the world's rules; a spec that splits the sequence
+        raises)."""
+        spec = self.policy.cache_spec(cache, shard_seq=self.shard_seq,
+                                      world=self.world is not None)
         if self.world is not None:
-            for s in tree_flatten(cache)[1].flatten_up_to(spec):
-                if len(s) > 2 and s[2] is not None:
+            for (path, _), s in zip(tree_flatten_with_path(cache)[0],
+                                    tree_flatten(cache)[1].flatten_up_to(
+                                        spec)):
+                if _k(path[-1]) in ("k", "v", "xk", "xv") and s[2]:
                     raise NotImplementedError(
                         f"a cache spec {s} splits the sequence (kv heads "
                         "the model axis does not divide; ROADMAP A12b-2)")

@@ -31,12 +31,13 @@ Each record holds:
   (``model``, :func:`model_collectives`): the tensor-parallel reductions of
   the forward and backward passes, the MoE's routing collectives, the
   backward's recomputation under ``cfg.remat`` (also apart, in ``remat``)
-  and a train step's metrics. They are reckoned for the dense and MoE
-  families at ``data_rank`` granularity, as XLA's compile of the reference
-  places and combines them, in the program's dtypes (XLA's CPU backend
-  widens a bf16 all-reduce to fp32; the wire here is the program's);
-  ``reckoned`` names what is not (the other families' tensor-parallel
-  collectives, FSDP, a cache split by sequence). ``total_bytes`` is the
+  and a train step's metrics. They are reckoned for the dense, MoE, RWKV-6
+  and Hymba families at ``data_rank`` granularity, as XLA's compile of the
+  reference places and combines them, in the program's dtypes (XLA's CPU
+  backend widens a bf16 all-reduce to fp32; the wire here is the
+  program's); ``reckoned`` names what is not (Whisper's and LLaVA's
+  tensor-parallel collectives, FSDP, a cache split by sequence, a head
+  split by the model axis). ``total_bytes`` is the
   bytes on one device times the device count, as the roofline reads it.
 * ``roofline``: ``roofline.analytic_terms`` on ``config.H100`` with the
   collective bytes above; ``raw_hlo_flops`` and ``raw_hlo_bytes`` are None
@@ -63,7 +64,7 @@ from repro_torch.config import (SHAPES, H100, MeshConfig, ShapeConfig,
                                 TrainConfig, parse_overrides)
 from repro_torch.core.distributed import DistributedTrainer, Server
 from repro_torch.launch.mesh import make_mesh_from_config, mesh_config
-from repro_torch.models import moe
+from repro_torch.models import hymba, moe, rwkv
 from repro_torch.roofline import analytic_terms
 from repro_torch.sharding import ShardingPolicy, _k, input_specs
 from repro_torch.utils.pytree import tree_flatten, tree_flatten_with_path
@@ -337,9 +338,9 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
 
     Reckoned from one participant's parameter specs (``params_spec``, the
     layer axis first under ``layers``) and the model's products, for the
-    dense and MoE families at ``data_rank`` granularity, as XLA's compile
-    of the reference shows them (held exactly at a 4 x 2 mesh by
-    ``tests/test_torch_dryrun.py``):
+    dense, MoE, RWKV-6 and Hymba families at ``data_rank`` granularity, as
+    XLA's compile of the reference shows them (held exactly at a 4 x 2
+    mesh by ``tests/test_torch_dryrun.py``):
 
     * a row-parallel product's output (attention's ``wo``, the MLP's
       ``wd``, the MoE's combine over the experts) and a vocab-parallel
@@ -359,6 +360,8 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
       ``data`` divides their count, else the tokens of a group (a decode),
       which adds the priority's gather and the dispatch's all-reduce over
       ``data``;
+    * RWKV-6 and Hymba: :func:`_rwkv_collectives`,
+      :func:`_hymba_collectives`;
     * ``cfg.remat``: the backward pass recomputes the forward's collectives
       that it needs (attention's output, the router's), once again;
     * a train step's metrics: one all-reduce of two fp32 scalars over the
@@ -371,7 +374,7 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
                                 _axis_name(policy.part_axis),
                                 (((), "float32"), ((), "float32"))))
     M = policy._axes_size("model")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         notes.append("tensor-parallel collectives not reckoned")
         return colls, notes
     if policy.fsdp_axis is not None:
@@ -395,7 +398,10 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
         Dn = policy._axes_size("data")
         B = shape.global_batch
         shard_seq = shape.name == "long_500k"
-        if shard_seq:
+        if shard_seq and cfg.family == "ssm":
+            notes.append("a batch of one row replicated over data not held "
+                         "to XLA")
+        elif shard_seq:
             notes.append("attention over a cache split by sequence not "
                          "reckoned")
         lead = (B // Dn if not shard_seq and B % Dn == 0 else B,)
@@ -407,6 +413,48 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
     def add(kind, what, axis, operands, n=times, remat=False):
         colls.append(Collective(kind, what, axis, tuple(operands), n, remat))
 
+    if cfg.family == "ssm":
+        _rwkv_collectives(cfg, specs, M, lead, S, train, add, times,
+                          top_times)
+        return colls, notes
+    if cfg.family == "hybrid":
+        _hymba_collectives(cfg, specs, M, lead, S, train, add, times)
+        mlp_in, attn_in = [], []
+    else:
+        mlp_in, attn_in = _dense_moe_collectives(
+            cfg, shape, policy, specs, lead, S, train, add, times)
+    if train:
+        if mlp_in:
+            add("all-reduce", "MLP input gradients (column-parallel)",
+                "model", [(act, at)] * len(mlp_in))
+        if attn_in:
+            add("all-reduce", "attention input gradients (column-parallel)",
+                "model", [(act, at)] * len(attn_in))
+    tied = "lm_head" not in specs
+    if _splits(specs["embed"], 0):
+        add("all-reduce", "vocab-parallel embedding", "model", [(act, at)],
+            n=top_times)
+    if train and (_splits(specs["embed"], 0) if tied
+                  else _splits(specs["lm_head"], 1)):
+        chunks = (S // cfg.xent_chunk) if cfg.xent_chunk else 1
+        tok = lead + (S // chunks,)
+        n = top_times * chunks
+        add("all-reduce", "vocab-parallel loss: max", "model",
+            [(tok, "float32")], n=n)
+        add("all-reduce", "vocab-parallel loss: sum of exponentials",
+            "model", [(tok, "float32")], n=n)
+        add("all-reduce", "vocab-parallel loss: target logit and the "
+            "gradient of h", "model",
+            [(tok + (d,), at), (tok + (1,), "float32")], n=n)
+    return colls, notes
+
+
+def _dense_moe_collectives(cfg, shape, policy, specs, lead, S, train, add,
+                           times):
+    """The dense and MoE blocks' collectives (see
+    :func:`model_collectives`); returns the column-parallel products whose
+    input gradients the backward sums (the MLP's, the attention's)."""
+    at, act = cfg.param_dtype, lead + (S, cfg.d_model)
     attn_in = [w for w in ("wq", "wk", "wv")
                if _splits(specs[f"layers/attn/{w}"], 2)]
     attn_out = _splits(specs["layers/attn/wo"], 1)
@@ -433,30 +481,177 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
                       if _splits(specs[f"layers/moe/dense/{w}"], 2)]
         if _splits(specs["layers/moe/wg"], 1):
             _moe_collectives(cfg, shape, policy, lead, S, train, add, times)
+    return mlp_in, attn_in
+
+
+def _rwkv_collectives(cfg, specs, M, lead, S, train, add, times,
+                      top_times):
+    """RWKV-6's collectives (see :func:`model_collectives`) as XLA's
+    partitioner places them: the reference's specs split the token shifts
+    ``last_tm`` / ``last_cm`` and the channel-mix gate over d, so the
+    residual stream lies split over d on ``model``. Each layer norm then
+    sums its mean and variance over d; the mixed inputs of the
+    column-parallel products are gathered over d (four in the time-mix,
+    two in the channel-mix); the decay's ``mix @ decay_a`` (``decay_a``
+    replicated) and the row-parallel ``wo`` and ``wv`` are all-reduced
+    (at one token the decay's sum rides with the channel-mix's: the step's
+    output does not wait for it). Backward: eight activations gathered
+    over d a layer, the column-parallel products' input gradients (the
+    channel-mix's two, the time-mix's four with ``decay_a``'s), the norms'
+    and the per-head ``ln_x``'s scale and bias, summed over the heads; at
+    the top the vocab-parallel embedding and loss, ``h`` gathered for the
+    head, and the gradients of the leaves replicated over d (the norms,
+    ``mu``, ``decay_a``) gathered. Under ``cfg.remat`` the backward
+    recomputes the forward's seven all-reduces (not its gathers). A
+    decode's embedding lookup is resharded over ``data`` as the 4 x 2
+    compile does it (a gather of the rows' flags, an all-to-all, an
+    all-reduce and a collective-permute; their shapes scaled here by B /
+    data and d / model)."""
+    d, L, at, f32 = cfg.d_model, cfg.n_layers, cfg.param_dtype, "float32"
+    act, tok = lead + (S, d), lead + (S,)
+    lora = lead + (S, rwkv.DECAY_LORA)
+    one = lead + (1, d)
+
+    def norm(what, n=times, remat=False):
+        add("all-reduce", f"{what}: mean over d", "model", [(tok, f32)], n,
+            remat)
+        add("all-reduce", f"{what}: variance over d", "model",
+            [(tok, f32)] * 2, n, remat)
+
+    def forward_reduces(remat=False):
+        sfx = ", recomputed" if remat else ""
+        norm("ln1" + sfx, remat=remat)
+        if S > 1:
+            add("all-reduce", "decay: mix @ decay_a summed over d" + sfx,
+                "model", [(lora, at)], remat=remat)
+        add("all-reduce", "time-mix output (row-parallel wo)" + sfx,
+            "model", [(act, at)], remat=remat)
+        norm("ln2" + sfx, remat=remat)
+        if S > 1:
+            add("all-reduce", "channel-mix output (row-parallel wv)" + sfx,
+                "model", [(act, at)], remat=remat)
+        else:
+            add("all-reduce", "channel-mix output (row-parallel wv) and "
+                "the decay's sum over d" + sfx, "model",
+                [(act, at), (lora, at)], remat=remat)
+
+    forward_reduces()
+    add("all-gather", "time-mix: mixed inputs of w[rkvg] over d", "model",
+        [(act, at)], n=4 * times)
+    add("all-gather", "channel-mix: mixed inputs of wk and wr over d",
+        "model", [(act, at)], n=2 * times)
     if train:
-        if mlp_in:
-            add("all-reduce", "MLP input gradients (column-parallel)",
-                "model", [(act, at)] * len(mlp_in))
-        if attn_in:
-            add("all-reduce", "attention input gradients (column-parallel)",
-                "model", [(act, at)] * len(attn_in))
-    tied = "lm_head" not in specs
+        if cfg.remat:
+            forward_reduces(remat=True)
+        P_loc = lead[0]
+        hd = cfg.resolved_head_dim()
+        add("all-gather", "backward: activations over d", "model",
+            [(act, at)], n=8 * times)
+        add("all-reduce", "backward: channel-mix input gradients "
+            "(column-parallel wk, wr)", "model", [(act, at)] * 2)
+        norm("backward: ln2")
+        add("all-reduce", "backward: time-mix input gradients "
+            "(column-parallel w[rkvg], and decay_a's)", "model",
+            [(act, at)] * 4 + [(lora, at)])
+        add("all-reduce", "backward: ln1: variance over d", "model",
+            [(tok, f32)] * 2)
+        add("all-reduce", "backward: ln1: mean over d, with ln_x's scale "
+            "and bias gradients over the heads", "model",
+            [(tok, f32), ((P_loc, hd), at), ((P_loc, hd), at)])
+    # the top: embedding, final norm, head
     if _splits(specs["embed"], 0):
-        add("all-reduce", "vocab-parallel embedding", "model", [(act, at)],
+        if S == 1 and not train:
+            B_loc = lead[0]
+            add("all-gather", "embedding lookup at one token: the rows' "
+                "flags", "data", [((B_loc * M, 1, 1), "bool")], n=1)
+            add("all-to-all", "embedding lookup at one token: the rows "
+                "over data", "data", [((1, B_loc, 1, 1, d // M), at)] * 2,
+                n=1)
+            add("all-reduce", "embedding lookup at one token: the "
+                "vocab-parallel sum", "model", [((B_loc * M, 1, d // M), at)],
+                n=1)
+            add("collective-permute", "embedding lookup at one token: the "
+                "rows back", "data", [((B_loc, 1, d // M), at)], n=1)
+        else:
+            add("all-reduce", "vocab-parallel embedding", "model",
+                [(act, at)], n=top_times)
+    norm("final norm", n=top_times)
+    add("all-gather", "h over d, for the head", "model",
+        [(act if train else one, at)], n=top_times)
+    if not train:
+        return
+    if _splits(specs["lm_head"], 1):
+        add("all-reduce", "vocab-parallel loss: max", "model", [(tok, f32)],
             n=top_times)
-    if train and (_splits(specs["embed"], 0) if tied
-                  else _splits(specs["lm_head"], 1)):
-        chunks = (S // cfg.xent_chunk) if cfg.xent_chunk else 1
-        tok = lead + (S // chunks,)
-        n = top_times * chunks
-        add("all-reduce", "vocab-parallel loss: max", "model",
-            [(tok, "float32")], n=n)
         add("all-reduce", "vocab-parallel loss: sum of exponentials",
-            "model", [(tok, "float32")], n=n)
-        add("all-reduce", "vocab-parallel loss: target logit and the "
-            "gradient of h", "model",
-            [(tok + (d,), at), (tok + (1,), "float32")], n=n)
-    return colls, notes
+            "model", [(tok, f32)], n=top_times)
+        add("all-reduce", "backward: h's gradient (vocab-parallel head)",
+            "model", [(act, at)], n=top_times)
+    add("all-reduce", "backward: final norm: variance over d", "model",
+        [(tok, f32)] * 2, n=top_times)
+    add("all-reduce", "backward: target logit, with the final norm's mean",
+        "model", [(tok, f32), (tok + (1,), f32)], n=top_times)
+    add("all-gather", "backward: the embedding's gradient over d", "model",
+        [(act, at)], n=top_times)
+    P_loc = lead[0]
+    for what, shp in (("final norm's scale", (P_loc, d)),
+                      ("final norm's bias", (P_loc, d)),
+                      ("channel-mix mu", (P_loc, L, 2, d)),
+                      ("ln1's and ln2's scale and bias", (P_loc, L, d)),
+                      ("decay_a", (P_loc, L, d, rwkv.DECAY_LORA)),
+                      ("time-mix mu", (P_loc, L, 5, d))):
+        n = 4 if what.startswith("ln1") else 1
+        add("all-gather", f"backward: {what} gradient over d", "model",
+            [(shp, at)], n=n * top_times)
+
+
+def _hymba_collectives(cfg, specs, M, lead, S, train, add, times):
+    """Hymba's block collectives (see :func:`model_collectives`) as XLA's
+    partitioner places them. The contiguous split of ``in_proj``'s columns
+    gives each rank whole halves (``xin`` on the first ranks, ``z`` on the
+    last), so two collective-permutes a layer move each half's d_inner
+    lanes to their ranks (and two move the gradients back); ``dt_proj``
+    and ``bc_proj`` are row-parallel (one all-reduce of both), the
+    attention's ``wo`` and ``out_proj`` one all-reduce of both, the MLP's
+    ``wd`` one. Backward: the scan's B and C gradients summed over
+    d_inner at every step, the MLP's input gradients, and the attention's
+    and ``in_proj``'s, with dt's low-rank gradient, in two all-reduces.
+    Under ``cfg.remat`` the backward recomputes the permutes, the
+    ``dt_proj``/``bc_proj`` sums with one row-parallel output, and the
+    other."""
+    d, at, f32 = cfg.d_model, cfg.param_dtype, "float32"
+    act = lead + (S, d)
+    lanes = lead + (S, d // M)                  # d_inner = d_model
+    dt = lead + (S, hymba.DT_RANK)
+    bc = lead + (S, 2 * cfg.ssm_state)
+    add("collective-permute", "in_proj's halves to the d_inner lanes",
+        "model", [(lanes, at)], n=2 * times)
+    add("all-reduce", "dt_proj and bc_proj (row-parallel)", "model",
+        [(dt, at), (bc, at)])
+    add("all-reduce", "attention and mamba outputs (row-parallel wo, "
+        "out_proj)", "model", [(act, at)] * 2)
+    add("all-reduce", "MLP output (row-parallel wd)", "model", [(act, at)])
+    if not train:
+        return
+    if cfg.remat:
+        add("collective-permute", "in_proj's halves, recomputed", "model",
+            [(lanes, at)], n=2 * times, remat=True)
+        add("all-reduce", "a row-parallel output with dt_proj and bc_proj, "
+            "recomputed", "model", [(act, at), (dt, at), (bc, at)],
+            remat=True)
+        add("all-reduce", "a row-parallel output, recomputed", "model",
+            [(act, at)], remat=True)
+    add("all-reduce", "backward: the scan's B and C gradients over "
+        "d_inner, a step", "model", [(lead + (cfg.ssm_state,), f32)] * 2,
+        n=times * S)
+    add("all-reduce", "backward: MLP input gradients (column-parallel)",
+        "model", [(act, at)] * 2)
+    add("collective-permute", "backward: in_proj's halves' gradients",
+        "model", [(lanes, at)], n=2 * times)
+    add("all-reduce", "backward: attention and in_proj input gradients, "
+        "with dt's low-rank gradient", "model", [(act, at)] * 2 + [(dt, at)])
+    add("all-reduce", "backward: attention and in_proj input gradients",
+        "model", [(act, at)] * 2)
 
 
 def _moe_collectives(cfg, shape, policy, lead, S, train, add, times):

@@ -14,6 +14,20 @@ The conv and the scan are plain PyTorch: the scan's per-step terms are
 computed for the whole sequence at once and a Python loop over time runs
 the recurrence (the reference's ``lax.scan``). The tree is the
 reference's, keys sorted, ``a_log`` fp32 in a bf16 model.
+
+Across ranks (``models.layers.tensor_parallel``; the reference's specs):
+the mamba branch's d_inner is split over the group. ``in_proj`` is
+column-parallel, a rank holding the same d_inner lanes of its ``xin`` and
+``z`` halves (``sharding``'s world rule ``in_proj_halves``), so its
+``conv``, ``dt_up``, ``a_log``, ``d_skip`` lanes, conv tail and SSM state
+line up; ``dt_proj``, ``bc_proj`` and ``out_proj`` are row-parallel. The
+sums of ``dt_proj`` and ``bc_proj`` enter every rank's own lanes again, so
+each is summed forward (*g*) and its gradient summed backward (*f*,
+:func:`_summed`). The attention splits by heads, or runs replicated where
+the axis does not divide the query heads (the world rule
+``attention_whole``); the MLP splits as ``layers.swiglu``. The norms and
+the residual stream stay replicated; the embedding and the head are split
+by vocab where the axis divides it.
 """
 
 from __future__ import annotations
@@ -112,13 +126,21 @@ def _causal_conv(p, x, tail=None):
     return y + p["conv_b"][None, None, :], new_tail
 
 
-def _ssm_scan(p, x, state):
-    """Selective scan. x: (B,T,di) post-conv; state: (B,di,N) fp32.
-    Returns (y (B,T,di) fp32, final state)."""
-    dtv = F.softplus((x @ p["dt_proj"]) @ p["dt_up"]
+def _summed(y, split: bool):
+    """A row-parallel product's partial output summed over the group (*g*),
+    with *f* after it: the sum enters every rank's own d_inner lanes, so
+    each rank's gradient of it is partial and is summed backward."""
+    return L._copy_in(L._reduce_out(y, split), split)
+
+
+def _ssm_scan(p, x, state, split: bool = False):
+    """Selective scan. x: (B,T,di) post-conv; state: (B,di,N) fp32
+    (``split``: this rank's d_inner lanes). Returns (y (B,T,di) fp32,
+    final state)."""
+    dtv = F.softplus(_summed(x @ p["dt_proj"], split) @ p["dt_up"]
                      + p["dt_bias"][None, None, :]).to(torch.float32)
     N = p["a_log"].shape[1]
-    bc = x @ p["bc_proj"]
+    bc = _summed(x @ p["bc_proj"], split)
     Bm, Cm = bc[..., :N].to(torch.float32), bc[..., N:].to(torch.float32)
     A = -torch.exp(p["a_log"])                            # (di,N), negative
     xf = x.to(torch.float32)
@@ -134,14 +156,17 @@ def _ssm_scan(p, x, state):
 
 
 def mamba_branch(p, x, mstate):
-    """mstate: {'conv': (B,W-1,di), 'ssm': (B,di,N) fp32}."""
-    xz = x @ p["in_proj"]
+    """mstate: {'conv': (B,W-1,di), 'ssm': (B,di,N) fp32}, of this rank's
+    d_inner lanes (d_inner = d_model: split where ``conv_b`` is
+    narrower than ``x``)."""
+    split = L.is_split(p["conv_b"].shape[0], x.shape[-1])
+    xz = L._copy_in(x, split) @ p["in_proj"]
     di = xz.shape[-1] // 2
     xin, z = xz[..., :di], xz[..., di:]
     xc, conv_tail = _causal_conv(p, xin, mstate["conv"])
     xc = F.silu(xc)
-    y, ssm = _ssm_scan(p, xc, mstate["ssm"])
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    y, ssm = _ssm_scan(p, xc, mstate["ssm"], split)
+    y = L._reduce_out((y.to(x.dtype) * F.silu(z)) @ p["out_proj"], split)
     return y, {"conv": conv_tail, "ssm": ssm}
 
 
@@ -168,12 +193,14 @@ def _hybrid_block(p, cfg, x, positions, mask, mstate, decode_cache=None,
     fused = 0.5 * (L.rms_norm(p["attn_out_norm"], a, cfg.norm_eps)
                    + L.rms_norm(p["mamba_out_norm"], m, cfg.norm_eps))
     x = x + fused
-    h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps))
+    h = L.swiglu(p["mlp"], L.rms_norm(p["ln2"], x, cfg.norm_eps), cfg.d_ff)
     return x + h, mstate, kv
 
 
-def _zero_mstates(cfg, B, device=None):
-    di, N, W = cfg.d_model, cfg.ssm_state, cfg.ssm_conv
+def _zero_mstates(cfg, B, device=None, di=None):
+    """Zero conv tails and SSM states of ``B`` rows over ``di`` d_inner
+    lanes (None: all, d_model; a rank holds its own)."""
+    di, N, W = di or cfg.d_model, cfg.ssm_state, cfg.ssm_conv
     return {
         "conv": torch.zeros((cfg.n_layers, B, W - 1, di), dtype=_dtype(cfg),
                             device=device),
@@ -205,10 +232,12 @@ def _stack(params, cfg, x, states, cache=None):
 
 def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
-    x = params["embed"][tokens]
-    h = _stack(params, cfg, x, _zero_mstates(cfg, tokens.shape[0], x.device))
-    logits = h @ params["lm_head"]
-    loss = L.softmax_xent(logits, labels, batch.get("mask"))
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    h = _stack(params, cfg, x, _zero_mstates(
+        cfg, tokens.shape[0], x.device,
+        di=params["layers"]["mamba"]["conv_b"].shape[-1]))
+    loss = L.lm_xent(h, params["lm_head"], labels, cfg.vocab,
+                     batch.get("mask"))
     return loss, {"loss": loss}
 
 
@@ -231,15 +260,15 @@ def init_cache(cfg, batch_size, max_len, device=None):
 
 def prefill(params, cfg, batch, cache):
     tokens = batch["tokens"]
-    x = params["embed"][tokens]
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
     h = _stack(params, cfg, x, cache, cache)     # layer i reads, then writes
-    return ((h[:, -1:] @ params["lm_head"]).to(torch.float32),
+    return (L.lm_logits(h[:, -1:], params["lm_head"], cfg.vocab),
             dict(cache, pos=tokens.shape[1]))
 
 
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
-    x = params["embed"][token]
+    x = L.embed_lookup(params["embed"], token, cfg.vocab)
     kpos = torch.arange(cache["k"].shape[2], device=x.device)
     valid = kpos <= pos
     if cfg.window:
@@ -252,5 +281,5 @@ def decode_step(params, cfg, token, cache):
         cache["conv"][i] = mstate["conv"]
         cache["ssm"][i] = mstate["ssm"]
     h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return ((h @ params["lm_head"]).to(torch.float32),
+    return (L.lm_logits(h, params["lm_head"], cfg.vocab),
             dict(cache, pos=pos + 1))

@@ -81,6 +81,23 @@ def _reduce_out(y, split: bool):
     return collectives.reduce_from_group(y, _TP.group) if split else y
 
 
+def is_split(n_local: int, n_all: int) -> bool:
+    """Whether a dimension of ``n_all`` of which this rank's weights hold
+    ``n_local`` is split over the group under :func:`tensor_parallel`."""
+    return _TP is not None and n_local != n_all
+
+
+def gather_lanes(y, n_all: int):
+    """The whole ``(..., n_all)`` from each rank's contiguous lanes ``y``
+    of it (a column-parallel output): this rank's lanes put into zeros of
+    the whole width and summed over the group (Megatron's *g*; exact, each
+    lane is one rank's value plus zeros). Backward, the rank's lanes of
+    the whole gradient, which every rank holds alike."""
+    n = y.shape[-1]
+    y = F.pad(y, (_TP.rank * n, n_all - (_TP.rank + 1) * n))
+    return collectives.reduce_from_group(y, _TP.group)
+
+
 def vocab_split(head_w, vocab: int, transposed: bool = False) -> bool:
     """Whether ``head_w`` (d, V) — (V, d) ``transposed`` — is this rank's
     vocab slice under :func:`tensor_parallel`."""
@@ -118,6 +135,23 @@ def vocab_logits(h, head_w, *, transposed: bool = False):
     local = (torch.einsum("...d,vd->...v", h, head_w) if transposed
              else h @ head_w)
     return collectives.all_gather(local, _TP.group, dim=-1)
+
+
+def lm_logits(h, head_w, vocab: int):
+    """Serving's fp32 logits ``h @ head_w``; a head split by vocab has its
+    slices gathered over the group (:func:`vocab_logits`)."""
+    if vocab_split(head_w, vocab):
+        return vocab_logits(h, head_w).to(torch.float32)
+    return (h @ head_w).to(torch.float32)
+
+
+def lm_xent(h, head_w, labels, vocab: int, mask=None):
+    """The LM loss of ``h`` under the head ``head_w`` (d, V), the whole
+    sequence at once: :func:`softmax_xent` of the logits, or
+    :func:`vocab_parallel_xent` where the head is this rank's vocab slice."""
+    if vocab_split(head_w, vocab):
+        return vocab_parallel_xent(h, head_w, labels, mask=mask)
+    return softmax_xent(h @ head_w, labels, mask)
 
 
 def _is_meta(device) -> bool:

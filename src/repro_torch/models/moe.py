@@ -212,15 +212,6 @@ def _combine_in(combine, group):
 # ---------------------------------------------------------------------------
 
 
-def _logits(params, cfg, h):
-    """The head's fp32 logits; a head split by vocab has its slices
-    gathered over the group."""
-    head = params["lm_head"]
-    if L.vocab_split(head, cfg.vocab):
-        return L.vocab_logits(h, head).to(torch.float32)
-    return (h @ head).to(torch.float32)
-
-
 def _block(p, cfg, x, positions, mask):
     """One block; returns (x, aux, (k, v)) with the layer's rotated keys and
     its values for a prefill's cache."""
@@ -277,7 +268,8 @@ def prefill(params, cfg, batch, cache):
     mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
     h, _ = _stack(params, cfg, x, torch.arange(S, device=x.device), mask,
                   cache)
-    return _logits(params, cfg, h[:, -1:]), dict(cache, pos=S)
+    return L.lm_logits(h[:, -1:], params["lm_head"], cfg.vocab), \
+        dict(cache, pos=S)
 
 
 def decode_step(params, cfg, token, cache):
@@ -296,4 +288,5 @@ def decode_step(params, cfg, token, cache):
         h, _ = moe_ffn(p["moe"], cfg, L.rms_norm(p["ln2"], x, cfg.norm_eps))
         x = x + h
     h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, h), dict(cache, pos=pos + 1)
+    return L.lm_logits(h, params["lm_head"], cfg.vocab), \
+        dict(cache, pos=pos + 1)

@@ -15,6 +15,20 @@ reference's ``lax.scan``; plain PyTorch, no kernel); decode is one step of
 it. There is no KV cache: the state is ``{"S": (L,B,H,hd,hd) fp32,
 "last_tm", "last_cm": (L,B,d), "pos": int}``, written in place, with
 ``pos`` a host integer. The tree is the reference's, keys sorted.
+
+Across ranks (``models.layers.tensor_parallel``; the reference's specs):
+the time-mix's ``w[rkvg]`` and ``decay_b`` are column-parallel, so a rank
+runs its heads (their ``w0``, ``u``, state ``S``), and ``wo`` is
+row-parallel; Megatron's *f* sits on each mixed input of a split product,
+on the decay's ``tanh(mix @ decay_a)``, whose replicated ``decay_a`` feeds
+the split ``decay_b``, and on the per-head norm ``ln_x``'s replicated
+scale and bias, which meet the rank's heads alone. The channel-mix's ``wk``
+is column- and ``wv`` row-parallel; its gate ``sigmoid(xr @ wr)``, split
+over d by ``wr``'s columns, is gathered to the whole d
+(:func:`layers.gather_lanes`) and meets the summed ``k @ wv`` on every
+rank. The residual stream, the
+token shifts and the norms stay replicated; the embedding and the head
+are split by vocab. Every count of heads is read from the weights.
 """
 
 from __future__ import annotations
@@ -112,23 +126,39 @@ def _shift(x, last):
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
+def _heads(p, cfg):
+    """``(H, split)``: the heads of this rank's time-mix weights and
+    whether they are split over the tensor-parallel group."""
+    H = p["u"].shape[0]
+    return H, L.is_split(H, cfg.n_heads)
+
+
+def _decay_in(h, split: bool):
+    """Megatron's *f* on ``tanh(mix @ decay_a)`` before the split
+    ``decay_b``: the replicated ``decay_a`` gets its whole gradient only
+    where the slices' gradients are summed over the group."""
+    return L._copy_in(h, split)
+
+
 def _tm_projections(p, cfg, x, last_x):
-    """r,k,v,g,w for a whole sequence. x: (B,T,d)."""
+    """r,k,v,g,w for a whole sequence (this rank's heads). x: (B,T,d)."""
     B, Tn, d = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+    hd = cfg.resolved_head_dim()
+    H, split = _heads(p, cfg)
     xx = _shift(x, last_x)
 
     def mix(i):
         return x + (xx - x) * p["mu"][i][None, None, :]
 
-    r = (mix(0) @ p["wr"]).reshape(B, Tn, H, hd)
-    k = (mix(1) @ p["wk"]).reshape(B, Tn, H, hd)
-    v = (mix(2) @ p["wv"]).reshape(B, Tn, H, hd)
+    def col(i, w):
+        return (L._copy_in(mix(i), split) @ p[w]).reshape(B, Tn, H, hd)
+
+    r, k, v = col(0, "wr"), col(1, "wk"), col(2, "wv")
     # data-dependent decay (Finch): low-rank + base, squashed to (0,1)
-    dw = torch.tanh(mix(3) @ p["decay_a"]) @ p["decay_b"]
+    dw = _decay_in(torch.tanh(mix(3) @ p["decay_a"]), split) @ p["decay_b"]
     w = torch.exp(-torch.exp(p["w0"].to(torch.float32)
                              + dw.to(torch.float32))).reshape(B, Tn, H, hd)
-    g = F.silu(mix(4) @ p["wg"]).reshape(B, Tn, H, hd)
+    g = F.silu(col(4, "wg"))
     return r, k, v, w, g
 
 
@@ -151,20 +181,29 @@ def wkv_scan(r, k, v, w, u, state):
 def time_mix(p, cfg, x, tm_state):
     """tm_state: {'S': (B,H,hd,hd) fp32, 'last': (B,d)}."""
     B, Tn, d = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+    H, split = _heads(p, cfg)
     r, k, v, w, g = _tm_projections(p, cfg, x, tm_state["last"])
     out, S = wkv_scan(r, k, v, w, p["u"].to(torch.float32), tm_state["S"])
-    out = L.layer_norm(p["ln_x"], out.to(x.dtype))         # per-head norm
-    out = (out * g).reshape(B, Tn, H * hd)
-    return out @ p["wo"], {"S": S, "last": x[:, -1, :]}
+    # the per-head norm: its replicated scale and bias meet this rank's
+    # heads alone, so their gradients are summed over the group (*f*)
+    ln_x = {k: L._copy_in(v, split) for k, v in p["ln_x"].items()}
+    out = L.layer_norm(ln_x, out.to(x.dtype))
+    out = (out * g).reshape(B, Tn, H * cfg.resolved_head_dim())
+    return L._reduce_out(out @ p["wo"], split), {"S": S, "last": x[:, -1, :]}
 
 
 def channel_mix(p, cfg, x, last_x):
     xx = _shift(x, last_x)
     xk = x + (xx - x) * p["mu"][0][None, None, :]
     xr = x + (xx - x) * p["mu"][1][None, None, :]
-    k = torch.square(torch.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1, :]
+    split_k = L.is_split(p["wk"].shape[1], cfg.d_ff)
+    split_r = L.is_split(p["wr"].shape[1], cfg.d_model)
+    k = torch.square(torch.relu(L._copy_in(xk, split_k) @ p["wk"]))
+    kv = L._reduce_out(k @ p["wv"], split_k)
+    gate = torch.sigmoid(L._copy_in(xr, split_r) @ p["wr"])
+    if split_r:
+        gate = L.gather_lanes(gate, cfg.d_model)
+    return gate * kv, x[:, -1, :]
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +211,10 @@ def channel_mix(p, cfg, x, last_x):
 # ---------------------------------------------------------------------------
 
 
-def _zero_states(cfg, B, device=None):
-    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+def _zero_states(cfg, B, device=None, H=None):
+    """Zero states of ``B`` rows; ``H`` heads (None: the config's; a rank
+    holds its own)."""
+    H, hd = H or cfg.n_heads, cfg.resolved_head_dim()
     return {
         "S": torch.zeros((cfg.n_layers, B, H, hd, hd), dtype=torch.float32,
                          device=device),
@@ -213,11 +254,12 @@ def _stack(params, cfg, x, states, write=True):
 
 def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
-    x = params["embed"][tokens]
-    h, _ = _stack(params, cfg, x,
-                  _zero_states(cfg, tokens.shape[0], x.device), write=False)
-    logits = h @ params["lm_head"]
-    loss = L.softmax_xent(logits, labels, batch.get("mask"))
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    states = _zero_states(cfg, tokens.shape[0], x.device,
+                          H=params["layers"]["tm"]["u"].shape[1])
+    h, _ = _stack(params, cfg, x, states, write=False)
+    loss = L.lm_xent(h, params["lm_head"], labels, cfg.vocab,
+                     batch.get("mask"))
     return loss, {"loss": loss}
 
 
@@ -227,12 +269,12 @@ def init_cache(cfg, batch_size, max_len, device=None):
 
 
 def prefill(params, cfg, batch, cache):
-    x = params["embed"][batch["tokens"]]
+    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.vocab)
     h, states = _stack(params, cfg, x, cache)
-    return (h[:, -1:] @ params["lm_head"]).to(torch.float32), states
+    return L.lm_logits(h[:, -1:], params["lm_head"], cfg.vocab), states
 
 
 def decode_step(params, cfg, token, cache):
-    x = params["embed"][token]                    # (B,1,d)
+    x = L.embed_lookup(params["embed"], token, cfg.vocab)      # (B,1,d)
     h, states = _stack(params, cfg, x, cache)
-    return (h @ params["lm_head"]).to(torch.float32), states
+    return L.lm_logits(h, params["lm_head"], cfg.vocab), states

@@ -39,6 +39,28 @@ A mesh comes in two forms.
   :func:`gather_tree` puts the slices back together; a
   :class:`FlatShardings` over a world splits the flat engine's N over
   its ``model`` axis, one lane chunk a rank.
+
+The world's rules. A world runs Megatron's tensor parallelism, which keeps
+the residual stream replicated over ``model``, where XLA's partitioner
+reshards activations to whatever the specs ask. Three rules therefore give
+a world rank another layout than the reference's specs for a few leaves
+(``ShardingPolicy.param_spec`` / ``cache_spec`` with ``world=True``); each
+is a difference of layout, not of result, and XLA's plan for the same
+specs is what ``launch/dryrun.py`` reckons:
+
+* ``token_shift_whole``: RWKV-6's token shifts ``last_tm`` and ``last_cm``
+  (``(L, B, d)``, the last token's residual stream), which the reference
+  splits over ``model`` on d, lie whole over ``model`` (batch rows over
+  ``data``); ``S`` stays split by heads.
+* ``in_proj_halves``: Hymba's ``in_proj`` holds ``xin`` and ``z`` side by
+  side (``(d, 2 d_inner)``); a rank takes the same d_inner lanes of both
+  halves (a :class:`Blocks` entry: columns ``[r di/M, (r+1) di/M)`` of
+  each), so that they meet its lanes of ``conv``, ``dt_up``, ``a_log``
+  and the state. A contiguous split would give one rank all of ``xin``.
+* ``attention_whole``: where ``model`` does not divide the query heads
+  (Hymba's 25 at published widths), the attention's ``w[qkvo]`` and the
+  ``k`` / ``v`` cache lie whole over ``model`` and the attention runs
+  replicated; the reference's specs split a head there.
 """
 
 from __future__ import annotations
@@ -158,6 +180,26 @@ def mesh_device(mesh) -> torch.device:
     return devices[0]
 
 
+@dataclass(frozen=True)
+class Blocks:
+    """A world rule's spec entry (``in_proj_halves``): the dimension
+    holds ``n`` equal blocks side by side and each block is split over
+    ``axis``, so a rank holds the same piece of every block, side by
+    side."""
+
+    axis: Any
+    n: int
+
+
+def axis_names(entry) -> Tuple[str, ...]:
+    """The mesh axes that one entry of a spec names."""
+    if isinstance(entry, Blocks):
+        entry = entry.axis
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def _dim_axes(spec, ndim: int):
     spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
     return spec[:ndim]
@@ -173,15 +215,19 @@ def local_shard(tree, specs, mesh: DeviceMesh):
     out = []
     for leaf, spec in zip(leaves, treedef.flatten_up_to(specs)):
         if isinstance(leaf, torch.Tensor):
-            for d, axis in enumerate(_dim_axes(spec, leaf.dim())):
+            for d, entry in enumerate(_dim_axes(spec, leaf.dim())):
+                blocks = entry.n if isinstance(entry, Blocks) else 1
+                axis = entry.axis if isinstance(entry, Blocks) else entry
                 n = mesh.axis_size(axis)
                 if n == 1:
                     continue
-                if leaf.shape[d] % n:
+                if leaf.shape[d] % (n * blocks):
                     raise ValueError(f"spec {spec} does not divide a leaf "
                                      f"of shape {tuple(leaf.shape)}")
-                size = leaf.shape[d] // n
-                leaf = leaf.narrow(d, mesh.axis_index(axis) * size, size)
+                block = leaf.shape[d] // blocks
+                size, i = block // n, mesh.axis_index(axis)
+                leaf = torch.cat([leaf.narrow(d, b * block + i * size, size)
+                                  for b in range(blocks)], dim=d)
             leaf = leaf.contiguous()
         out.append(leaf)
     return treedef.unflatten(out)
@@ -196,12 +242,18 @@ def gather_tree(tree, specs, mesh: DeviceMesh):
     out = []
     for leaf, spec in zip(leaves, treedef.flatten_up_to(specs)):
         if isinstance(leaf, torch.Tensor):
-            for d, axis in enumerate(_dim_axes(spec, leaf.dim())):
-                names = axis if isinstance(axis, tuple) else (axis,)
-                for a in reversed(names):       # the innermost first
-                    if a is not None and mesh.axis_size(a) > 1:
-                        leaf = collectives.all_gather(leaf, mesh.group(a),
-                                                      dim=d)
+            for d, entry in enumerate(_dim_axes(spec, leaf.dim())):
+                blocks = entry.n if isinstance(entry, Blocks) else 1
+                for a in reversed(axis_names(entry)):  # the innermost first
+                    n = mesh.axis_size(a)
+                    if n == 1:
+                        continue
+                    leaf = collectives.all_gather(leaf, mesh.group(a), dim=d)
+                    if blocks > 1:      # rank-major pieces -> block-major
+                        parts = leaf.chunk(n * blocks, dim=d)
+                        leaf = torch.cat([parts[r * blocks + b]
+                                          for b in range(blocks)
+                                          for r in range(n)], dim=d)
         out.append(leaf)
     return treedef.unflatten(out)
 
@@ -441,12 +493,30 @@ class ShardingPolicy:
 
     # ------------------------------------------------------------ public API
 
-    def param_spec(self, params, *, with_participants: bool) -> object:
+    def _attention_whole(self) -> bool:
+        """The world rule ``attention_whole``: ``model`` does not divide
+        the query heads."""
+        return self.cfg.n_heads % self._axis_size["model"] != 0
+
+    def _world_param_rule(self, path: str, spec: Tuple) -> Tuple:
+        """A parameter's spec under the world's rules (module docstring):
+        ``attention_whole`` and ``in_proj_halves``."""
+        if re.search(r"attn/w[qkvo]$", path) and self._attention_whole():
+            return tuple(None if "model" in axis_names(a) else a
+                         for a in spec)
+        if re.search(r"mamba/in_proj$", path) and spec[-1] is not None:
+            return spec[:-1] + (Blocks(spec[-1], 2),)
+        return spec
+
+    def param_spec(self, params, *, with_participants: bool,
+                   world: bool = False) -> object:
         """Tree of specs matching ``params`` (a tree of tensors, real or on
         the ``meta`` device, or anything with a ``shape``).
 
         ``with_participants`` expects a leading P axis on every leaf and a
         layer-stack axis on leaves under ``layers``/``encoder``/``decoder``.
+        ``world``: a world rank's layout, the world's rules (module
+        docstring) applied to the reference's specs.
         """
         flat, treedef = tree_flatten_with_path(params)
         specs = []
@@ -465,7 +535,10 @@ class ShardingPolicy:
                 spec = (None,) + spec
             if with_participants:
                 spec = (self.part_axis,) + spec
-            specs.append(self._fix_divisibility(spec, shape))
+            spec = self._fix_divisibility(spec, shape)
+            if world:
+                spec = self._world_param_rule(path, spec)
+            specs.append(spec)
         return treedef.unflatten(specs)
 
     def batch_spec(self, batch, *, with_participants: bool,
@@ -485,11 +558,14 @@ class ShardingPolicy:
         leaves, treedef = tree_flatten(batch)
         return treedef.unflatten([leaf_spec(x) for x in leaves])
 
-    def cache_spec(self, cache, *, shard_seq: bool) -> object:
+    def cache_spec(self, cache, *, shard_seq: bool,
+                   world: bool = False) -> object:
         """KV caches (L,B,T,KV,hd) + recurrent states.
 
         ``shard_seq`` (long_500k, B=1): shard T over ``data`` —
         flash-decoding-style partial softmax; otherwise shard B.
+        ``world``: a world rank's layout (the rules ``token_shift_whole``
+        and ``attention_whole`` of the module docstring).
         """
         def leaf_spec(path_elems, leaf):
             name = _k(path_elems[-1]) if path_elems else ""
@@ -517,7 +593,11 @@ class ShardingPolicy:
                         (None, None if shard_seq else "data", "model"))
             else:
                 spec = tuple([None] * nd)
-            return self._fix_divisibility(spec, shape)
+            spec = self._fix_divisibility(spec, shape)
+            if world and (name in ("last_tm", "last_cm") or (
+                    name in ("k", "v") and self._attention_whole())):
+                spec = tuple(None if a == "model" else a for a in spec)
+            return spec
 
         flat, treedef = tree_flatten_with_path(cache)
         return treedef.unflatten([leaf_spec(pe, leaf) for pe, leaf in flat])
@@ -589,6 +669,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, policy: ShardingPolicy):
     return {"token": sd((B, 1), i32)}
 
 
-__all__ = ["DeviceMesh", "FlatPlacement", "FlatShardings", "ShardingPolicy",
-           "flat_shardings", "gather_tree", "input_specs", "local_shard",
-           "mesh_device"]
+__all__ = ["Blocks", "DeviceMesh", "FlatPlacement", "FlatShardings",
+           "ShardingPolicy", "axis_names", "flat_shardings", "gather_tree",
+           "input_specs", "local_shard", "mesh_device"]

@@ -8,8 +8,9 @@ Three tiers, all exact:
   ``tests/test_distributed.py`` does: the train steps of the reduced
   TinyLlama (batch ``(4, 1, 2, 32)``, SGD) under every strategy, in fp32,
   with bf16 parameters and with a bf16 aggregation; the ``local`` steps of
-  the reduced qwen3-moe, and of both with ``remat`` on (``MODEL_CASES``);
-  and a prefill (B 8, S 64) and a decode of three families. The port's
+  the reduced qwen3-moe, RWKV-6 and Hymba, and of each with ``remat`` on
+  (``MODEL_CASES``); and a prefill (B 8, S 64) and a decode of four
+  families. The port's
   reckoning at ``MeshConfig(data=4, model=2)`` must give XLA's per-device
   argument bytes (less the leaves that ``jax.jit`` drops because the step
   does not read them, each named in ``UNUSED``), its output bytes, and
@@ -65,7 +66,8 @@ SMALL_MESH = MeshConfig(data=4, model=2)
 TRAIN_SHAPE = ShapeConfig("train_small", 32, 8, "train")     # (4, 1, 2, 32)
 SERVE_SHAPES = {"prefill": ShapeConfig("prefill_small", 64, 8, "prefill"),
                 "decode": ShapeConfig("decode_small", 64, 8, "decode")}
-SERVE_ARCHS = ["tinyllama-1.1b", "qwen3-moe-30b-a3b", "rwkv6-1.6b"]
+SERVE_ARCHS = ["tinyllama-1.1b", "qwen3-moe-30b-a3b", "rwkv6-1.6b",
+               "hymba-1.5b"]
 STRATEGIES = ["modest", "fedavg", "dsgd", "local"]
 # (param_dtype, agg_dtype, strategy) of the train steps compiled
 TRAIN_CASES = ([("float32", "float32", s) for s in STRATEGIES]
@@ -74,12 +76,15 @@ TRAIN_CASES = ([("float32", "float32", s) for s in STRATEGIES]
                + [("float32", "bfloat16", "modest")])
 # (arch, remat) of the fp32 ``local`` steps compiled besides TRAIN_CASES
 MODEL_CASES = [("qwen3-moe-30b-a3b", False), ("tinyllama-1.1b", True),
-               ("qwen3-moe-30b-a3b", True)]
+               ("qwen3-moe-30b-a3b", True), ("rwkv6-1.6b", False),
+               ("rwkv6-1.6b", True), ("hymba-1.5b", False),
+               ("hymba-1.5b", True)]
 # leaves that jax.jit drops from the compiled step's arguments because the
-# step does not read them: a dense or MoE prefill writes the cache's
-# position and never reads it (RWKV's prefill adds to it)
+# step does not read them: a dense, MoE or Hymba prefill writes the
+# cache's position and never reads it (RWKV's prefill adds to it)
 UNUSED = {("prefill", "tinyllama-1.1b"): ["cache/pos"],
-          ("prefill", "qwen3-moe-30b-a3b"): ["cache/pos"]}
+          ("prefill", "qwen3-moe-30b-a3b"): ["cache/pos"],
+          ("prefill", "hymba-1.5b"): ["cache/pos"]}
 
 
 def _xla_script() -> str:
@@ -336,11 +341,15 @@ def test_train_step_collectives_equal_xla(xla, case):
 def test_model_collectives_equal_xla(xla, arch, remat):
     """The reduced qwen3-moe's ``local`` step (experts over ``model``: the
     router's softmax and top k, the slot positions, the combine, their
-    gradients and the router's gradient gathered), and both families with
-    ``remat``: every kind's bytes and count exactly. The remat term is what
-    XLA's backward recomputes (the attention's output; the MoE's router
-    collectives, not its combine), and equals XLA's remat step less its
-    plain one."""
+    gradients and the router's gradient gathered), RWKV-6's (the residual
+    stream split over d: the norms' sums, the mixed inputs gathered, the
+    replicated leaves' gradients gathered) and Hymba's (``in_proj``'s
+    halves permuted, the scan's B and C gradients summed at every step),
+    and each with ``remat``: every kind's bytes and count exactly. The
+    remat term is what XLA's backward recomputes (the attention's output;
+    the MoE's router collectives, not its combine; RWKV-6's seven forward
+    all-reduces, not its gathers; Hymba's permutes and two all-reduces),
+    and equals XLA's remat step less its plain one."""
     got = _model_case(arch, remat)["collectives"]
     want = xla[f"model/{arch}/{remat}"]["collectives"]
     assert got["bytes"] == want["bytes"]
@@ -351,11 +360,15 @@ def test_model_collectives_equal_xla(xla, arch, remat):
         plain = plain["collectives"]
         for key in ("bytes", "counts"):
             assert got["remat"][key] == {
-                k: v - plain[key].get(k, 0) for k, v in want[key].items()}
+                k: v - plain[key].get(k, 0) for k, v in want[key].items()
+                if v != plain[key].get(k, 0)}
     else:
         assert got["remat"] == {"bytes": {}, "counts": {}}
-    if arch == "qwen3-moe-30b-a3b":
+    if arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b"):
         assert set(got["bytes"]) == {"all-reduce", "all-gather"}
+    if arch == "hymba-1.5b":
+        assert set(got["bytes"]) == {"all-reduce", "collective-permute"}
+    assert "not reckoned" not in got["reckoned"]
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -363,11 +376,13 @@ def test_model_collectives_equal_xla(xla, arch, remat):
 def test_serve_step_bytes_equal_xla(xla, arch, kind):
     """Argument bytes exactly, less the named unused leaves (whose bytes
     are exactly the gap); output bytes (logits, cache, tuple index)
-    exactly; the collectives XLA's where the family's are reckoned (the
-    dense row-parallel outputs and embedding; the MoE's top k gathered over
-    ``data``, slot positions, combine and, for a decode, whose tokens split
-    the group over ``data``, the priorities' gather and the dispatch's
-    all-reduce), and none with the flag for RWKV-6."""
+    exactly; the collectives XLA's (the dense row-parallel outputs and
+    embedding; the MoE's top k gathered over ``data``, slot positions,
+    combine and, for a decode, whose tokens split the group over ``data``,
+    the priorities' gather and the dispatch's all-reduce; RWKV-6's norms,
+    gathers and row-parallel sums over a residual split over d, with a
+    decode's embedding resharded over ``data``; Hymba's ``in_proj``
+    permutes and row-parallel sums)."""
     got, want = _serve(kind, arch), xla[f"{kind}/{arch}"]
     mem = got["memory"]
     assert mem["argument_size_in_bytes"] - _unused_bytes(kind, arch) == \
@@ -375,14 +390,10 @@ def test_serve_step_bytes_equal_xla(xla, arch, kind):
     assert mem["output_size_in_bytes"] == want["output"]
     assert set(mem["by_part"]) == {"params", "batch", "cache"}
     coll = got["collectives"]
-    if arch == "rwkv6-1.6b":
-        assert coll["bytes"] == {} and coll["counts"] == {}
-        assert "tensor-parallel collectives not reckoned" in coll["reckoned"]
-    else:
-        assert coll["bytes"] == want["collectives"]["bytes"]
-        assert coll["counts"] == want["collectives"]["counts"]
-        assert coll["bytes"]
-        assert "not reckoned" not in coll["reckoned"]
+    assert coll["bytes"] == want["collectives"]["bytes"]
+    assert coll["counts"] == want["collectives"]["counts"]
+    assert coll["bytes"]
+    assert "not reckoned" not in coll["reckoned"]
     assert coll["strategy"] == {"bytes": {}, "counts": {}}
 
 
@@ -519,11 +530,13 @@ def test_production_argument_bytes_equal_reference_specs(arch, multi_pod):
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_production_records_reckon_dense_and_moe_and_flag_the_rest(
         multi_pod):
-    """At the production meshes the dense and MoE families' records carry
-    their model collectives (the remat term in a train step) and the
-    roofline's collective term reads the whole figure; RWKV-6, Hymba,
-    Whisper and LLaVA keep "tensor-parallel collectives not reckoned", and
-    the FSDP archs (``pod`` granularity) say that theirs are not."""
+    """At the production meshes the dense, MoE, RWKV-6 and Hymba families'
+    records carry their model collectives (the remat term in a train step)
+    and the roofline's collective term reads the whole figure; Hymba,
+    whose 25 query heads the model axis does not divide, also keeps its
+    head-resharding note; Whisper and LLaVA keep "tensor-parallel
+    collectives not reckoned", and the FSDP archs (``pod`` granularity)
+    say that theirs are not."""
     for arch in configs.ASSIGNED:
         cfg = configs.get_config(arch)
         for shape_name in ("train_4k", "decode_32k"):
@@ -536,12 +549,17 @@ def test_production_records_reckon_dense_and_moe_and_flag_the_rest(
                 coll["total_bytes"] / (chips * H100.ici_bandwidth)
             if cfg.participant_granularity == "pod":
                 assert "FSDP collectives not reckoned" in coll["reckoned"]
-            elif cfg.family in ("dense", "moe"):
+            elif cfg.family in ("dense", "moe", "ssm", "hybrid"):
                 assert "tensor-parallel" not in coll["reckoned"]
                 assert coll["model"]["bytes"]["all-reduce"] > 0
                 if shape_name == "train_4k":
                     assert coll["remat"]["bytes"]["all-reduce"] > 0
+                if cfg.family in ("ssm", "hybrid"):
+                    assert ("head resharding where the model axis splits "
+                            "a head not reckoned" in coll["reckoned"]) == (
+                        cfg.family == "hybrid")
             else:
+                assert cfg.family in ("audio", "vlm")
                 assert "tensor-parallel collectives not reckoned" in \
                     coll["reckoned"]
 

@@ -74,19 +74,63 @@ def test_collectives_over_the_mesh_groups():
         assert o["staged_bytes"] == 4 * 4 * (1 + 2)
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma2-27b",
-                                  "qwen3-moe-30b-a3b"])
-def test_each_rank_holds_its_specs_slice(arch):
+@pytest.mark.parametrize("arch,overrides", [
+    ("tinyllama-1.1b", {}), ("gemma2-27b", {}), ("qwen3-moe-30b-a3b", {}),
+    ("rwkv6-1.6b", {}), ("hymba-1.5b", {}),
+    ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5})],
+    ids=["tinyllama-1.1b", "gemma2-27b", "qwen3-moe-30b-a3b", "rwkv6-1.6b",
+         "hymba-1.5b", "hymba-1.5b-5-heads"])
+def test_each_rank_holds_its_specs_slice(arch, overrides):
     """``local_shard`` gives each rank of a 2 x 2 world numpy's slice of
-    every leaf by its spec (split leaves included), and ``gather_tree``
-    gives the whole tree back on every rank."""
-    cfg = configs.reduced(configs.get_config(arch))
+    every leaf by the world's spec (split leaves included), and
+    ``gather_tree`` gives the whole tree back on every rank; the same for
+    a cache. The world's rules, leaf by leaf: RWKV-6's token shifts whole
+    over ``model`` and its state split by heads (``token_shift_whole``);
+    Hymba's ``in_proj`` a rank's d_inner lanes of both halves
+    (``in_proj_halves``, whose slice numpy's oracle takes block by block);
+    with 5 heads, which the axis does not divide, Hymba's attention and
+    its k / v cache whole over ``model`` (``attention_whole``)."""
+    from repro_torch.sharding import Blocks
+
+    cfg = configs.reduced(configs.get_config(arch)).with_(**overrides)
     params = params_to_numpy(build(cfg).init(torch.Generator().manual_seed(0),
                                              "cpu"))
-    out = run_world(bodies.shard_body, 4, args=(arch, params), timeout=120.0,
-                    **WORLD)
-    assert all(o["same"] and o["whole"] for o in out)
+    out = run_world(bodies.shard_body, 4, args=(arch, params, overrides),
+                    timeout=120.0, **WORLD)
+    for o in out:
+        assert o["same"] and o["whole"]
+        assert o["cache"]["same"] and o["cache"]["whole"]
     assert all(o["split"] == out[0]["split"] > 0 for o in out)
+    specs, shapes = out[0]["specs"], out[0]["shapes"]
+    cspecs, cshapes = out[0]["cache"]["specs"], out[0]["cache"]["shapes"]
+    d = cfg.d_model
+    if arch == "rwkv6-1.6b":
+        for name in ("last_tm", "last_cm"):
+            assert cspecs[name] == (None, "data", None)
+            assert cshapes[name] == (2, 2, d)
+        assert cspecs["S"] == (None, "data", "model", None, None)
+        assert cshapes["S"] == (2, 2, 2, 32, 32)
+        assert specs["layers/tm/wr"] == (None, None, "model")
+        assert shapes["layers/tm/u"] == (2, 2, 32)
+    if arch == "hymba-1.5b":
+        assert specs["layers/mamba/in_proj"] == (None, None,
+                                                 Blocks("model", 2))
+        assert shapes["layers/mamba/in_proj"] == (2, d, d)
+        assert shapes["layers/mamba/conv_b"] == (2, d // 2)
+        heads = cfg.n_heads * 32
+        if overrides:
+            for w in ("wq", "wk", "wv", "wo"):
+                assert "model" not in specs[f"layers/attn/{w}"]
+            assert shapes["layers/attn/wq"] == (2, d, heads)
+            for name in ("k", "v"):
+                assert cspecs[name] == (None, "data", None, None, None)
+                assert cshapes[name] == (2, 2, 8, 5, 32)
+        else:
+            assert shapes["layers/attn/wq"] == (2, d, heads // 2)
+            assert cspecs["k"] == (None, "data", None, "model", None)
+    else:
+        assert not any(isinstance(a, Blocks) for s in specs.values()
+                       for a in s)
 
 
 def test_failing_rank_fails_the_world():
@@ -178,29 +222,31 @@ def test_world_refuses_what_this_slice_does_not_split(what):
     ``NotImplementedError`` naming A12b-2, what is not split across ranks
     yet; nothing falls back to one device. No process is started: the
     refusals come before any collective. The MoE splits now (its cases,
-    named as before, refuse RWKV-6 under tensor parallelism instead), and
-    its trainer and server are built."""
+    named as before, refuse Whisper under tensor parallelism now that
+    RWKV-6 and Hymba split too), and the trainers and servers of the MoE,
+    RWKV-6 and Hymba are built."""
     from repro_torch.config import H100, MeshConfig, TrainConfig
     from repro_torch.core.distributed import DistributedTrainer, Server
 
     mesh = DeviceMesh(("cpu",) * 8, ("data", "model"), (4, 2), rank=3)
     mcfg = MeshConfig(data=4, model=2)
     dense = configs.reduced(configs.get_config("tinyllama-1.1b"))
-    moe = configs.reduced(configs.get_config("qwen3-moe-30b-a3b"))
-    rwkv = configs.reduced(configs.get_config("rwkv6-1.6b"))
+    audio = configs.reduced(configs.get_config("whisper-large-v3"))
     kw = dict(mesh=mesh, device="cpu")
-    assert DistributedTrainer(moe, TrainConfig(), mcfg, **kw).world is mesh
-    assert Server(moe, mcfg, **kw).world is mesh
+    for arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "hymba-1.5b"):
+        cfg = configs.reduced(configs.get_config(arch))
+        assert DistributedTrainer(cfg, TrainConfig(), mcfg, **kw).world is mesh
+        assert Server(cfg, mcfg, **kw).world is mesh
     with pytest.raises(NotImplementedError, match="A12b-2"):
         if what == "moe_tp":
-            DistributedTrainer(rwkv, TrainConfig(), mcfg, **kw)
+            DistributedTrainer(audio, TrainConfig(), mcfg, **kw)
         elif what == "grad_clip":
             DistributedTrainer(dense, TrainConfig(grad_clip=1.0), mcfg, **kw)
         elif what == "chip_granularity":
             DistributedTrainer(dense.with_(participant_granularity="chip"),
                                TrainConfig(), mcfg, **kw)
         elif what == "moe_serve_tp":
-            Server(rwkv, mcfg, **kw)
+            Server(audio, mcfg, **kw)
         else:
             Server(dense, mcfg, shard_seq=True, **kw)
     assert mesh_device(mesh) == torch.device("cpu")

@@ -31,6 +31,8 @@ def slice_by_spec(a, spec, dims, axes, coords):
     size = dict(zip(axes, dims))
     at = dict(zip(axes, coords))
     for d, axis in enumerate(tuple(spec)[:a.ndim]):
+        blocks = getattr(axis, "n", 1)          # a world rule's Blocks
+        axis = getattr(axis, "axis", axis)
         names = () if axis is None else (
             axis if isinstance(axis, tuple) else (axis,))
         n, i = 1, 0
@@ -38,8 +40,12 @@ def slice_by_spec(a, spec, dims, axes, coords):
             n *= size.get(name, 1)
             i = i * size.get(name, 1) + at.get(name, 0)
         if n > 1:
-            step = a.shape[d] // n
-            a = np.take(a, np.arange(i * step, (i + 1) * step), axis=d)
+            block = a.shape[d] // blocks
+            step = block // n
+            a = np.concatenate(
+                [np.take(a, np.arange(b * block + i * step,
+                                      b * block + (i + 1) * step), axis=d)
+                 for b in range(blocks)], axis=d)
     return a
 
 
@@ -81,32 +87,54 @@ def collectives_body(world):
             "backend": collectives.backend(mesh.group("model"))}
 
 
-def shard_body(world, arch, params_np):
-    """Each rank's shard of a whole tree (``local_shard`` by the specs)
-    against numpy's slice, and ``gather_tree`` back to the whole."""
+def shard_body(world, arch, params_np, overrides=None):
+    """Each rank's shard of a whole tree (``local_shard`` by the world's
+    specs) against numpy's slice, and ``gather_tree`` back to the whole;
+    the same for a whole cache of random values (B 4, 8 positions) by the
+    world's cache specs. Returns the specs by path too."""
+    from repro_torch.core.distributed import Server
     from repro_torch.engine.flat import params_from_numpy
     from repro_torch.launch.mesh import make_mesh_from_config
-    from repro_torch.sharding import (ShardingPolicy, gather_tree,
-                                      local_shard)
+    from repro_torch.sharding import gather_tree, local_shard
+    from repro_torch.utils.pytree import tree_flatten_with_path
 
-    cfg = configs.reduced(configs.get_config(arch))
+    cfg = configs.reduced(configs.get_config(arch)).with_(**(overrides or {}))
     mcfg = MeshConfig(data=2, model=2)
     mesh = make_mesh_from_config(mcfg, "cpu")
+    server = Server(cfg, mcfg, mesh=mesh, device="cpu")
     params = params_from_numpy(params_np, "cpu")
-    specs = ShardingPolicy(cfg, mcfg).param_spec(params,
-                                                 with_participants=False)
-    mine = local_shard(params, specs, mesh)
-    want = [slice_by_spec(a, s, mcfg.shape, mcfg.axes, mesh.coords)
-            for a, s in zip(tree_leaves(params_np),
-                            tree_flatten(params)[1].flatten_up_to(specs))]
-    same = all(np.array_equal(m.numpy(), w)
-               for m, w in zip(tree_leaves(mine), want))
-    split = sum(m.numel() < p.numel()
-                for m, p in zip(tree_leaves(mine), tree_leaves(params)))
-    back = gather_tree(mine, specs, mesh)
-    whole = all(torch.equal(b, p) for b, p in zip(tree_leaves(back),
-                                                 tree_leaves(params)))
-    return {"same": same, "split": split, "whole": whole}
+    gen = torch.Generator().manual_seed(0)        # alike on every rank
+    cache = tree_map(lambda x: torch.rand(x.shape, generator=gen).to(x.dtype)
+                     if isinstance(x, torch.Tensor) else x,
+                     server.model.init_cache(4, 8, "cpu"))
+    pspec, cspec = server.specs(params, cache)
+    out = {}
+    for name, tree, specs in (("params", params, pspec),
+                              ("cache", cache, cspec)):
+        mine = local_shard(tree, specs, mesh)
+        flat = tree_flatten(tree)[1].flatten_up_to(specs)
+        leaves = [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+        specs_t = [s for x, s in zip(tree_leaves(tree), flat)
+                   if isinstance(x, torch.Tensor)]
+        got = [x for x in tree_leaves(mine) if isinstance(x, torch.Tensor)]
+        want = [slice_by_spec(x.numpy(), s, mcfg.shape, mcfg.axes,
+                              mesh.coords) for x, s in zip(leaves, specs_t)]
+        back = [x for x in tree_leaves(gather_tree(mine, specs, mesh))
+                if isinstance(x, torch.Tensor)]
+        out[name] = {
+            "same": all(np.array_equal(g.numpy(), w)
+                        for g, w in zip(got, want)),
+            "split": sum(g.numel() < x.numel() for g, x in zip(got, leaves)),
+            "whole": all(torch.equal(b, x) for b, x in zip(back, leaves)),
+            "specs": {"/".join(str(getattr(k, "key", k)) for k in path): s
+                      for (path, _), s in zip(
+                          tree_flatten_with_path(tree)[0], flat)},
+            "shapes": {"/".join(str(getattr(k, "key", k)) for k in path):
+                       tuple(g.shape) for (path, _), g in zip(
+                           tree_flatten_with_path(mine)[0],
+                           tree_leaves(mine)) if isinstance(g, torch.Tensor)}}
+    # the params' answer in the old keys, for the callers that read them
+    return {**out["params"], "cache": out["cache"]}
 
 
 def failing_body(world):
@@ -465,3 +493,113 @@ def moe_world_body(world, params_np, toks, weights, serve_np, tokens,
             "served_experts": tuple(params["layers"]["moe"]["wg"].shape),
             "cache": tuple(cache["k"].shape), "pos": cache["pos"],
             "serve_counts": dict(collectives.COUNTS)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 and Hymba across ranks (heads and d_inner over ``model``)
+# ---------------------------------------------------------------------------
+
+RECURRENT_MESH = MeshConfig(data=2, model=2)
+
+
+def _drop_f(which):
+    """A control: Megatron's *f* left off where the family needs it, in
+    this rank (``decay_a``: before RWKV-6's ``decay_b``; ``dt_bc``: after
+    Hymba's ``dt_proj`` and ``bc_proj`` sums)."""
+    from repro_torch.models import hymba, rwkv
+    from repro_torch.models import layers as L
+    if which == "decay_a":
+        rwkv._decay_in = lambda h, split: h
+    elif which == "dt_bc":
+        hymba._summed = lambda y, split: L._reduce_out(y, split)
+
+
+def recurrent_grad_body(world, arch, params_np, toks, overrides=None,
+                        drop_f=None):
+    """Every leaf's gradient of a reduced RWKV-6 or Hymba loss on a 1 x 2
+    world, the rank's shards taken by the world's specs and the gradients
+    gathered by them; the loss, the leaves split and the collectives the
+    step issued (``collectives.COUNTS``). ``drop_f``: a control of
+    :func:`_drop_f`."""
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.engine.lowering import looped_value_and_grad
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import (ShardingPolicy, gather_tree,
+                                      local_shard)
+
+    _drop_f(drop_f)
+    cfg = configs.reduced(configs.get_config(arch)).with_(**(overrides or {}))
+    mcfg = MeshConfig(data=1, model=2)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    params = params_from_numpy(params_np, "cpu")
+    spec = ShardingPolicy(cfg, mcfg).param_spec(
+        params, with_participants=False, world=True)
+    mine = tree_map(lambda x: x[None], local_shard(params, spec, mesh))
+    batch = {"tokens": torch.as_tensor(toks)[None],
+             "labels": torch.as_tensor(toks)[None]}
+    collectives.reset_counts()
+    with L.tensor_parallel(mesh):
+        loss, grads = looped_value_and_grad(build(cfg).loss_fn)(mine, batch)
+    counts = dict(collectives.COUNTS)
+    return {"loss": loss[0], "counts": counts,
+            "grads": gather_tree(tree_map(lambda g: g[0], grads), spec,
+                                 mesh),
+            "split": sum(m.numel() < p.numel() for m, p in zip(
+                tree_leaves(mine), tree_leaves(params)))}
+
+
+def recurrent_world_body(world, arch, params_np, toks, weights, tokens,
+                         max_len, starts=()):
+    """A reduced RWKV-6 or Hymba on a 2 x 2 world: MoDeST rounds of
+    ``weights`` from ``params_np`` (P = 2 over ``data``, heads and d_inner
+    over ``model``), each round's loss and parameters (rank 0); then, from
+    the same initial weights, a prefill of ``tokens`` and one greedy
+    decode, with the local shapes of the cache and the collectives the
+    serving issued. ``starts``: ``(round, replicas)`` pairs, each a round
+    run once more on its own from the given (P-stacked) replicas (rank 0
+    returns them under ``"isolated"``)."""
+    from repro_torch.core.distributed import DistributedTrainer, Server
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.reduced(configs.get_config(arch))
+    mesh = make_mesh_from_config(RECURRENT_MESH, "cpu")
+    trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd", lr=0.1),
+                                 RECURRENT_MESH, strategy="modest",
+                                 mesh=mesh, device="cpu")
+    state = trainer.shard_state(
+        whole_state(trainer, params_from_numpy(params_np, "cpu")))
+    step = trainer.jit_train_step()
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)}
+    losses, finals = [], []
+    for w in weights:
+        state, m = step(state, batch, torch.tensor(w, dtype=torch.float32))
+        losses.append(float(m["loss"]))
+        whole = trainer.gather_state(state)
+        finals.append(whole.params if world.rank == 0 else None)
+    isolated = {}
+    for r, replicas in starts:
+        start = whole_state(trainer, params_from_numpy(params_np, "cpu"))
+        start = trainer.shard_state(start._replace(
+            params=params_from_numpy(replicas, "cpu")))
+        out, _ = step(start, batch, torch.tensor(weights[r],
+                                                 dtype=torch.float32))
+        out = trainer.gather_state(out)
+        isolated[r] = out.params if world.rank == 0 else None
+
+    server = Server(cfg, RECURRENT_MESH, mesh=mesh, device="cpu")
+    params = server.shard_params(params_from_numpy(params_np, "cpu"))
+    cache = server.shard_cache(server.model.init_cache(tokens.shape[0],
+                                                       max_len, "cpu"))
+    collectives.reset_counts()
+    logits, cache = server.prefill(params, {"tokens": torch.as_tensor(
+        tokens)}, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    dlogits, cache = server.decode(params, tok, cache)
+    return {"losses": losses, "rounds": finals, "isolated": isolated,
+            "prefill": logits, "decode": dlogits, "tok": tok,
+            "cache": {k: tuple(v.shape) for k, v in cache.items()
+                      if isinstance(v, torch.Tensor)},
+            "pos": cache["pos"], "serve_counts": dict(collectives.COUNTS)}
