@@ -178,8 +178,13 @@ two main paths and checks that each really went through its kernels:
   --world`` (MoDeST, P = 2, TP 2, 3 rounds); then RWKV-6 and Hymba with
   their heads and d_inner over ``model`` (``world_recurrent``): the same
   serve at the families phase's shapes and full depth (Hymba with
-  flash) and the mesh round at 2 layers (RWKV-6's also in fp32). Gates:
-  every rank's
+  flash) and the mesh round at 2 layers (RWKV-6's also in fp32); then
+  Whisper and LLaVA with their heads, d_ff and vocab over ``model``
+  (``world_multimodal``): the same serve with flash at the families
+  phase's shapes, Whisper at full depth and LLaVA at 8 of 32 layers, and
+  a mesh round at ``MESH_FAMILIES``' cuts through ``DistributedTrainer``
+  in a world body with ``frames`` / ``image_embeds`` in the batch (the
+  launcher feeds tokens alone, ROADMAP C11). Gates: every rank's
   sessions bit for bit the same sessions on the batched engine in this
   process (both under cuDNN's deterministic algorithms: trajectory and
   history hash, every aggregation, the final model, a fused
@@ -208,7 +213,11 @@ two main paths and checks that each really went through its kernels:
   other, none on an RWKV-6 rank; their rounds by ``world_recurrent_train``
   (Hymba's sketch against its control; RWKV-6's bf16 rounds by C12's rule
   against a one-process run from weights moved by one ulp, its update in
-  fp32). Reported: each world's backend, seconds, and each rank's
+  fp32); Whisper's and LLaVA's serves held as Hymba's, 32 (Whisper: B 2,
+  10 / 10 heads, S 128) and 8 (LLaVA: B 2, 16 / 4 heads, S 3,072)
+  ``flash_attention`` launches a rank and no other, their rounds' losses
+  within ``WORLD_MULTIMODAL_LOSS_RTOL`` and their sketches as Hymba's.
+  Reported: each world's backend, seconds, and each rank's
   launches, seconds, staged bytes and peak; the share of the MoE serve's
   (token, choice) slots routed to another expert than in one process, by
   step.
@@ -1162,7 +1171,8 @@ def flash_rows(rows, dev):
     four layouts of the families phase's prefills and at a rank's share of
     the world phase's 2 x 2 serves (TinyLlama: B 2, 16 / 2 heads;
     qwen3-moe: B 2, 16 / 2 heads at hd 128, S 1024; Hymba: B 2, 25 / 5
-    heads, S 512; bf16, causal), timed
+    heads, S 512; Whisper: B 2, 10 / 10 heads, S 128; LLaVA: B 2, 16 / 4
+    heads at hd 128, S 3,072; bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1197,6 +1207,13 @@ def flash_rows(rows, dev):
     B, Hq, Hkv, S, hd = layouts["hymba-1.5b"]
     cases.append((B // 2, Hq, Hkv, S, hd, torch.bfloat16, True,
                   WORLD_HYMBA_FLASH_ROW))
+    # and a rank's share in its Whisper and LLaVA serves: half the batch,
+    # half of the query and kv heads (Whisper's decoder self-attention,
+    # 20 / 20 heads at hd 64; LLaVA's 32 / 8 at hd 128 over [image ‖ text])
+    for arch, row in WORLD_MULTIMODAL_FLASH_ROWS.items():
+        B, Hq, Hkv, S, hd = layouts[arch]
+        cases.append((B // 2, Hq // 2, Hkv // 2, S, hd, torch.bfloat16,
+                      True, row))
     for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
         name = arch or (
             f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
@@ -3589,7 +3606,7 @@ def family_model(dev, arch, over, B, S_text, n_attn):
         flash_launches_per_prefill=warm_launches, peak_memory_bytes=peak,
         sample_ids=gen[0, :12].tolist())
     ref = None
-    if cfg.family in ("moe", "ssm", "hybrid"):
+    if cfg.family in ("moe", "ssm", "hybrid", "audio"):
         ref = dict(world_reference(cfg, params, batch,
                                    gen[:, :WORLD_NEW - 1], dev),
                    tokens=gen.cpu())
@@ -3615,7 +3632,8 @@ def family_model(dev, arch, over, B, S_text, n_attn):
 
 def world_reference(cfg, params, batch, teacher, dev):
     """The world phase's one-process reference for a family it serves
-    across ranks (the MoE, RWKV-6, Hymba): a prefill of ``batch`` and a
+    across ranks (the MoE, RWKV-6, Hymba, Whisper, LLaVA): a prefill of
+    ``batch`` and a
     decode of each column of ``teacher`` (teacher-forced), in bf16 and, as
     the control, with the weights widened exactly to fp32; for each, every
     step's last-position logits and, for the MoE, every layer's routing of
@@ -3632,7 +3650,8 @@ def world_reference(cfg, params, batch, teacher, dev):
         steps = []
 
         def run():
-            cache = srv.model.init_cache(B, S + teacher.shape[1] + 8, dev)
+            cache = srv.model.init_cache(
+                B, image_positions(cfg) + S + teacher.shape[1] + 8, dev)
             logits, cache = srv.prefill(p, batch, cache)
             steps.append(logits[:, -1].float().cpu())
             for i in range(teacher.shape[1]):
@@ -3679,8 +3698,8 @@ def families_phase(dev):
     every new arch's reduced config and whisper-large-v3 at full size.
     Counted: the caller sets the counts to 0 just before and reads them
     just after. Returns the lines, the flash launches the phase made and
-    the one-process references of qwen3-moe, RWKV-6 and Hymba for the
-    world phase (``world_refs``: prefill and teacher-forced decode logits,
+    the one-process references of qwen3-moe, RWKV-6, Hymba and Whisper for
+    the world phase (``world_refs``: prefill and teacher-forced decode logits,
     tokens, the MoE's routing)."""
     from repro_torch.launch import serve
 
@@ -3925,6 +3944,22 @@ def replicas_equal(state) -> bool:
         state.params) for p in range(1, leaf.shape[0]))
 
 
+def family_train_batch(cfg, P, B, T, seed, dev):
+    """A mesh round's batch for a family whose loss reads the stubbed
+    frontend input, from ``numpy.random.default_rng(seed)``: tokens and
+    labels ``(P, 1, B, T)`` and frames or image embeddings ``(P, 1, B, n,
+    d)``, standard normal x 0.1 in fp32; and the input's key."""
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (P, 1, B, T)),
+                                device=dev) for k in ("tokens", "labels")}
+    key, n = (("frames", cfg.n_frames) if cfg.family == "audio" else
+              ("image_embeds", image_positions(cfg)))
+    batch[key] = torch.as_tensor(
+        rng.standard_normal((P, 1, B, n, cfg.d_model), dtype=np.float32)
+        * 0.1, device=dev)
+    return batch, key
+
+
 def mesh_family_round(dev, arch, over, B, T):
     """Two ``DistributedTrainer`` rounds at P = 2 (the first one cold) of
     ``arch`` at published widths cut to ``over``, the batch carrying the
@@ -3941,14 +3976,7 @@ def mesh_family_round(dev, arch, over, B, T):
                                  mesh=(dev,) * P, device=dev)
     state = trainer.init_state(0)
     step = trainer.jit_train_step()
-    rng = np.random.default_rng(0)
-    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (P, 1, B, T)),
-                                device=dev) for k in ("tokens", "labels")}
-    key, n = (("frames", cfg.n_frames) if cfg.family == "audio" else
-              ("image_embeds", cfg.image_tokens * cfg.anyres_tiles))
-    batch[key] = torch.as_tensor(
-        rng.standard_normal((P, 1, B, n, cfg.d_model), dtype=np.float32)
-        * 0.1, device=dev)
+    batch, key = family_train_batch(cfg, P, B, T, 0, dev)
     weights = torch.ones(P, device=dev)
     torch.cuda.reset_peak_memory_stats()
     seconds, losses = [], []
@@ -4226,9 +4254,12 @@ def dryrun_phase(dev, served):
             "remat_bytes": r["collectives"]["remat"]["bytes"]}
             for r in records if r["arch"] == arch}
         for arch in ("tinyllama-1.1b", "qwen3-moe-30b-a3b", "rwkv6-1.6b",
-                     "hymba-1.5b")}
+                     "hymba-1.5b", "whisper-large-v3",
+                     "llava-next-mistral-7b")}
     if not all(v["bytes"] for m in model_bytes.values()
-               for v in m.values()):
+               for v in m.values()) or any(
+            "tensor-parallel collectives not reckoned"
+            in r["collectives"]["reckoned"] for r in records):
         raise AssertionError(f"model collectives not reckoned: {model_bytes}")
     emit("dryrun", records=len(records), seconds=seconds,
          allocated_bytes=before, peak_bytes=peak,
@@ -4376,6 +4407,30 @@ WORLD_MOE_MESH_ARGS = ["--mode", "mesh", "--arch", WORLD_MOE_ARCH,
 WORLD_RECURRENT = ("rwkv6-1.6b", "hymba-1.5b")
 WORLD_RECURRENT_LOSS_RTOL = 2.5e-4
 WORLD_HYMBA_FLASH_ROW = "world_rank_hymba"
+# Whisper and LLaVA across ranks (heads, d_ff and vocab over model): the
+# serves at the families phase's shapes, Whisper at full depth (32 + 32
+# layers) and LLaVA cut to WORLD_LLAVA_CUT (each rank draws the whole model
+# before it keeps its half: four ranks at 32 layers would need about 88 GB
+# of the card's 80), each against a one-process reference at the same
+# depth, held as RWKV-6's and Hymba's serves are; their mesh rounds at
+# MESH_FAMILIES' cuts through DistributedTrainer in a world body (the
+# launcher feeds no frames or image embeddings, ROADMAP C11), held as
+# the MoE's round is: losses within WORLD_MULTIMODAL_LOSS_RTOL of one
+# process's same rounds (the learning-rate-0 control's gaps reported
+# beside them), the change sketch within WORLD_CHANGE_REL and the
+# control's past it, alike on every rank. A skipped update moves round 3's
+# loss by 1.5e-3 in both families, and the world's bf16 rounding moves the
+# update itself by 0.13 relative (the sketch), so a round-3 loss may move
+# by 0.1-0.2 of 1.5e-3: the bound sits between that and a skipped
+# update's, and the sketch holds the update (the second prediction,
+# written after the first reading and before the next run: PERF.md
+# section 6, Whisper and LLaVA).
+WORLD_MULTIMODAL = ("whisper-large-v3", "llava-next-mistral-7b")
+WORLD_LLAVA_CUT = {"n_layers": 8}
+WORLD_MULTIMODAL_LOSS_RTOL = 1e-3
+WORLD_MULTIMODAL_WEIGHTS = ((1.0, 1.0), (1.0, 0.0), (1.0, 1.0))
+WORLD_MULTIMODAL_FLASH_ROWS = {"whisper-large-v3": "world_rank_whisper",
+                               "llava-next-mistral-7b": "world_rank_llava"}
 
 
 def digest(t) -> str:
@@ -4549,9 +4604,12 @@ def world_chunk_rows(dev):
 
 def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
                 loss_rtol=WORLD_LOSS_RTOL, loss_control=True, own=None,
-                loss_rounds=WORLD_TRAIN_ROUNDS, change_control=True):
+                loss_rounds=WORLD_TRAIN_ROUNDS, change_control=True,
+                run=None):
     """``launch/train.py --mode mesh --world`` at ``argv`` (None:
-    ``MESH_ARGS``; MoDeST, 2 x 2, ranks on ``where``) for
+    ``MESH_ARGS``; MoDeST, 2 x 2, ranks on ``where``), or ``run(device,
+    world, lr)`` where given (the launcher's result: ``history``,
+    ``change_sketch`` and, in a world, ``ranks``), for
     WORLD_TRAIN_ROUNDS rounds, gated against the one-process run's rounds
     ``mesh_rounds`` (losses within ``loss_rtol``) and change sketch
     ``mesh_sketch`` (``launch.train`` on ``dev``) and against a control
@@ -4567,15 +4625,22 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
     report under ``ranks_report``."""
     from repro_torch.launch import train
 
-    argv = (MESH_ARGS if argv is None else argv) + [
-        "--algo", "modest", "--devices", "4", "--rounds",
-        str(WORLD_TRAIN_ROUNDS)]
+    if run is None:
+        argv = (MESH_ARGS if argv is None else argv) + [
+            "--algo", "modest", "--devices", "4", "--rounds",
+            str(WORLD_TRAIN_ROUNDS)]
+
+        def run(device, world, lr=None):
+            return train.main(argv + ["--device", device] + (
+                ["--lr", str(lr)] if lr is not None else []) + (
+                ["--world"] if world else []))
+
     # the control: the one-process rounds with the update skipped
-    control = train.main(argv + ["--device", str(dev), "--lr", "0"])
+    control = run(str(dev), False, 0)
     skipped, skipped_sketch = control["history"], control["change_sketch"]
     del control
     release()
-    trained = train.main(argv + ["--device", where, "--world"])
+    trained = run(where, True)
 
     def loss_gaps(hist):
         gaps = []
@@ -4802,17 +4867,19 @@ def world_moe_train(dev, where):
 
 def world_recurrent(dev, where, arch, ref):
     """RWKV-6 or Hymba across ranks on 2 x 2 worlds whose ranks share the
-    card: ``world_recurrent_serve``, then ``world_recurrent_train``."""
-    serve_line = world_recurrent_serve(where, arch, ref)
+    card: ``world_family_serve``, then ``world_recurrent_train``."""
+    serve_line = world_family_serve(where, arch, ref)
     release()
     return {"serve": serve_line, "train": world_recurrent_train(dev, where,
                                                                  arch)}
 
 
-def world_recurrent_serve(where, arch, ref):
-    """``launch/serve.py --full-size --world`` of RWKV-6 or Hymba (Hymba
-    with ``--set use_flash=true``) at the families phase's shape, seed and
-    full depth, decodes teacher-forced on its greedy tokens, against the
+def world_family_serve(where, arch, ref, over=None, n_attn=None):
+    """``launch/serve.py --full-size --world`` of RWKV-6, Hymba, Whisper or
+    LLaVA (those with attention with ``--set use_flash=true``) at the
+    families phase's shape and seed, at full depth or cut to ``over`` with
+    ``n_attn`` attention layers, decodes teacher-forced on its greedy
+    tokens, against the
     one-process reference ``ref`` (``world_reference``: bf16, and fp32 as
     the control). Gates: at every step the world's distance from the fp32
     logits at most WORLD_MOE_ERR_RATIO times one process's bf16 distance
@@ -4821,10 +4888,14 @@ def world_recurrent_serve(where, arch, ref):
     process's own bf16 distance from fp32 where that is larger (RWKV-6's
     bf16 prefill lies 0.30 from its fp32 one at 24 layers: ROADMAP C12);
     a Hymba rank launches ``flash_attention`` once a layer, on its 2 rows
-    and every head, an RWKV-6 rank no kernel, and nothing else."""
+    and every head, a Whisper or LLaVA rank once a (decoder) self-attention
+    layer, on its 2 rows and half the heads, an RWKV-6 rank no kernel, and
+    nothing else."""
     from repro_torch.launch import serve
 
-    _, over, B, S, n_attn = next(m for m in FAMILY_MODELS if m[0] == arch)
+    _, whole, B, S, n_whole = next(m for m in FAMILY_MODELS if m[0] == arch)
+    over = whole if over is None else over
+    n_attn = n_whole if n_attn is None else n_attn
     argv = ["--arch", arch, "--full-size", "--devices", "4",
             "--model-parallel", "2", "--batch", str(B), "--prompt-len",
             str(S), "--new-tokens", str(WORLD_NEW), "--seed", "0",
@@ -4927,6 +4998,132 @@ def world_recurrent_train(dev, where, arch):
                 fp32=dict(fp32, world_seconds=time.perf_counter() - t1))
 
 
+def world_cut_reference(dev, arch, over, B, S_text):
+    """``world_reference`` of ``arch`` cut to ``over`` (a serve world run
+    at a depth cut), at the families phase's seed and batch, teacher-forced
+    on its own greedy tokens (a prefill, then WORLD_NEW - 1 decodes)."""
+    from repro_torch.core.distributed import Server
+
+    cfg = family_config(arch, over)
+    server = Server(cfg, device=dev)
+    params = server.model.init(torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    batch = family_batch(cfg, B, S_text, 0, dev)
+    cache = server.model.init_cache(
+        B, image_positions(cfg) + S_text + WORLD_NEW + 8, dev)
+    logits, cache = server.prefill(params, batch, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    generated = [tok]
+    for _ in range(WORLD_NEW - 1):
+        logits, cache = server.decode(params, tok, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        generated.append(tok)
+    gen = torch.cat(generated, dim=1)
+    del cache, logits
+    ref = dict(world_reference(cfg, params, batch, gen[:, :WORLD_NEW - 1],
+                               dev), tokens=gen.cpu())
+    del params, server, batch
+    release()
+    return ref
+
+
+def family_mesh_rounds(arch, over, B, T, device, lr=None):
+    """The mesh launcher's MoDeST rounds for a family whose batch carries
+    the stubbed frontend input, which ``launch/train.py`` does not feed
+    (ROADMAP C11): ``DistributedTrainer`` at P = 2, TP 2 on a 2 x 2 mesh
+    (the world's inside one, else one naming ``device`` four times), from
+    ``init_state(0)``, WORLD_TRAIN_ROUNDS rounds of
+    WORLD_MULTIMODAL_WEIGHTS, each on ``family_train_batch`` seeded by the
+    round (``B`` rows a participant, ``T`` tokens a row), SGD at ``lr``
+    (None: the launcher's 0.05). Returns the launcher's ``history`` and
+    ``change_sketch``."""
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.get_config(arch).with_(**over)
+    mesh_cfg = MeshConfig(data=2, model=2)
+    trainer = DistributedTrainer(
+        cfg, TrainConfig(optimizer="sgd", lr=0.05 if lr is None else lr),
+        mesh_cfg, strategy="modest",
+        mesh=make_mesh_from_config(mesh_cfg, device), device=device)
+    P = trainer.policy.n_participants
+    state = trainer.init_state(0)
+    start = trainer.param_sketch(state)
+    step = trainer.jit_train_step()
+    history = []
+    for r, w in enumerate(WORLD_MULTIMODAL_WEIGHTS[:WORLD_TRAIN_ROUNDS], 1):
+        batch, _ = family_train_batch(cfg, P, B, T, r, device)
+        state, metrics = step(state, batch, torch.tensor(w, device=device))
+        history.append({"round": r, "active": int(sum(w)),
+                        "loss": float(metrics["loss"])})
+    sketch = trainer.param_sketch(state) - start
+    del state, trainer, step
+    return {"history": history, "change_sketch": sketch}
+
+
+def world_family_train_body(world, arch, over, B, T, lr):
+    """A rank of ``family_mesh_rounds``' world: its rounds and its report
+    (``launch.world.rank_report``, the history and change sketch
+    added)."""
+    from repro_torch.launch.world import rank_report
+
+    t0 = time.perf_counter()
+    out = family_mesh_rounds(arch, over, B, T, world.device, lr)
+    report = rank_report(world, time.perf_counter() - t0)
+    report["history"] = out["history"]
+    report["change_sketch"] = out["change_sketch"].tolist()
+    return report
+
+
+def world_multimodal(dev, where, arch, ref):
+    """Whisper or LLaVA across ranks on 2 x 2 worlds whose ranks share the
+    card: ``world_family_serve`` (Whisper at full depth; LLaVA cut to
+    WORLD_LLAVA_CUT against ``world_cut_reference``), then the mesh round
+    at MESH_FAMILIES' cut (``world_multimodal_train``)."""
+    t0 = time.perf_counter()
+    _, _, B, S, n_attn = next(m for m in FAMILY_MODELS if m[0] == arch)
+    if arch == "llava-next-mistral-7b":
+        ref = world_cut_reference(dev, arch, WORLD_LLAVA_CUT, B, S)
+        serve_line = world_family_serve(
+            where, arch, ref, over=WORLD_LLAVA_CUT,
+            n_attn=WORLD_LLAVA_CUT["n_layers"])
+    else:
+        serve_line = world_family_serve(where, arch, ref)
+    serve_line["world_seconds_with_reference"] = time.perf_counter() - t0
+    release()
+    return {"serve": serve_line, "train": world_multimodal_train(dev, where,
+                                                                 arch)}
+
+
+def world_multimodal_train(dev, where, arch):
+    """Whisper's or LLaVA's mesh round at MESH_FAMILIES' cut,
+    ``family_mesh_rounds`` in one process and in a 2 x 2 world whose ranks
+    share the card, held by ``world_train`` (the constants above
+    WORLD_MULTIMODAL)."""
+    from repro_torch.launch.world import run_world
+
+    _, over, B_train, T = next(m for m in MESH_FAMILIES if m[0] == arch)
+
+    def run(device, world, lr=None):
+        if not world:
+            return family_mesh_rounds(arch, over, B_train, T,
+                                      torch.device(device), lr)
+        ranks = run_world(world_family_train_body, 4, device=device,
+                          args=(arch, over, B_train, T, lr), timeout=600.0)
+        return {"history": ranks[0]["history"], "ranks": ranks}
+
+    t1 = time.perf_counter()
+    one = run(str(dev), False)
+    release()
+    trained = world_train(dev, where, one["history"], one["change_sketch"],
+                          loss_rtol=WORLD_MULTIMODAL_LOSS_RTOL,
+                          loss_control=False, run=run)
+    return dict(trained, arch=arch, depth_cut=over,
+                world_seconds=time.perf_counter() - t1)
+
+
 def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                 world_refs, world_device=None):
     """The port across ranks (``launch.world``) on the one card, whose
@@ -4956,7 +5153,11 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
       (``world_moe``, against the families phase's reference);
     * RWKV-6's and Hymba's serves at full depth and their 2-layer mesh
       rounds, their heads and d_inner over ``model``
-      (``world_recurrent``, against the families phase's references).
+      (``world_recurrent``, against the families phase's references);
+    * Whisper's serve at full depth and LLaVA's at WORLD_LLAVA_CUT, and
+      their mesh rounds at MESH_FAMILIES' cuts, heads, d_ff and vocab over
+      ``model`` (``world_multimodal``: Whisper against the families
+      phase's reference, LLaVA against one at its cut).
 
     ``world_device`` (None: ``dev``) is where the worlds' ranks run:
     ``"cuda"`` spreads them over the cards, one a rank where there are
@@ -5036,6 +5237,13 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
         recurrent[arch] = dict(world_recurrent(dev, where, arch,
                                                world_refs[arch]),
                                seconds=time.perf_counter() - t1)
+    multimodal = {}
+    for arch in WORLD_MULTIMODAL:
+        release()
+        t1 = time.perf_counter()
+        multimodal[arch] = dict(world_multimodal(dev, where, arch,
+                                                 world_refs.get(arch)),
+                                seconds=time.perf_counter() - t1)
 
     def reports(rs):
         return [{k: r[k] for k in ("rank", "backend", "launches",
@@ -5078,6 +5286,13 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                         rec["train"]["fp32"]["ranks_report"]))}
                     if "fp32" in rec["train"] else {}))}
             for arch, rec in recurrent.items()},
+        "multimodal": {arch: {
+            "seconds": rec["seconds"],
+            "serve": dict(rec["serve"], ranks_report=reports(
+                rec["serve"]["ranks_report"])),
+            "train": dict(rec["train"], ranks_report=reports(
+                rec["train"]["ranks_report"]))}
+            for arch, rec in multimodal.items()},
         "seconds": time.perf_counter() - t0}
     emit("world", **line)
     return line
@@ -5424,7 +5639,12 @@ def main() -> int:
                    launches_by_rank=[
                        r["launches"]["flash_attention"] for r in
                        world["recurrent"]["hymba-1.5b"]["serve"][
-                           "ranks_report"]]))
+                           "ranks_report"]]),
+        **{arch.split("-")[0]: dict(
+            flash_row(row), arch=arch, launches_by_rank=[
+                r["launches"]["flash_attention"] for r in
+                world["multimodal"][arch]["serve"]["ranks_report"]])
+           for arch, row in WORLD_MULTIMODAL_FLASH_ROWS.items()})
 
     kernels = []
     for name, meta in KERNELS.items():

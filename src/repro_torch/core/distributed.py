@@ -35,8 +35,8 @@ In a world (``launch.world``: one process a device, the mesh its
 ``DeviceMesh``) both classes split the tensors over the ranks by their
 specs. The trainer's participants are split over ``data`` (``data_rank``
 granularity: a rank holds P / data replicas) and each replica's leaves
-over ``model`` (tensor parallelism of the dense, RWKV-6 and Hymba
-families and expert parallelism of the MoE,
+over ``model`` (tensor parallelism of the dense, RWKV-6, Hymba, Whisper
+and LLaVA families and expert parallelism of the MoE,
 ``models.layers.tensor_parallel``), by the specs under the world's rules
 (``sharding``: ``token_shift_whole``, ``in_proj_halves``,
 ``attention_whole``);
@@ -50,13 +50,15 @@ for bit the one-process mix of the same replicas (or, where the gathered
 replicas would not fit, reduces a weighted mean's partials over ``data``:
 :meth:`DistributedTrainer.mix_form`). The server splits the
 batch over ``data``, the parameters by ``param_spec`` and the cache by
-``cache_spec`` (kv heads or RWKV-6's state heads over ``model``, under
-the same rules); ``prefill`` and ``decode`` take
+``cache_spec`` (kv heads, Whisper's cross kv heads or RWKV-6's state
+heads over ``model``, under the same rules); ``prefill`` and ``decode``
+take
 the whole batch and return the whole logits on every rank; a MoE batch
 whose rank's tokens would route in other groups than one process's, where
-a group could drop slots, raises (``models.moe.rank_groups_match``). The
-audio and vlm families, other granularities and a gradient clip under
-tensor parallelism raise ``NotImplementedError`` (ROADMAP A12b-2).
+a group could drop slots, raises (``models.moe.rank_groups_match``).
+Other granularities than ``data_rank``, a ``pod`` axis, a gradient clip
+under tensor parallelism and a cache split by sequence raise
+``NotImplementedError`` (ROADMAP A12b-3).
 """
 
 from __future__ import annotations
@@ -127,20 +129,15 @@ def _place(tree, specs, policy: ShardingPolicy, device):
 
 def _world_of(mesh, cfg: ModelConfig, policy: ShardingPolicy, what: str):
     """``mesh`` where it is a world's, after checking that this slice
-    splits ``cfg`` there; None outside a world."""
+    splits ``cfg`` there (every LM family splits over ``model``); None
+    outside a world."""
     if not (isinstance(mesh, DeviceMesh) and mesh.in_world):
         return None
-    if mesh.axis_size("model") > 1 and cfg.family not in (
-            "dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{what} of the {cfg.family} family with tensor parallelism "
-            "across ranks (ROADMAP A12b-2: dense, moe, ssm and hybrid "
-            "only)")
     if what == "training" and (cfg.participant_granularity != "data_rank"
                                or "pod" in mesh.axis_names):
         raise NotImplementedError(
             f"training at {cfg.participant_granularity!r} granularity on "
-            f"a {mesh.axis_names} world (ROADMAP A12b-2: data_rank on "
+            f"a {mesh.axis_names} world (ROADMAP A12b-3: data_rank on "
             "data x model)")
     return mesh
 
@@ -178,7 +175,7 @@ class DistributedTrainer:
                 and tcfg.grad_clip:
             raise NotImplementedError(
                 "a gradient clip under tensor parallelism across ranks "
-                "(ROADMAP A12b-2)")
+                "(ROADMAP A12b-3)")
 
     @property
     def local_participants(self) -> int:
@@ -466,7 +463,7 @@ class Server:
         self.world = _world_of(self.mesh, cfg, self.policy, "serving")
         if self.world is not None and shard_seq:
             raise NotImplementedError("a cache split by sequence across "
-                                      "ranks (ROADMAP A12b-2)")
+                                      "ranks (ROADMAP A12b-3)")
 
     def abstract_cache(self, batch_size: int, max_len: int):
         """The cache's shapes and dtypes, on the ``meta`` device."""
@@ -506,7 +503,7 @@ class Server:
                 if _k(path[-1]) in ("k", "v", "xk", "xv") and s[2]:
                     raise NotImplementedError(
                         f"a cache spec {s} splits the sequence (kv heads "
-                        "the model axis does not divide; ROADMAP A12b-2)")
+                        "the model axis does not divide; ROADMAP A12b-3)")
             cache = tree_map(lambda x: x.to(self.device)
                              if isinstance(x, torch.Tensor) else x, cache)
             return local_shard(cache, spec, self.world)
@@ -550,7 +547,7 @@ class Server:
             raise NotImplementedError(
                 f"routing {tokens.numel()} tokens in groups split over {n} "
                 "data ranks, where a group could drop other slots than one "
-                "process's (ROADMAP A12b-2)")
+                "process's (ROADMAP A12b-3)")
         with L.tensor_parallel(self.world):
             logits, cache = fn(params, _rows(batch, self.world, "data",
                                              B // n), cache)

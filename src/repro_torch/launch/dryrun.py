@@ -31,13 +31,12 @@ Each record holds:
   (``model``, :func:`model_collectives`): the tensor-parallel reductions of
   the forward and backward passes, the MoE's routing collectives, the
   backward's recomputation under ``cfg.remat`` (also apart, in ``remat``)
-  and a train step's metrics. They are reckoned for the dense, MoE, RWKV-6
-  and Hymba families at ``data_rank`` granularity, as XLA's compile of the
-  reference places and combines them, in the program's dtypes (XLA's CPU
-  backend widens a bf16 all-reduce to fp32; the wire here is the
-  program's); ``reckoned`` names what is not (Whisper's and LLaVA's
-  tensor-parallel collectives, FSDP, a cache split by sequence, a head
-  split by the model axis). ``total_bytes`` is the
+  and a train step's metrics. They are reckoned for every LM family at
+  ``data_rank`` granularity, as XLA's compile of the reference places and
+  combines them, in the program's dtypes (XLA's CPU backend widens a bf16
+  all-reduce to fp32; the wire here is the program's); ``reckoned`` names
+  what is not (FSDP, a cache split by sequence, a head split by the model
+  axis). ``total_bytes`` is the
   bytes on one device times the device count, as the roofline reads it.
 * ``roofline``: ``roofline.analytic_terms`` on ``config.H100`` with the
   collective bytes above; ``raw_hlo_flops`` and ``raw_hlo_bytes`` are None
@@ -337,10 +336,10 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
     Collective, [what is not reckoned])``.
 
     Reckoned from one participant's parameter specs (``params_spec``, the
-    layer axis first under ``layers``) and the model's products, for the
-    dense, MoE, RWKV-6 and Hymba families at ``data_rank`` granularity, as
-    XLA's compile of the reference shows them (held exactly at a 4 x 2
-    mesh by ``tests/test_torch_dryrun.py``):
+    layer axis first under ``layers``) and the model's products, for every
+    LM family at ``data_rank`` granularity, as XLA's compile of the
+    reference shows them (held exactly at a 4 x 2 mesh by
+    ``tests/test_torch_dryrun.py``):
 
     * a row-parallel product's output (attention's ``wo``, the MLP's
       ``wd``, the MoE's combine over the experts) and a vocab-parallel
@@ -360,8 +359,11 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
       ``data`` divides their count, else the tokens of a group (a decode),
       which adds the priority's gather and the dispatch's all-reduce over
       ``data``;
-    * RWKV-6 and Hymba: :func:`_rwkv_collectives`,
-      :func:`_hymba_collectives`;
+    * RWKV-6, Hymba and Whisper: :func:`_rwkv_collectives`,
+      :func:`_hymba_collectives`, :func:`_whisper_collectives`;
+    * LLaVA: the dense family's, its blocks at the merged length
+      ``n_img + S`` (the concatenation adds no collective), its embedding
+      and loss at the S text positions;
     * ``cfg.remat``: the backward pass recomputes the forward's collectives
       that it needs (attention's output, the router's), once again;
     * a train step's metrics: one all-reduce of two fp32 scalars over the
@@ -374,9 +376,6 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
                                 _axis_name(policy.part_axis),
                                 (((), "float32"), ((), "float32"))))
     M = policy._axes_size("model")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        notes.append("tensor-parallel collectives not reckoned")
-        return colls, notes
     if policy.fsdp_axis is not None:
         notes.append("tensor-parallel and FSDP collectives not reckoned "
                      f"({cfg.participant_granularity!r} granularity)")
@@ -407,6 +406,11 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
         lead = (B // Dn if not shard_seq and B % Dn == 0 else B,)
         S = shape.seq_len if shape.kind == "prefill" else 1
         top_times = 1
+    # LLaVA's layers run over [image ‖ text]; its embedding and loss over
+    # the text (a decode adds no image)
+    S_top = S
+    if cfg.family == "vlm" and S > 1:
+        S += cfg.image_tokens * cfg.anyres_tiles
     act = lead + (S, d)
     times = L * top_times
 
@@ -420,6 +424,9 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
     if cfg.family == "hybrid":
         _hymba_collectives(cfg, specs, M, lead, S, train, add, times)
         mlp_in, attn_in = [], []
+    elif cfg.family == "audio":
+        _whisper_collectives(cfg, specs, lead, S, train, add, top_times)
+        mlp_in, attn_in = [], []
     else:
         mlp_in, attn_in = _dense_moe_collectives(
             cfg, shape, policy, specs, lead, S, train, add, times)
@@ -432,12 +439,12 @@ def model_collectives(cfg, shape: ShapeConfig, policy: ShardingPolicy,
                 "model", [(act, at)] * len(attn_in))
     tied = "lm_head" not in specs
     if _splits(specs["embed"], 0):
-        add("all-reduce", "vocab-parallel embedding", "model", [(act, at)],
-            n=top_times)
+        add("all-reduce", "vocab-parallel embedding", "model",
+            [(lead + (S_top, d), at)], n=top_times)
     if train and (_splits(specs["embed"], 0) if tied
                   else _splits(specs["lm_head"], 1)):
-        chunks = (S // cfg.xent_chunk) if cfg.xent_chunk else 1
-        tok = lead + (S // chunks,)
+        chunks = (S_top // cfg.xent_chunk) if cfg.xent_chunk else 1
+        tok = lead + (S_top // chunks,)
         n = top_times * chunks
         add("all-reduce", "vocab-parallel loss: max", "model",
             [(tok, "float32")], n=n)
@@ -464,7 +471,7 @@ def _dense_moe_collectives(cfg, shape, policy, specs, lead, S, train, add,
         if train and cfg.remat:
             add("all-reduce", "attention output, recomputed", "model",
                 [(act, at)], remat=True)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         if _splits(specs["layers/mlp/wd"], 1):
             add("all-reduce", "MLP output (row-parallel wd)", "model",
                 [(act, at)])
@@ -482,6 +489,59 @@ def _dense_moe_collectives(cfg, shape, policy, specs, lead, S, train, add,
         if _splits(specs["layers/moe/wg"], 1):
             _moe_collectives(cfg, shape, policy, lead, S, train, add, times)
     return mlp_in, attn_in
+
+
+def _whisper_collectives(cfg, specs, lead, S, train, add, top_times):
+    """Whisper's block collectives (see :func:`model_collectives`) as XLA's
+    partitioner places them. Forward, one all-reduce a row-parallel
+    output: the encoder's attention and MLP at ``(lead, n_frames, d)`` (a
+    train step or a prefill; a decode reads the cached cross keys and
+    values), the decoder's self-attention, cross-attention and MLP at
+    ``(lead, S, d)``. Backward, a decoder layer sums its MLP's input
+    gradient, its cross-attention's (the query's at S, with the gradient
+    that its keys' and values' products give the encoder output, two
+    operands at n_frames: XLA sums that gradient in every layer) and its
+    self-attention's three; an encoder layer its MLP's and its
+    self-attention's three (one input, three products). Under
+    ``cfg.remat`` the backward recomputes each attention's output (both
+    of a decoder layer), not the MLPs'."""
+    d, at = cfg.d_model, cfg.param_dtype
+    enc, dec = lead + (cfg.n_frames, d), lead + (S, d)
+    Le, L = cfg.encoder_layers * top_times, cfg.n_layers * top_times
+    blocks = []
+    if train or S > 1:
+        blocks.append(("encoder", enc, Le))
+    blocks.append(("decoder", dec, L))
+    for stack, act, n in blocks:
+        attn = _splits(specs[f"{stack}/attn/wo"], 1)
+        mlp = _splits(specs[f"{stack}/mlp/wo"], 1)
+        outs = (["self-attention"] if attn else []) + (
+            ["cross-attention"] if stack == "decoder" and _splits(
+                specs["decoder/xattn/wo"], 1) else [])
+        for what in outs:
+            add("all-reduce", f"{stack} {what} output (row-parallel wo)",
+                "model", [(act, at)], n=n)
+        if mlp:
+            add("all-reduce", f"{stack} MLP output (row-parallel wo)",
+                "model", [(act, at)], n=n)
+        if not train:
+            continue
+        if cfg.remat:
+            for what in outs:
+                add("all-reduce", f"{stack} {what} output, recomputed",
+                    "model", [(act, at)], n=n, remat=True)
+        if mlp:
+            add("all-reduce", f"backward: {stack} MLP input gradient "
+                "(column-parallel wi)", "model", [(act, at)], n=n)
+        if "cross-attention" in outs:
+            add("all-reduce", "backward: cross-attention input gradients "
+                "(wq's at S; wk's and wv's, the encoder output's, at "
+                "n_frames)", "model", [(enc, at), (enc, at), (act, at)],
+                n=n)
+        if attn:
+            add("all-reduce", f"backward: {stack} self-attention input "
+                "gradients (column-parallel w[qkv])", "model",
+                [(act, at)] * 3, n=n)
 
 
 def _rwkv_collectives(cfg, specs, M, lead, S, train, add, times,

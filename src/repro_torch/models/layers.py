@@ -293,9 +293,15 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
               kv_override=None, mask=None):
     """Full (train/prefill) self- or cross-attention.
 
-    ``kv_override=(k_in, v_in)`` switches to cross-attention over encoder
-    states. ``mask`` overrides the causal mask (None + kv_override = full
-    visibility). With ``cfg.use_flash`` and a plain-causal setup (no
+    ``kv_override`` (the keys' and values' input) switches to
+    cross-attention over encoder states, or, where it is ``x`` itself, to
+    self-attention without RoPE (Whisper's bidirectional encoder). Under
+    :func:`tensor_parallel` ``x`` is a column-parallel input (Megatron's
+    *f*, which ``x`` as ``kv_override`` shares); another ``kv_override``
+    is not: the caller sums its gradient over the group, once for all the
+    layers that read it (``whisper._enc_in``). ``mask`` overrides the
+    causal mask (None + kv_override = full visibility). With
+    ``cfg.use_flash`` and a plain-causal setup (no
     window/softcap) at ``S % 128 == 0`` — the reference's dispatch, kept
     verbatim so the kernel runs exactly where the reference's does — the
     causal flash kernel computes it, reading the (B,S,H,hd) projections
@@ -306,6 +312,7 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
     B, S, d = x.shape
     hd = cfg.resolved_head_dim()
     H, KV, split, wk, wv = _local_heads(p, cfg)
+    own_kv = kv_override is x
     x = _copy_in(x, split)
     q = _split_heads(x @ p["wq"], H, hd)
     if kv_override is None:
@@ -323,7 +330,7 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
         if mask is None:
             mask = causal_mask(S, S, window=window, device=x.device)
     else:
-        enc = _copy_in(kv_override, split)
+        enc = x if own_kv else kv_override
         k = _split_heads(enc @ wk, KV, hd)
         v = _split_heads(enc @ wv, KV, hd)
     scores = _gqa_scores(q, k, KV)
@@ -405,6 +412,22 @@ def attention_decode_masked(p, x, cache_k, cache_v, pos: int, cfg, valid):
     return _reduce_out(out @ p["wo"], split), cache_k, cache_v
 
 
+def cross_attention_decode(p, x, xk, xv, cfg):
+    """One token's cross-attention (x: (B,1,d)) against the encoder's
+    cached keys and values ``xk`` / ``xv`` (B,F,KV,hd), every position
+    visible. Under :func:`tensor_parallel` the rank's query heads (from
+    ``wq``'s width) meet the rank's kv heads of the cache, and the output
+    of ``wo`` is summed over the group, as in
+    :func:`attention_decode_masked`."""
+    hd = cfg.resolved_head_dim()
+    H, KV, split, _, _ = _local_heads(p, cfg)
+    x = _copy_in(x, split)
+    q = _split_heads(x @ p["wq"], H, hd)
+    probs = torch.softmax(_gqa_scores(q, xk, KV), dim=-1)
+    out = _gqa_out(probs, xv, H).to(x.dtype)
+    return _reduce_out(out @ p["wo"], split)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -433,10 +456,15 @@ def gelu_mlp_init(generator, d, d_ff, dtype, device=None):
     }
 
 
-def gelu_mlp(p, x):
+def gelu_mlp(p, x, d_ff: Optional[int] = None):
     """The tanh form of GELU, as ``jax.nn.gelu(approximate=True)`` (torch's
-    default is the erf form)."""
-    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+    default is the erf form); with ``d_ff`` (the config's) and this rank's
+    slice of it under :func:`tensor_parallel`, column- then row-parallel,
+    as :func:`swiglu`."""
+    split = _TP is not None and d_ff is not None and p["wi"].shape[1] != d_ff
+    x = _copy_in(x, split)
+    return _reduce_out(F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"],
+                       split)
 
 
 # ---------------------------------------------------------------------------

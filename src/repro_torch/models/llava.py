@@ -5,14 +5,16 @@ brings precomputed patch embeddings at ``d_model`` (``image_tokens`` per
 tile x ``anyres_tiles`` tiles, the anyres grid) as ``image_embeds``. This
 module is the language side: embeddings = [image patches ‖ text tokens], a
 causal LM loss on the text positions, Mistral's sliding window. The
-parameters, cache and decode step are the dense backbone's.
+parameters, cache and decode step are the dense backbone's, and so is its
+split under ``layers.tensor_parallel``: the image embeddings are a
+replicated input, the text tokens' lookup is vocab-parallel and the loss
+is the dense head's (``transformer.head_loss``) on the text positions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 init = T.init                       # identical backbone parameters
@@ -35,8 +37,8 @@ def loss_fn(params, cfg, batch):
     S_total = x.shape[1]
     h = T.stack_forward(params, cfg, x,
                         torch.arange(S_total, device=x.device))
-    logits = T.logits_fn(params, cfg, h[:, n_img:])        # text positions
-    loss = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    loss = T.head_loss(params, cfg, h[:, n_img:],          # text positions
+                       batch["labels"], batch.get("mask"))
     return loss, {"loss": loss}
 
 

@@ -150,26 +150,32 @@ def embed_tokens(params, cfg, tokens):
     return x
 
 
-def loss_fn(params, cfg, batch):
-    tokens, labels = batch["tokens"], batch["labels"]
-    x = embed_tokens(params, cfg, tokens)
-    h = stack_forward(params, cfg, x,
-                      torch.arange(tokens.shape[1], device=x.device))
+def head_loss(params, cfg, h, labels, mask=None):
+    """The LM loss of the final states ``h`` (B,S,d) under the head
+    (``lm_head``, else the tied ``embed``): the vocab-parallel loss where
+    the head is this rank's vocab slice under tensor parallelism, else the
+    chunked loss with ``cfg.xent_chunk``, else :func:`L.softmax_xent` of
+    :func:`logits_fn`. The dense loss, LLaVA's (its text positions) and
+    Whisper's (its tied head) share it."""
     tied = "lm_head" not in params
     head = params["embed"] if tied else params["lm_head"]
     if L.vocab_split(head, cfg.vocab, transposed=tied):
-        loss = L.vocab_parallel_xent(h, head, labels, cfg.xent_chunk,
-                                     softcap_v=cfg.final_softcap,
-                                     mask=batch.get("mask"),
+        return L.vocab_parallel_xent(h, head, labels, cfg.xent_chunk,
+                                     softcap_v=cfg.final_softcap, mask=mask,
                                      head_transposed=tied)
-    elif cfg.xent_chunk:
-        loss = L.chunked_softmax_xent(h, head, labels, cfg.xent_chunk,
-                                      softcap_v=cfg.final_softcap,
-                                      mask=batch.get("mask"),
+    if cfg.xent_chunk:
+        return L.chunked_softmax_xent(h, head, labels, cfg.xent_chunk,
+                                      softcap_v=cfg.final_softcap, mask=mask,
                                       head_transposed=tied)
-    else:
-        logits = logits_fn(params, cfg, h)
-        loss = L.softmax_xent(logits, labels, batch.get("mask"))
+    return L.softmax_xent(logits_fn(params, cfg, h), labels, mask)
+
+
+def loss_fn(params, cfg, batch):
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    h = stack_forward(params, cfg, x,
+                      torch.arange(tokens.shape[1], device=x.device))
+    loss = head_loss(params, cfg, h, batch["labels"], batch.get("mask"))
     return loss, {"loss": loss}
 
 

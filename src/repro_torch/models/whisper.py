@@ -8,6 +8,15 @@ self-attention) with per-layer cross-attention whose keys and values are
 computed once at prefill and cached (``xk``, ``xv``). The head is tied
 (``embed.T``). The tree is the reference's, keys sorted; layers are
 stacked along a leading axis and a Python loop indexes them (views).
+
+Under ``layers.tensor_parallel`` every function here takes a rank's shards
+(its heads of both attentions and of the cross cache ``xk`` / ``xv``, its
+slice of d_ff, its vocab slice of the tied ``embed``) and returns the
+whole logits or loss on every rank. ``enc_pos``, the norms and the
+residual streams stay replicated. The encoder's output feeds every decoder
+layer's cross-attention keys and values, so its gradient is partial on
+each rank: one *f* on it ahead of the decoder (:func:`_enc_in`) sums the
+layers' partials locally and then once over the group.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
 
@@ -93,7 +103,8 @@ def encode(params, cfg, frames):
         # reference passes an all-true mask, which masks nothing
         h, _ = L.attention(p["attn"], xn, cfg, kv_override=xn)
         x = x + h
-        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps))
+        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps),
+                       cfg.d_ff)
         x = x + h
     return L.layer_norm(params["enc_norm"], x, cfg.norm_eps)
 
@@ -112,8 +123,19 @@ def _dec_block(p, cfg, x, positions, mask, enc):
     h, xkv = L.attention(p["xattn"], L.layer_norm(p["ln_x"], x, cfg.norm_eps),
                          cfg, kv_override=enc)
     x = x + h
-    h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps))
+    h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps),
+                   cfg.d_ff)
     return x + h, kv, xkv
+
+
+def _enc_in(enc, params, cfg):
+    """The encoder's output as the decoder's cross-attentions read it:
+    under ``layers.tensor_parallel`` with the heads split, Megatron's *f*
+    (the identity forward; backward, the group's sum of the gradient that
+    the layers' keys and values gave it, summed locally first)."""
+    heads = params["decoder"]["xattn"]["wq"].shape[-1] // \
+        cfg.resolved_head_dim()
+    return L._copy_in(enc, L.is_split(heads, cfg.n_heads))
 
 
 def _decode_stack(params, cfg, tokens, enc, cache=None):
@@ -121,7 +143,8 @@ def _decode_stack(params, cfg, tokens, enc, cache=None):
     and values go into its first S positions and its cross keys and values
     into ``xk``/``xv``."""
     S = tokens.shape[1]
-    x = params["embed"][tokens]
+    enc = _enc_in(enc, params, cfg)
+    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
     mask = L.causal_mask(S, S, device=x.device)
     positions = torch.arange(S, device=x.device)
     for i in range(cfg.n_layers):
@@ -139,8 +162,8 @@ def loss_fn(params, cfg, batch):
     """batch: frames (B,F,d), tokens (B,S), labels (B,S)."""
     enc = encode(params, cfg, batch["frames"])
     h = _decode_stack(params, cfg, batch["tokens"], enc)
-    logits = h @ params["embed"].T                 # whisper ties the head
-    loss = L.softmax_xent(logits, batch["labels"], batch.get("mask"))
+    # whisper ties the head (no lm_head: the dense family's tied branch)
+    loss = T.head_loss(params, cfg, h, batch["labels"], batch.get("mask"))
     return loss, {"loss": loss}
 
 
@@ -169,16 +192,14 @@ def prefill(params, cfg, batch, cache):
     the text prompt."""
     enc = encode(params, cfg, batch["frames"])
     h = _decode_stack(params, cfg, batch["tokens"], enc, cache)
-    return ((h[:, -1:] @ params["embed"].T).to(torch.float32),
+    return (T.logits_fn(params, cfg, h[:, -1:]),
             dict(cache, pos=batch["tokens"].shape[1]))
 
 
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
-    x = params["embed"][token]
+    x = L.embed_lookup(params["embed"], token, cfg.vocab)
     valid = torch.arange(cache["k"].shape[2], device=x.device) <= pos
-    hd = cfg.resolved_head_dim()
-    B = x.shape[0]
     for i in range(cfg.n_layers):
         p = _layer(params["decoder"], i)
         xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)
@@ -186,15 +207,11 @@ def decode_step(params, cfg, token, cache):
             p["attn"], xn, cache["k"][i], cache["v"][i], pos, cfg, valid)
         x = x + out
         # cross-attention against the cached encoder keys and values
-        xq = L.layer_norm(p["ln_x"], x, cfg.norm_eps)
-        q = (xq @ p["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, hd)
-        scores = L._gqa_scores(q, cache["xk"][i], cfg.n_kv_heads)
-        probs = torch.softmax(scores, dim=-1)
-        out = (L._gqa_out(probs, cache["xv"][i], cfg.n_heads).to(x.dtype)
-               @ p["xattn"]["wo"])
-        x = x + out
-        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps))
+        x = x + L.cross_attention_decode(
+            p["xattn"], L.layer_norm(p["ln_x"], x, cfg.norm_eps),
+            cache["xk"][i], cache["xv"][i], cfg)
+        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps),
+                       cfg.d_ff)
         x = x + h
     h = L.layer_norm(params["final_norm"], x, cfg.norm_eps)
-    return ((h @ params["embed"].T).to(torch.float32),
-            dict(cache, pos=pos + 1))
+    return T.logits_fn(params, cfg, h), dict(cache, pos=pos + 1)

@@ -58,8 +58,9 @@ specs is what ``launch/dryrun.py`` reckons:
   each), so that they meet its lanes of ``conv``, ``dt_up``, ``a_log``
   and the state. A contiguous split would give one rank all of ``xin``.
 * ``attention_whole``: where ``model`` does not divide the query heads
-  (Hymba's 25 at published widths), the attention's ``w[qkvo]`` and the
-  ``k`` / ``v`` cache lie whole over ``model`` and the attention runs
+  (Hymba's 25 at published widths), the attention's ``w[qkvo]`` (and
+  Whisper's cross-attention's) and the ``k`` / ``v`` cache (and Whisper's
+  ``xk`` / ``xv``) lie whole over ``model`` and the attention runs
   replicated; the reference's specs split a head there.
 """
 
@@ -595,7 +596,8 @@ class ShardingPolicy:
                 spec = tuple([None] * nd)
             spec = self._fix_divisibility(spec, shape)
             if world and (name in ("last_tm", "last_cm") or (
-                    name in ("k", "v") and self._attention_whole())):
+                    name in ("k", "v", "xk", "xv")
+                    and self._attention_whole())):
                 spec = tuple(None if a == "model" else a for a in spec)
             return spec
 

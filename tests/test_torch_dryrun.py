@@ -8,8 +8,9 @@ Three tiers, all exact:
   ``tests/test_distributed.py`` does: the train steps of the reduced
   TinyLlama (batch ``(4, 1, 2, 32)``, SGD) under every strategy, in fp32,
   with bf16 parameters and with a bf16 aggregation; the ``local`` steps of
-  the reduced qwen3-moe, RWKV-6 and Hymba, and of each with ``remat`` on
-  (``MODEL_CASES``); and a prefill (B 8, S 64) and a decode of four
+  the reduced qwen3-moe, RWKV-6, Hymba, Whisper and LLaVA (the last two
+  with their ``frames`` and ``image_embeds``), and of each with ``remat``
+  on (``MODEL_CASES``); and a prefill (B 8, S 64) and a decode of six
   families. The port's
   reckoning at ``MeshConfig(data=4, model=2)`` must give XLA's per-device
   argument bytes (less the leaves that ``jax.jit`` drops because the step
@@ -67,7 +68,7 @@ TRAIN_SHAPE = ShapeConfig("train_small", 32, 8, "train")     # (4, 1, 2, 32)
 SERVE_SHAPES = {"prefill": ShapeConfig("prefill_small", 64, 8, "prefill"),
                 "decode": ShapeConfig("decode_small", 64, 8, "decode")}
 SERVE_ARCHS = ["tinyllama-1.1b", "qwen3-moe-30b-a3b", "rwkv6-1.6b",
-               "hymba-1.5b"]
+               "hymba-1.5b", "whisper-large-v3", "llava-next-mistral-7b"]
 STRATEGIES = ["modest", "fedavg", "dsgd", "local"]
 # (param_dtype, agg_dtype, strategy) of the train steps compiled
 TRAIN_CASES = ([("float32", "float32", s) for s in STRATEGIES]
@@ -78,13 +79,28 @@ TRAIN_CASES = ([("float32", "float32", s) for s in STRATEGIES]
 MODEL_CASES = [("qwen3-moe-30b-a3b", False), ("tinyllama-1.1b", True),
                ("qwen3-moe-30b-a3b", True), ("rwkv6-1.6b", False),
                ("rwkv6-1.6b", True), ("hymba-1.5b", False),
-               ("hymba-1.5b", True)]
+               ("hymba-1.5b", True), ("whisper-large-v3", False),
+               ("whisper-large-v3", True), ("llava-next-mistral-7b", False),
+               ("llava-next-mistral-7b", True)]
 # leaves that jax.jit drops from the compiled step's arguments because the
-# step does not read them: a dense, MoE or Hymba prefill writes the
-# cache's position and never reads it (RWKV's prefill adds to it)
+# step does not read them: a dense, MoE, Hymba, Whisper or LLaVA prefill
+# writes the cache's position and never reads it (RWKV's prefill adds to
+# it), and Whisper's writes its whole cross cache; Whisper's decode reads
+# the cross keys and values from the cache, so neither the encoder nor the
+# cross-attention's key and value projections
+_WHISPER_ENCODER = ["params/enc_pos", "params/enc_norm/bias",
+                    "params/enc_norm/scale"] + [
+    f"params/encoder/{w}" for w in (
+        "attn/wk", "attn/wo", "attn/wq", "attn/wv", "ln1/bias", "ln1/scale",
+        "ln2/bias", "ln2/scale", "mlp/wi", "mlp/wo")]
 UNUSED = {("prefill", "tinyllama-1.1b"): ["cache/pos"],
           ("prefill", "qwen3-moe-30b-a3b"): ["cache/pos"],
-          ("prefill", "hymba-1.5b"): ["cache/pos"]}
+          ("prefill", "hymba-1.5b"): ["cache/pos"],
+          ("prefill", "whisper-large-v3"): ["cache/pos", "cache/xk",
+                                            "cache/xv"],
+          ("decode", "whisper-large-v3"): _WHISPER_ENCODER + [
+              "params/decoder/xattn/wk", "params/decoder/xattn/wv"],
+          ("prefill", "llava-next-mistral-7b"): ["cache/pos"]}
 
 
 def _xla_script() -> str:
@@ -150,6 +166,15 @@ def _xla_script() -> str:
                 st = tr.abstract_state()
                 b = {{k: jax.ShapeDtypeStruct((4, 1, 2, 32), jnp.int32)
                      for k in ("tokens", "labels")}}
+                # the frontend's input, as dryrun._train_batch_template
+                # shapes it
+                front = {{"audio": ("frames", cfg.n_frames),
+                         "vlm": ("image_embeds",
+                                 cfg.image_tokens * cfg.anyres_tiles)}}
+                if cfg.family in front:
+                    key, n = front[cfg.family]
+                    b[key] = jax.ShapeDtypeStruct(
+                        (4, 1, 2, n, cfg.d_model), jnp.dtype(cfg.param_dtype))
                 w = jax.ShapeDtypeStruct((4,), jnp.float32)
                 out[f"model/{{arch}}/{{remat}}"] = rec(
                     tr.jit_train_step(st, b).lower(st, b, w).compile())
@@ -157,7 +182,9 @@ def _xla_script() -> str:
                 cfg = configs.reduced(configs.get_config(arch))
                 srv = Server(cfg, mcfg, mesh=mesh)
                 pt = jax.eval_shape(srv.model.init, jax.random.key(0))
-                ct = srv.abstract_cache(8, 64)
+                ct = srv.abstract_cache(8, 64 + (
+                    cfg.image_tokens * cfg.anyres_tiles
+                    if cfg.family == "vlm" else 0))
                 bt = input_specs(cfg, ShapeConfig("p", 64, 8, "prefill"),
                                  srv.policy)
                 out[f"prefill/{{arch}}"] = rec(
@@ -398,13 +425,20 @@ def test_serve_step_bytes_equal_xla(xla, arch, kind):
 
 
 def test_unused_leaves_are_dropped_only_where_named(xla):
-    """Where no leaf is named the port's bytes equal XLA's without excuse,
-    and each named excuse is a 4-byte scalar."""
+    """Where no leaf is named the port's bytes equal XLA's without excuse;
+    a named cache position is its 4-byte scalar, and only Whisper's steps
+    name whole tensors (its prefill's cross cache, its decode's encoder
+    and cross key and value projections), each gap exactly the named
+    leaves' bytes."""
     for arch in SERVE_ARCHS:
         for kind in ("prefill", "decode"):
             gap = (_serve(kind, arch)["memory"]["argument_size_in_bytes"]
                    - xla[f"{kind}/{arch}"]["argument"])
-            assert gap == 4 * len(UNUSED.get((kind, arch), [])), (arch, kind)
+            names = UNUSED.get((kind, arch), [])
+            assert gap == _unused_bytes(kind, arch), (arch, kind)
+            if arch != "whisper-large-v3":
+                assert gap == 4 * len(names) and set(names) <= {
+                    "cache/pos"}, (arch, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -530,13 +564,14 @@ def test_production_argument_bytes_equal_reference_specs(arch, multi_pod):
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_production_records_reckon_dense_and_moe_and_flag_the_rest(
         multi_pod):
-    """At the production meshes the dense, MoE, RWKV-6 and Hymba families'
-    records carry their model collectives (the remat term in a train step)
-    and the roofline's collective term reads the whole figure; Hymba,
-    whose 25 query heads the model axis does not divide, also keeps its
-    head-resharding note; Whisper and LLaVA keep "tensor-parallel
-    collectives not reckoned", and the FSDP archs (``pod`` granularity)
-    say that theirs are not."""
+    """At the production meshes every family's record carries its model
+    collectives (the remat term in a train step) and the roofline's
+    collective term reads the whole figure; Hymba, Whisper and LLaVA, the
+    families whose heads ``model = 16`` does not divide (25 query heads;
+    20; 8 kv heads), also keep the head-resharding note; no record says
+    that tensor-parallel collectives are not reckoned, and the FSDP archs
+    (``pod`` granularity) say that theirs are not."""
+    note = "head resharding where the model axis splits a head not reckoned"
     for arch in configs.ASSIGNED:
         cfg = configs.get_config(arch)
         for shape_name in ("train_4k", "decode_32k"):
@@ -547,21 +582,20 @@ def test_production_records_reckon_dense_and_moe_and_flag_the_rest(
             chips = MeshConfig(multi_pod=multi_pod).n_devices
             assert rec["roofline"]["collective_s"] == \
                 coll["total_bytes"] / (chips * H100.ici_bandwidth)
+            assert "tensor-parallel collectives not reckoned" not in \
+                coll["reckoned"]
             if cfg.participant_granularity == "pod":
                 assert "FSDP collectives not reckoned" in coll["reckoned"]
-            elif cfg.family in ("dense", "moe", "ssm", "hybrid"):
-                assert "tensor-parallel" not in coll["reckoned"]
-                assert coll["model"]["bytes"]["all-reduce"] > 0
-                if shape_name == "train_4k":
-                    assert coll["remat"]["bytes"]["all-reduce"] > 0
-                if cfg.family in ("ssm", "hybrid"):
-                    assert ("head resharding where the model axis splits "
-                            "a head not reckoned" in coll["reckoned"]) == (
-                        cfg.family == "hybrid")
-            else:
-                assert cfg.family in ("audio", "vlm")
-                assert "tensor-parallel collectives not reckoned" in \
-                    coll["reckoned"]
+                continue
+            assert "tensor-parallel" not in coll["reckoned"]
+            assert coll["model"]["bytes"]["all-reduce"] > 0
+            if shape_name == "train_4k":
+                assert coll["remat"]["bytes"]["all-reduce"] > 0
+            assert (note in coll["reckoned"]) == bool(
+                cfg.n_heads % 16 or cfg.n_kv_heads % 16), arch
+            if cfg.family in ("ssm", "hybrid", "audio", "vlm"):
+                assert (note in coll["reckoned"]) == (
+                    cfg.family in ("hybrid", "audio", "vlm"))
 
 
 def test_train_micro_window_and_artifact_names_equal_reference():

@@ -77,9 +77,11 @@ def test_collectives_over_the_mesh_groups():
 @pytest.mark.parametrize("arch,overrides", [
     ("tinyllama-1.1b", {}), ("gemma2-27b", {}), ("qwen3-moe-30b-a3b", {}),
     ("rwkv6-1.6b", {}), ("hymba-1.5b", {}),
-    ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5})],
+    ("hymba-1.5b", {"n_heads": 5, "n_kv_heads": 5}),
+    ("whisper-large-v3", {}), ("llava-next-mistral-7b", {})],
     ids=["tinyllama-1.1b", "gemma2-27b", "qwen3-moe-30b-a3b", "rwkv6-1.6b",
-         "hymba-1.5b", "hymba-1.5b-5-heads"])
+         "hymba-1.5b", "hymba-1.5b-5-heads", "whisper-large-v3",
+         "llava-next-mistral-7b"])
 def test_each_rank_holds_its_specs_slice(arch, overrides):
     """``local_shard`` gives each rank of a 2 x 2 world numpy's slice of
     every leaf by the world's spec (split leaves included), and
@@ -89,7 +91,10 @@ def test_each_rank_holds_its_specs_slice(arch, overrides):
     Hymba's ``in_proj`` a rank's d_inner lanes of both halves
     (``in_proj_halves``, whose slice numpy's oracle takes block by block);
     with 5 heads, which the axis does not divide, Hymba's attention and
-    its k / v cache whole over ``model`` (``attention_whole``)."""
+    its k / v cache whole over ``model`` (``attention_whole``); Whisper's
+    two attentions, MLPs and tied vocab and its self and cross k / v
+    cache split over ``model`` (``enc_pos`` whole), and LLaVA's as the
+    dense backbone's."""
     from repro_torch.sharding import Blocks
 
     cfg = configs.reduced(configs.get_config(arch)).with_(**overrides)
@@ -131,6 +136,20 @@ def test_each_rank_holds_its_specs_slice(arch, overrides):
     else:
         assert not any(isinstance(a, Blocks) for s in specs.values()
                        for a in s)
+    if arch == "whisper-large-v3":
+        for stack in ("encoder", "decoder"):
+            assert shapes[f"{stack}/mlp/wi"] == (2, d, cfg.d_ff // 2)
+            assert shapes[f"{stack}/attn/wo"] == (2, 64, d)
+        assert shapes["decoder/xattn/wq"] == (2, d, 64)
+        assert specs["enc_pos"] == (None, None)
+        assert shapes["embed"] == (cfg.vocab // 2, d)
+        for name in ("k", "v", "xk", "xv"):
+            assert cspecs[name] == (None, "data", None, "model", None)
+        assert cshapes["xk"] == (2, 2, cfg.n_frames, 2, 32)
+    if arch == "llava-next-mistral-7b":
+        assert shapes["layers/mlp/wd"] == (2, cfg.d_ff // 2, d)
+        assert shapes["lm_head"] == (d, cfg.vocab // 2)
+        assert cshapes["k"] == (2, 2, 8, 2, 32)
 
 
 def test_failing_rank_fails_the_world():
@@ -219,34 +238,39 @@ def test_launchers_start_a_world(capfd):
                                   "moe_serve_tp", "seq_cache"])
 def test_world_refuses_what_this_slice_does_not_split(what):
     """In a world (a mesh with a rank) the trainer and server refuse, with
-    ``NotImplementedError`` naming A12b-2, what is not split across ranks
+    ``NotImplementedError`` naming A12b-3, what is not split across ranks
     yet; nothing falls back to one device. No process is started: the
-    refusals come before any collective. The MoE splits now (its cases,
-    named as before, refuse Whisper under tensor parallelism now that
-    RWKV-6 and Hymba split too), and the trainers and servers of the MoE,
-    RWKV-6 and Hymba are built."""
+    refusals come before any collective. Every LM family splits now, so
+    the trainers and servers of the MoE, RWKV-6, Hymba, Whisper and LLaVA
+    are built, and the cases named before for the MoE refuse what is
+    still held back: a ``pod``-granularity trainer, and a server whose
+    cache a dense config's kv heads, which the axis does not divide, would
+    split by sequence."""
     from repro_torch.config import H100, MeshConfig, TrainConfig
     from repro_torch.core.distributed import DistributedTrainer, Server
 
     mesh = DeviceMesh(("cpu",) * 8, ("data", "model"), (4, 2), rank=3)
     mcfg = MeshConfig(data=4, model=2)
     dense = configs.reduced(configs.get_config("tinyllama-1.1b"))
-    audio = configs.reduced(configs.get_config("whisper-large-v3"))
     kw = dict(mesh=mesh, device="cpu")
-    for arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "hymba-1.5b"):
+    for arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "hymba-1.5b",
+                 "whisper-large-v3", "llava-next-mistral-7b"):
         cfg = configs.reduced(configs.get_config(arch))
         assert DistributedTrainer(cfg, TrainConfig(), mcfg, **kw).world is mesh
         assert Server(cfg, mcfg, **kw).world is mesh
-    with pytest.raises(NotImplementedError, match="A12b-2"):
+    with pytest.raises(NotImplementedError, match="A12b-3"):
         if what == "moe_tp":
-            DistributedTrainer(audio, TrainConfig(), mcfg, **kw)
+            DistributedTrainer(dense.with_(participant_granularity="pod"),
+                               TrainConfig(), mcfg, **kw)
         elif what == "grad_clip":
             DistributedTrainer(dense, TrainConfig(grad_clip=1.0), mcfg, **kw)
         elif what == "chip_granularity":
             DistributedTrainer(dense.with_(participant_granularity="chip"),
                                TrainConfig(), mcfg, **kw)
         elif what == "moe_serve_tp":
-            Server(audio, mcfg, **kw)
+            one_kv = dense.with_(n_kv_heads=1)
+            server = Server(one_kv, mcfg, **kw)
+            server.shard_cache(server.model.init_cache(8, 8, "cpu"))
         else:
             Server(dense, mcfg, shard_seq=True, **kw)
     assert mesh_device(mesh) == torch.device("cpu")

@@ -603,3 +603,95 @@ def recurrent_world_body(world, arch, params_np, toks, weights, tokens,
             "cache": {k: tuple(v.shape) for k, v in cache.items()
                       if isinstance(v, torch.Tensor)},
             "pos": cache["pos"], "serve_counts": dict(collectives.COUNTS)}
+
+
+# ---------------------------------------------------------------------------
+# Whisper and LLaVA across ranks (heads, d_ff and vocab over ``model``)
+# ---------------------------------------------------------------------------
+
+MULTIMODAL_MESH = MeshConfig(data=2, model=2)
+
+
+def multimodal_grad_body(world, arch, params_np, batch_np, overrides=None,
+                         drop_f=False):
+    """Every leaf's gradient of a reduced Whisper or LLaVA loss on a 1 x 2
+    world (``batch_np``: one participant's tokens, labels and ``frames``
+    or ``image_embeds``), the rank's shards taken by the world's specs and
+    the gradients gathered by them; the loss, the leaves split and the
+    collectives the step issued (``collectives.COUNTS``). ``drop_f``: the
+    control with Megatron's *f* left off Whisper's encoder output
+    (``whisper._enc_in``), so its gradient is one rank's heads'."""
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.engine.lowering import looped_value_and_grad
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import build
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper
+    from repro_torch.sharding import (ShardingPolicy, gather_tree,
+                                      local_shard)
+
+    if drop_f:
+        whisper._enc_in = lambda enc, params, cfg: enc
+    cfg = configs.reduced(configs.get_config(arch)).with_(**(overrides or {}))
+    mcfg = MeshConfig(data=1, model=2)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    params = params_from_numpy(params_np, "cpu")
+    spec = ShardingPolicy(cfg, mcfg).param_spec(
+        params, with_participants=False, world=True)
+    mine = tree_map(lambda x: x[None], local_shard(params, spec, mesh))
+    batch = {k: torch.as_tensor(v)[None] for k, v in batch_np.items()}
+    collectives.reset_counts()
+    with L.tensor_parallel(mesh):
+        loss, grads = looped_value_and_grad(build(cfg).loss_fn)(mine, batch)
+    counts = dict(collectives.COUNTS)
+    return {"loss": loss[0], "counts": counts,
+            "grads": gather_tree(tree_map(lambda g: g[0], grads), spec,
+                                 mesh),
+            "split": sum(m.numel() < p.numel() for m, p in zip(
+                tree_leaves(mine), tree_leaves(params)))}
+
+
+def multimodal_world_body(world, arch, params_np, batch_np, weights,
+                          serve_np, max_len):
+    """A reduced Whisper or LLaVA on a 2 x 2 world: MoDeST rounds of
+    ``weights`` from ``params_np`` over ``batch_np`` (``(P, E, B, ...)``
+    leaves, ``frames`` or ``image_embeds`` among them; P = 2 over
+    ``data``, heads, d_ff and vocab over ``model``), each round's loss and
+    parameters (rank 0); then, from the same initial weights, a prefill of
+    ``serve_np`` (tokens and the frontend's input) and one greedy decode,
+    with the local shapes of the cache and the collectives the serving
+    issued."""
+    from repro_torch.core.distributed import DistributedTrainer, Server
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.reduced(configs.get_config(arch))
+    mesh = make_mesh_from_config(MULTIMODAL_MESH, "cpu")
+    trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd", lr=0.1),
+                                 MULTIMODAL_MESH, strategy="modest",
+                                 mesh=mesh, device="cpu")
+    state = trainer.shard_state(
+        whole_state(trainer, params_from_numpy(params_np, "cpu")))
+    step = trainer.jit_train_step()
+    batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    losses, finals = [], []
+    for w in weights:
+        state, m = step(state, batch, torch.tensor(w, dtype=torch.float32))
+        losses.append(float(m["loss"]))
+        whole = trainer.gather_state(state)
+        finals.append(whole.params if world.rank == 0 else None)
+
+    server = Server(cfg, MULTIMODAL_MESH, mesh=mesh, device="cpu")
+    params = server.shard_params(params_from_numpy(params_np, "cpu"))
+    prompt = {k: torch.as_tensor(v) for k, v in serve_np.items()}
+    cache = server.shard_cache(server.model.init_cache(
+        prompt["tokens"].shape[0], max_len, "cpu"))
+    collectives.reset_counts()
+    logits, cache = server.prefill(params, prompt, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    dlogits, cache = server.decode(params, tok, cache)
+    return {"losses": losses, "rounds": finals,
+            "prefill": logits, "decode": dlogits, "tok": tok,
+            "cache": {k: tuple(v.shape) for k, v in cache.items()
+                      if isinstance(v, torch.Tensor)},
+            "pos": cache["pos"], "serve_counts": dict(collectives.COUNTS)}
