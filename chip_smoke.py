@@ -184,7 +184,18 @@ two main paths and checks that each really went through its kernels:
   phase's shapes, Whisper at full depth and LLaVA at 8 of 32 layers, and
   a mesh round at ``MESH_FAMILIES``' cuts through ``DistributedTrainer``
   in a world body with ``frames`` / ``image_embeds`` in the batch (the
-  launcher feeds tokens alone, ROADMAP C11). Gates: every rank's
+  launcher feeds tokens alone, ROADMAP C11); then every participant
+  granularity (``world_granularities``): llama3-405b at published widths
+  cut to 1 of 126 layers at ``pod`` granularity on 2 x 2 (P = 1, FSDP
+  over ``data``, TP over ``model``), ``launch/serve.py --full-size --set
+  n_layers=1 --set use_flash=true --world`` at B 4, 1,024 tokens, 3
+  decodes teacher-forced on a one-process run's tokens, and 3 MoDeST
+  rounds through ``DistributedTrainer`` in a world body, SGD 0.05 with a
+  clip at half one process's first gradient norm; TinyLlama at 2 of 22
+  layers on a ``pods=2, data=2, model=1`` world, 3 rounds at each of
+  ``pod`` (P 2 over ``pod``, FSDP over ``data``, a clip that binds),
+  ``chip`` (P 4) and ``data_rank`` (P 4 over ``("pod", "data")``)
+  granularity. Gates: every rank's
   sessions bit for bit the same sessions on the batched engine in this
   process (both under cuDNN's deterministic algorithms: trajectory and
   history hash, every aggregation, the final model, a fused
@@ -216,9 +227,13 @@ two main paths and checks that each really went through its kernels:
   fp32); Whisper's and LLaVA's serves held as Hymba's, 32 (Whisper: B 2,
   10 / 10 heads, S 128) and 8 (LLaVA: B 2, 16 / 4 heads, S 3,072)
   ``flash_attention`` launches a rank and no other, their rounds' losses
-  within ``WORLD_MULTIMODAL_LOSS_RTOL`` and their sketches as Hymba's.
-  Reported: each world's backend, seconds, and each rank's
-  launches, seconds, staged bytes and peak; the share of the MoE serve's
+  within ``WORLD_MULTIMODAL_LOSS_RTOL`` and their sketches as Hymba's;
+  llama3-405b's serve held as Whisper's, one ``flash_attention`` launch a
+  rank (B 2, 64 / 4 heads, hd 128, S 1,024) and no other; the
+  granularities' rounds' losses within ``WORLD_GRAN_LOSS_RTOL`` and their
+  sketches as Hymba's. Reported: each world's backend, seconds, and each
+  rank's launches, seconds, staged bytes, peak and host peak (its largest
+  resident set); the share of the MoE serve's
   (token, choice) slots routed to another expert than in one process, by
   step.
 
@@ -246,7 +261,7 @@ kernel's limit, every block size a launcher can choose, P·R = 6144);
 ``nonfinite`` holds B2, B5 and B7 to the reference's quantisation of a
 NaN and an Inf lane (scale NaN or Inf, codes 0). B9 is also held and
 timed at the four layouts of the families phase's prefills and at a rank's
-share of each of the world phase's three flash serves. ``fused_ptxas`` prints
+share of each of the world phase's flash serves. ``fused_ptxas`` prints
 the registers and spills of every kernel of ``fused_agg.cu``, each of
 which must be built for sm_90a with no spill.
 
@@ -1172,7 +1187,8 @@ def flash_rows(rows, dev):
     the world phase's 2 x 2 serves (TinyLlama: B 2, 16 / 2 heads;
     qwen3-moe: B 2, 16 / 2 heads at hd 128, S 1024; Hymba: B 2, 25 / 5
     heads, S 512; Whisper: B 2, 10 / 10 heads, S 128; LLaVA: B 2, 16 / 4
-    heads at hd 128, S 3,072; bf16, causal), timed
+    heads at hd 128, S 3,072; llama3-405b: B 2, 64 / 4 heads at hd 128, S
+    1024; bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1214,6 +1230,11 @@ def flash_rows(rows, dev):
         B, Hq, Hkv, S, hd = layouts[arch]
         cases.append((B // 2, Hq // 2, Hkv // 2, S, hd, torch.bfloat16,
                       True, row))
+    # and a rank's share in llama3-405b's FSDP serve (W1): half the batch,
+    # 128 / 8 heads halved over model, hd 128
+    B, S = WORLD_FSDP_SERVE
+    cases.append((B // 2, 128 // 2, 8 // 2, S, 128, torch.bfloat16, True,
+                  WORLD_FSDP_FLASH_ROW))
     for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
         name = arch or (
             f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
@@ -4432,6 +4453,41 @@ WORLD_MULTIMODAL_WEIGHTS = ((1.0, 1.0), (1.0, 0.0), (1.0, 1.0))
 WORLD_MULTIMODAL_FLASH_ROWS = {"whisper-large-v3": "world_rank_whisper",
                                "llava-next-mistral-7b": "world_rank_llava"}
 
+# Participant granularities across ranks. W1: llama3-405b at
+# published widths cut to 1 of its 126 layers (7.39 B parameters, 14.8 GB
+# in bf16: 3.7 GB a rank), ``pod`` granularity on 2 x 2 (P = 1, FSDP over
+# data, TP over model): its serve at WORLD_FSDP_SERVE held as the families'
+# serves are, and 3 MoDeST rounds at SGD 0.05 with a clip at
+# WORLD_FSDP_CLIP_SHARE of one process's first gradient norm (so that it
+# binds and its norm spans both axes). W2: TinyLlama at published widths
+# cut to 2 of 22 layers on a ``pods=2, data=2, model=1`` world, at each of
+# WORLD_POD_RUNS' granularities. Each round is held against one process's
+# same rounds by ``world_train``: losses within WORLD_GRAN_LOSS_RTOL (the
+# MoE's and Whisper's bound: the world's bf16 sums move an update's
+# rounding, so a later round's loss moves by a fraction of a skipped
+# update's; the lr-0 control's gaps are reported beside), the change
+# sketch within WORLD_CHANGE_REL and the control's past it, alike on every
+# rank. The predictions these bounds come from stand in PERF.md section 6
+# (participant granularities), written before the first run.
+WORLD_FSDP_ARCH = "llama3-405b"
+WORLD_FSDP_CUT = {"n_layers": 1}
+WORLD_FSDP_MESH = {"data": 2, "model": 2}
+WORLD_FSDP_SERVE = (4, 1024)            # B, prompt tokens
+WORLD_FSDP_TRAIN = (4, 256)             # rows a participant, tokens a row
+WORLD_FSDP_LR = 0.05
+WORLD_FSDP_CLIP_SHARE = 0.5
+WORLD_FSDP_FLASH_ROW = "world_rank_llama3_405b"
+WORLD_GRAN_LOSS_RTOL = 1e-3
+WORLD_POD_ARCH = "tinyllama-1.1b"
+WORLD_POD_CUT = {"n_layers": 2}
+WORLD_POD_MESH = {"multi_pod": True, "pods": 2, "data": 2, "model": 1}
+WORLD_POD_TRAIN = (4, 64)
+WORLD_POD_RUNS = (("pod", 2, 0.5), ("chip", 4, None),
+                  ("data_rank", 4, None))   # granularity, P, clip share
+WORLD_POD_WEIGHTS = {2: ((1.0, 1.0), (1.0, 0.0), (1.0, 1.0)),
+                     4: ((1.0, 1.0, 1.0, 1.0), (1.0, 0.0, 1.0, 1.0),
+                         (1.0, 1.0, 0.0, 1.0))}
+
 
 def digest(t) -> str:
     """The bits of a tensor, hashed: equal digests are bit-for-bit equal
@@ -4874,7 +4930,8 @@ def world_recurrent(dev, where, arch, ref):
                                                                  arch)}
 
 
-def world_family_serve(where, arch, ref, over=None, n_attn=None):
+def world_family_serve(where, arch, ref, over=None, n_attn=None,
+                       shape=None):
     """``launch/serve.py --full-size --world`` of RWKV-6, Hymba, Whisper or
     LLaVA (those with attention with ``--set use_flash=true``) at the
     families phase's shape and seed, at full depth or cut to ``over`` with
@@ -4890,12 +4947,17 @@ def world_family_serve(where, arch, ref, over=None, n_attn=None):
     a Hymba rank launches ``flash_attention`` once a layer, on its 2 rows
     and every head, a Whisper or LLaVA rank once a (decoder) self-attention
     layer, on its 2 rows and half the heads, an RWKV-6 rank no kernel, and
-    nothing else."""
+    nothing else. ``shape``: ``(B, S)`` of an arch the families phase does
+    not serve (llama3-405b), with ``over`` and ``n_attn``."""
     from repro_torch.launch import serve
 
-    _, whole, B, S, n_whole = next(m for m in FAMILY_MODELS if m[0] == arch)
-    over = whole if over is None else over
-    n_attn = n_whole if n_attn is None else n_attn
+    if shape is None:
+        _, whole, B, S, n_whole = next(m for m in FAMILY_MODELS
+                                       if m[0] == arch)
+        over = whole if over is None else over
+        n_attn = n_whole if n_attn is None else n_attn
+    else:
+        B, S = shape
     argv = ["--arch", arch, "--full-size", "--devices", "4",
             "--model-parallel", "2", "--batch", str(B), "--prompt-len",
             str(S), "--new-tokens", str(WORLD_NEW), "--seed", "0",
@@ -5124,6 +5186,239 @@ def world_multimodal_train(dev, where, arch):
                 world_seconds=time.perf_counter() - t1)
 
 
+@contextlib.contextmanager
+def ranks_alloc_conf(conf: str = "expandable_segments:True"):
+    """``PYTORCH_CUDA_ALLOC_CONF`` for the ranks of the worlds started
+    inside (a spawned rank reads it when it starts; this process's
+    allocator is set already): W1's four ranks hold most of the card, and
+    segments that grow in place keep the blocks freed by one layer's
+    gathers usable for the next."""
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    prev = os.environ.get(key)
+    os.environ[key] = conf
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = prev
+
+
+def world_fsdp_serve(dev, where):
+    """W1's serve: llama3-405b at published widths cut to WORLD_FSDP_CUT
+    (1 of 126 layers), ``pod`` granularity (P = 1, FSDP over ``data``,
+    TP over ``model``), through ``launch/serve.py --full-size --world`` on
+    2 x 2 at WORLD_FSDP_SERVE, flash on, a prefill and WORLD_NEW - 1
+    decodes teacher-forced on a one-process run's greedy tokens. The
+    one-process reference (``world_cut_reference``: bf16, and fp32 as the
+    control) runs first and gives the card back before the world starts.
+    Gates as ``world_family_serve``'s: one B9 a rank a prefill (B 2, 64 /
+    4 heads) and nothing else."""
+    B, S = WORLD_FSDP_SERVE
+    t0 = time.perf_counter()
+    ref = world_cut_reference(dev, WORLD_FSDP_ARCH, WORLD_FSDP_CUT, B, S)
+    t_ref = time.perf_counter() - t0
+    with ranks_alloc_conf():
+        line = world_family_serve(where, WORLD_FSDP_ARCH, ref,
+                                  over=WORLD_FSDP_CUT,
+                                  n_attn=WORLD_FSDP_CUT["n_layers"],
+                                  shape=(B, S))
+    return dict(line, reference_seconds=t_ref,
+                published_layers=126, granularity="pod")
+
+
+def gran_batch(cfg, P, B, T, seed, dev):
+    """A granularity round's batch: tokens and labels ``(P, 1, B, T)``
+    from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (P, 1, B, T)),
+                               device=dev) for k in ("tokens", "labels")}
+
+
+def gran_trainer(arch, over, mesh_kw, device, lr, clip):
+    """``DistributedTrainer`` of ``arch`` at published widths cut to
+    ``over`` (its participant granularity among the keys) on
+    ``MeshConfig(**mesh_kw)``: the world's mesh inside one, else one naming
+    ``device``; MoDeST, SGD at ``lr`` with a clip of ``clip``."""
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig, TrainConfig
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.get_config(arch).with_(**over)
+    mesh_cfg = MeshConfig(**mesh_kw)
+    return DistributedTrainer(
+        cfg, TrainConfig(optimizer="sgd", lr=lr, grad_clip=clip), mesh_cfg,
+        strategy="modest", mesh=make_mesh_from_config(mesh_cfg, device),
+        device=device)
+
+
+def gran_first_norm(arch, over, mesh_kw, B, T, device) -> float:
+    """The global norm of the first participant's gradient at round 1's
+    batch from ``init_state(0)``, in one process (the clip of a round
+    that must bind is set below it)."""
+    from repro_torch.utils.pytree import tree_leaves
+
+    trainer = gran_trainer(arch, over, mesh_kw, device, 0.0, 0.0)
+    state = trainer.init_state(0)
+    batch = gran_batch(trainer.cfg, trainer.policy.n_participants, B, T, 1,
+                       device)
+    _, grads = trainer.grads(state, batch)
+    norm = float(torch.sqrt(sum(torch.sum(g[0].double() ** 2)
+                                for g in tree_leaves(grads))))
+    del state, grads, trainer
+    release()
+    return norm
+
+
+def gran_rounds(arch, over, mesh_kw, B, T, device, lr, clip, weights):
+    """``gran_trainer``'s WORLD_TRAIN_ROUNDS rounds of ``weights`` from
+    ``init_state(0)``, each on ``gran_batch`` seeded by the round (``B``
+    rows a participant, ``T`` tokens a row). Returns the launcher's
+    ``history`` and ``change_sketch``."""
+    trainer = gran_trainer(arch, over, mesh_kw, device, lr, clip)
+    P = trainer.policy.n_participants
+    state = trainer.init_state(0)
+    start = trainer.param_sketch(state)
+    step = trainer.jit_train_step()
+    history = []
+    for r, w in enumerate(weights[:WORLD_TRAIN_ROUNDS], 1):
+        batch = gran_batch(trainer.cfg, P, B, T, r, device)
+        state, metrics = step(state, batch, torch.tensor(w, device=device))
+        history.append({"round": r, "active": int(sum(w)),
+                        "loss": float(metrics["loss"])})
+    sketch = trainer.param_sketch(state) - start
+    del state, trainer, step
+    return {"history": history, "change_sketch": sketch}
+
+
+def world_gran_train_body(world, arch, over, mesh_kw, B, T, lr, clip,
+                          weights):
+    """A rank of ``gran_rounds``' world: its rounds and its report
+    (``launch.world.rank_report``, the history and change sketch
+    added)."""
+    from repro_torch.launch.world import rank_report
+
+    t0 = time.perf_counter()
+    out = gran_rounds(arch, over, mesh_kw, B, T, world.device, lr, clip,
+                      weights)
+    report = rank_report(world, time.perf_counter() - t0)
+    report["history"] = out["history"]
+    report["change_sketch"] = out["change_sketch"].tolist()
+    return report
+
+
+def world_gran_runs_body(world, runs):
+    """A rank of the granularities' one world: ``world_gran_train_body``
+    of each of ``runs`` in turn, the collectives' counts and the peak set
+    to 0 and the card's cache given back before each."""
+    from repro_torch import collectives
+
+    out = []
+    for args in runs:
+        collectives.reset_counts()
+        if world.device.type == "cuda":
+            release()
+            torch.cuda.reset_peak_memory_stats(world.device)
+        out.append(world_gran_train_body(world, *args))
+    return out
+
+
+def gran_clip(arch, over, mesh_kw, shape, clip_share, dev):
+    """``(first gradient norm, clip)``: the clip at ``clip_share`` of one
+    process's first gradient norm (``gran_first_norm``), so that it binds;
+    ``(None, 0.0)`` without a share."""
+    if clip_share is None:
+        return None, 0.0
+    norm = gran_first_norm(arch, over, mesh_kw, *shape, dev)
+    return norm, clip_share * norm
+
+
+def world_gran_train(dev, where, arch, over, mesh_kw, shape, weights,
+                     world_ranks, clip=0.0, lr=WORLD_FSDP_LR,
+                     loss_rtol=WORLD_GRAN_LOSS_RTOL):
+    """A granularity round (``gran_rounds``) that a world of
+    ``MeshConfig(**mesh_kw)`` whose ranks share the card ran already (its
+    rank reports ``world_ranks``), held by ``world_train`` against the
+    same rounds in one process here (losses within ``loss_rtol``, the
+    learning-rate-0 control's gaps reported beside; the change sketch
+    within WORLD_CHANGE_REL, the control's past it; alike on every
+    rank)."""
+    from repro_torch.config import MeshConfig
+
+    B, T = shape
+    t0 = time.perf_counter()
+
+    def run(device, world, lr_=None):
+        if world:
+            return {"history": world_ranks[0]["history"],
+                    "ranks": world_ranks}
+        return gran_rounds(arch, over, mesh_kw, B, T, torch.device(device),
+                           lr if lr_ is None else lr_, clip, weights)
+
+    one = run(str(dev), False)
+    release()
+    trained = world_train(dev, where, one["history"], one["change_sketch"],
+                          loss_rtol=loss_rtol, loss_control=False, run=run)
+    return dict(trained, world=" x ".join(map(str, MeshConfig(
+        **mesh_kw).shape)), arch=arch, depth_cut=over, mesh=mesh_kw,
+        batch=B, tokens=T, grad_clip=clip or None,
+        seconds_with_one_process=time.perf_counter() - t0)
+
+
+def world_granularities(dev, where):
+    """W1 and W2: llama3-405b at ``pod`` granularity on 2 x 2 (FSDP over
+    ``data``, TP over ``model``; ``world_fsdp_serve``, then its round with
+    a clip that binds), and TinyLlama at published widths cut to
+    WORLD_POD_CUT on a ``pods=2, data=2, model=1`` world, at each of
+    WORLD_POD_RUNS' granularities (``pod``: P 2 over ``pod``, FSDP over
+    ``data``, with a clip that binds; ``chip``: P 4; ``data_rank``: P 4
+    over ``("pod", "data")``)."""
+    from repro_torch.launch.world import run_world
+
+    t0 = time.perf_counter()
+    serve_line = world_fsdp_serve(dev, where)
+    serve_line["world_seconds_with_reference"] = time.perf_counter() - t0
+    release()
+    # the rounds' clips, from one process's first gradients; then W1's
+    # round and W2's three in one world; then each held against its
+    # one-process rounds
+    t1 = time.perf_counter()
+    runs = [("fsdp", WORLD_FSDP_ARCH, WORLD_FSDP_CUT, WORLD_FSDP_MESH,
+             WORLD_FSDP_TRAIN, WORLD_FSDP_CLIP_SHARE,
+             [[1.0]] * WORLD_TRAIN_ROUNDS)]
+    for gran, P, clip_share in WORLD_POD_RUNS:
+        runs.append((gran, WORLD_POD_ARCH,
+                     dict(WORLD_POD_CUT, participant_granularity=gran),
+                     WORLD_POD_MESH, WORLD_POD_TRAIN, clip_share,
+                     WORLD_POD_WEIGHTS[P]))
+    clips = [gran_clip(arch, over, mesh_kw, shape, share, dev)
+             for _, arch, over, mesh_kw, shape, share, _ in runs]
+    args = [(arch, over, mesh_kw, *shape, WORLD_FSDP_LR, clip, weights)
+            for (_, arch, over, mesh_kw, shape, _, weights), (_, clip)
+            in zip(runs, clips)]
+    t_world = time.perf_counter()
+    with ranks_alloc_conf():
+        ranks = run_world(world_gran_runs_body, WORLD_RANKS, device=where,
+                          args=(args,), timeout=1200.0)
+    t_world = time.perf_counter() - t_world
+    lines = {}
+    for i, ((name, arch, over, mesh_kw, shape, _, weights),
+            (norm, clip)) in enumerate(zip(runs, clips)):
+        t2 = time.perf_counter()
+        lines[name] = dict(world_gran_train(
+            dev, where, arch, over, mesh_kw, shape, weights,
+            [r[i] for r in ranks], clip=clip), first_grad_norm=norm,
+            seconds_one_process=time.perf_counter() - t2)
+        release()
+    train_line = lines.pop("fsdp")
+    return {"fsdp_serve": serve_line, "fsdp_train": train_line,
+            "pod_mesh": lines, "rounds_world_seconds": t_world,
+            "rounds_seconds": time.perf_counter() - t1,
+            "seconds": time.perf_counter() - t0}
+
+
 def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                 world_refs, world_device=None):
     """The port across ranks (``launch.world``) on the one card, whose
@@ -5157,7 +5452,13 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
     * Whisper's serve at full depth and LLaVA's at WORLD_LLAVA_CUT, and
       their mesh rounds at MESH_FAMILIES' cuts, heads, d_ff and vocab over
       ``model`` (``world_multimodal``: Whisper against the families
-      phase's reference, LLaVA against one at its cut).
+      phase's reference, LLaVA against one at its cut);
+    * every participant granularity (``world_granularities``): W1,
+      llama3-405b at 1 of 126 layers at ``pod`` granularity on 2 x 2
+      (FSDP over ``data``, TP over ``model``), its serve and its round
+      with a clip that binds; W2, TinyLlama at 2 layers on a ``pods=2,
+      data=2, model=1`` world at ``pod``, ``chip`` and ``data_rank``
+      granularity; each rank's peak, staged bytes and host peak reported.
 
     ``world_device`` (None: ``dev``) is where the worlds' ranks run:
     ``"cuda"`` spreads them over the cards, one a rank where there are
@@ -5244,10 +5545,13 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
         multimodal[arch] = dict(world_multimodal(dev, where, arch,
                                                  world_refs.get(arch)),
                                 seconds=time.perf_counter() - t1)
+    release()
+    grans = world_granularities(dev, where)
 
     def reports(rs):
         return [{k: r[k] for k in ("rank", "backend", "launches",
-                                   "staged_bytes", "seconds", "peak_bytes")}
+                                   "staged_bytes", "seconds", "peak_bytes",
+                                   "host_peak_bytes")}
                 for r in rs]
 
     line = {
@@ -5293,6 +5597,17 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
             "train": dict(rec["train"], ranks_report=reports(
                 rec["train"]["ranks_report"]))}
             for arch, rec in multimodal.items()},
+        "granularities": {
+            "seconds": grans["seconds"],
+            "fsdp_serve": dict(grans["fsdp_serve"], ranks_report=reports(
+                grans["fsdp_serve"]["ranks_report"])),
+            "fsdp_train": dict(grans["fsdp_train"], ranks_report=reports(
+                grans["fsdp_train"]["ranks_report"])),
+            "pod_mesh": {gran: dict(rec, ranks_report=reports(
+                rec["ranks_report"])) for gran, rec in
+                grans["pod_mesh"].items()},
+            "rounds_world_seconds": grans["rounds_world_seconds"],
+            "rounds_seconds": grans["rounds_seconds"]},
         "seconds": time.perf_counter() - t0}
     emit("world", **line)
     return line
@@ -5644,7 +5959,12 @@ def main() -> int:
             flash_row(row), arch=arch, launches_by_rank=[
                 r["launches"]["flash_attention"] for r in
                 world["multimodal"][arch]["serve"]["ranks_report"]])
-           for arch, row in WORLD_MULTIMODAL_FLASH_ROWS.items()})
+           for arch, row in WORLD_MULTIMODAL_FLASH_ROWS.items()},
+        llama3_405b=dict(
+            flash_row(WORLD_FSDP_FLASH_ROW), arch=WORLD_FSDP_ARCH,
+            launches_by_rank=[
+                r["launches"]["flash_attention"] for r in
+                world["granularities"]["fsdp_serve"]["ranks_report"]]))
 
     kernels = []
     for name, meta in KERNELS.items():

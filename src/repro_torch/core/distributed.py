@@ -33,36 +33,56 @@ raises ``NotImplementedError``; nothing falls back to one device.
 
 In a world (``launch.world``: one process a device, the mesh its
 ``DeviceMesh``) both classes split the tensors over the ranks by their
-specs. The trainer's participants are split over ``data`` (``data_rank``
-granularity: a rank holds P / data replicas) and each replica's leaves
-over ``model`` (tensor parallelism of the dense, RWKV-6, Hymba, Whisper
-and LLaVA families and expert parallelism of the MoE,
-``models.layers.tensor_parallel``), by the specs under the world's rules
-(``sharding``: ``token_shift_whole``, ``in_proj_halves``,
-``attention_whole``);
-``init_state`` and ``shard_state`` give a rank its shards
-(``sharding.local_shard``), ``gather_state`` the whole state back. A step
-takes the whole batch and the whole ``(P,)`` weights, which every rank's
-host code draws alike, and trains the rank's
-participants on their batch rows; the strategy's mix gathers the P axis
-over ``data`` and applies the one-process arithmetic, so the mix is bit
-for bit the one-process mix of the same replicas (or, where the gathered
-replicas would not fit, reduces a weighted mean's partials over ``data``:
-:meth:`DistributedTrainer.mix_form`). The server splits the
-batch over ``data``, the parameters by ``param_spec`` and the cache by
-``cache_spec`` (kv heads, Whisper's cross kv heads or RWKV-6's state
-heads over ``model``, under the same rules); ``prefill`` and ``decode``
-take
-the whole batch and return the whole logits on every rank; a MoE batch
-whose rank's tokens would route in other groups than one process's, where
-a group could drop slots, raises (``models.moe.rank_groups_match``).
-Other granularities than ``data_rank``, a ``pod`` axis, a gradient clip
-under tensor parallelism and a cache split by sequence raise
-``NotImplementedError`` (ROADMAP A12b-3).
+specs (``sharding.ShardingPolicy`` under the world's rules:
+``token_shift_whole``, ``in_proj_halves``, ``attention_whole``), at every
+participant granularity and on a mesh with a ``pod`` axis:
+
+* ``data_rank``: P over ``data`` (``("pod", "data")`` with ``multi_pod``),
+  a rank holding P / data replicas, each replica's leaves over ``model``
+  (tensor parallelism of the dense, RWKV-6, Hymba, Whisper and LLaVA
+  families and expert parallelism of the MoE,
+  ``models.layers.tensor_parallel``);
+* ``chip``: P over every device, a rank holding P / n_devices whole
+  replicas (the policy splits no leaf, so no layer meets another rank:
+  ``ShardingPolicy.splits_model`` is false);
+* ``pod``: P over ``pod`` (P = 1 without ``multi_pod``), each
+  participant's leaves split over ``data`` as well as ``model`` (FSDP,
+  ``models.layers.fully_sharded``: a leaf gathered over ``data`` where a
+  layer reads it, its gradient reduce-scattered back; under ``cfg.remat``
+  each block recomputes its forward, and its gathers, for its backward),
+  and its batch rows over ``data``: each rank's loss is the mean over its
+  rows, the participant's gradient the mean over ``data`` of the ranks'
+  (leaves whole on ``data`` all-reduced), its loss the mean of the ranks'.
+
+``init_state`` and ``Server.init_params`` draw a rank's shards leaf by
+leaf (:func:`draw_local`, bit for bit the whole draw's slices),
+``shard_state`` slices a whole state, ``gather_state`` gives the whole
+state back. A step takes the whole batch and the whole ``(P,)`` weights,
+which every rank's host code draws alike, and trains the rank's
+participants on their batch rows; a gradient clip takes each
+participant's norm over every shard of its gradient. The strategy's mix
+gathers the P axis over the participant axes and applies the one-process
+arithmetic, so the mix is bit for bit the one-process mix of the same
+replicas (or, where the gathered replicas would not fit, reduces a
+weighted mean's partials over them: :meth:`DistributedTrainer.mix_form`);
+under FSDP it mixes each rank's shards, elementwise as whole leaves. The
+server splits the batch over ``data``, the parameters by ``param_spec``
+and the cache by ``cache_spec`` (kv heads, Whisper's cross kv heads or
+RWKV-6's state heads over ``model``, under the same rules); ``prefill``
+and ``decode`` take the whole batch and return the whole logits on every
+rank. A cache split by sequence (``shard_seq``, or kv heads the ``model``
+axis does not divide) and a MoE batch whose rank's tokens would route in
+other groups than one process's (serving: where a group could drop slots,
+``models.moe.rank_groups_match``; training under FSDP: any split group,
+``models.moe.rank_groups_equal``) raise ``NotImplementedError``
+(ROADMAP A12b-3b).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -75,8 +95,8 @@ from repro_torch.models import Model, build
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.sharding import (DeviceMesh, ShardingPolicy, _k,
-                                  axis_names, gather_tree, local_shard,
-                                  mesh_device)
+                                  axis_names, gather_over, gather_tree,
+                                  local_shard, mesh_device, reduce_over)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import (tree_flatten, tree_flatten_with_path,
                                       tree_leaves, tree_map)
@@ -127,31 +147,126 @@ def _place(tree, specs, policy: ShardingPolicy, device):
     return treedef.unflatten(out)
 
 
-def _world_of(mesh, cfg: ModelConfig, policy: ShardingPolicy, what: str):
-    """``mesh`` where it is a world's, after checking that this slice
-    splits ``cfg`` there (every LM family splits over ``model``); None
-    outside a world."""
-    if not (isinstance(mesh, DeviceMesh) and mesh.in_world):
-        return None
-    if what == "training" and (cfg.participant_granularity != "data_rank"
-                               or "pod" in mesh.axis_names):
-        raise NotImplementedError(
-            f"training at {cfg.participant_granularity!r} granularity on "
-            f"a {mesh.axis_names} world (ROADMAP A12b-3: data_rank on "
-            "data x model)")
-    return mesh
+def _world_of(mesh):
+    """``mesh`` where it is a world's (every granularity and mesh splits
+    there), None outside a world."""
+    if isinstance(mesh, DeviceMesh) and mesh.in_world:
+        return mesh
+    return None
 
 
-def _rows(tree, mesh: DeviceMesh, axis, n_local: int):
-    """Every leaf's rows (dim 0) of this rank's index along ``axis``."""
+def _rows(tree, mesh: DeviceMesh, axis, n_local: int, dim: int = 0):
+    """Every leaf's rows (along ``dim``) of this rank's index along
+    ``axis`` (a name, a tuple of names or None)."""
     i = mesh.axis_index(axis)
-    return tree_map(lambda x: x[i * n_local:(i + 1) * n_local], tree)
+    return tree_map(lambda x: x.narrow(dim, i * n_local, n_local), tree)
 
 
 def _stack_copies(tree, P):
     """P real copies of every leaf along a new leading axis (each slot is
     then updated on its own, so no slot may be a view of another)."""
     return tree_map(lambda x: x[None].repeat((P,) + (1,) * x.dim()), tree)
+
+
+def fsdp_dims(params, specs, axis: str = "data"):
+    """``{path: dim}``: the dimension of each leaf that ``specs`` (one
+    participant's, matching ``params``) split over ``axis``, as the layers
+    read it (``models.layers.fully_sharded``): a layer's leaves
+    (``layers``, ``encoder``, ``decoder``) without the layer axis."""
+    flat, treedef = tree_flatten_with_path(params)
+    dims = {}
+    for (path, _), spec in zip(flat, treedef.flatten_up_to(specs)):
+        path = "/".join(_k(p) for p in path)
+        for d, entry in enumerate(spec):
+            if axis in axis_names(entry):
+                stacked = path.split("/")[0] in ("layers", "encoder",
+                                                 "decoder")
+                dims[path] = d - 1 if stacked else d
+    return dims
+
+
+class _DrawOrder:
+    """``layers.drawing``'s hook on a ``meta`` init: the order of the
+    draws, and the draws each stack of blocks put together."""
+
+    def __init__(self):
+        self.order, self.stacks, self.keep = [], {}, []
+
+    def drawn(self, w):
+        self.order.append(id(w))
+        self.keep.append(w)           # ids stay unique while it lives
+        return w
+
+    def stacked(self, parts, out):
+        self.stacks[id(out)] = [id(p) for p in parts]
+        self.keep += [out, *parts]
+
+
+class _KeepSlices:
+    """``layers.drawing``'s hook that keeps this rank's slice of each draw
+    (``specs`` in the order of the draws)."""
+
+    def __init__(self, specs, mesh):
+        self.specs, self.mesh, self.k = specs, mesh, 0
+
+    def drawn(self, w):
+        spec = self.specs[self.k]
+        self.k += 1
+        return local_shard([w], [spec], self.mesh)[0]
+
+    def stacked(self, parts, out):
+        pass
+
+
+def draw_local(model: Model, spec_of, mesh: DeviceMesh, seed: int, device):
+    """This rank's slices of ``model.init(Generator(device).manual_seed(
+    seed), device)`` by the specs ``spec_of(params)`` gives (one
+    participant's), drawn leaf by leaf: each weight is sliced as it is
+    drawn, so no rank holds more than one whole leaf at a time, and a stack
+    of blocks stacks the slices. Bit for bit ``local_shard`` of the whole
+    draw: the same draws, in the same order, sliced alike."""
+    order = _DrawOrder()
+    with L.drawing(order):
+        meta = model.init(torch.Generator().manual_seed(0), "meta")
+    flat, treedef = tree_flatten(meta)
+    specs = treedef.flatten_up_to(spec_of(meta))
+    spec_of_draw = {}
+    for leaf, spec in zip(flat, specs):
+        for part in order.stacks.get(id(leaf), ()):
+            spec_of_draw[part] = spec[1:]           # a layer's slice
+        spec_of_draw.setdefault(id(leaf), spec)
+    keep = _KeepSlices([spec_of_draw[i] for i in order.order], mesh)
+    del order
+    with L.drawing(keep):
+        params = model.init(torch.Generator(device=device).manual_seed(seed),
+                            device)
+    leaves = tree_flatten(params)[0]
+    # what was not drawn (norms, constants) is still whole
+    out = treedef.unflatten([
+        local_shard([x], [spec], mesh)[0] if x.shape == w.shape else x
+        for x, w, spec in zip(leaves, flat, specs)])
+    if torch.device(device).type == "cuda":
+        # the whole leaves' draws were the largest blocks the allocator
+        # holds: give them back to the ranks that share the card
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dot64(a: torch.Tensor, b: torch.Tensor,
+           chunk: int = 1 << 26) -> torch.Tensor:
+    """The dot product of two tensors of one shape in float64, taken
+    ``chunk`` elements at a time (a leaf of billions of elements would
+    need three float64 copies of itself at once)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return sum(torch.dot(a[i:i + chunk].double(), b[i:i + chunk].double())
+               for i in range(0, a.numel(), chunk))
+
+
+def _data_mean(grads, n: int):
+    """One participant's gradient from the sum over its ``n`` FSDP ranks
+    of their gradients, each of the mean loss over the rank's rows: the
+    mean over the ranks (equal row counts)."""
+    return tree_map(lambda g: g / n, grads)
 
 
 class DistributedTrainer:
@@ -168,23 +283,30 @@ class DistributedTrainer:
         self.model: Model = build(cfg)
         self.policy = ShardingPolicy(cfg, mesh_cfg)
         self.strategy: Strategy = build_strategy(strategy, tcfg)
-        self.opt = optim.build(tcfg)
         self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
-        self.world = _world_of(self.mesh, cfg, self.policy, "training")
-        if self.world is not None and self.world.axis_size("model") > 1 \
-                and tcfg.grad_clip:
-            raise NotImplementedError(
-                "a gradient clip under tensor parallelism across ranks "
-                "(ROADMAP A12b-3)")
+        self.world = _world_of(self.mesh)
+        # in a world the clip's norm spans a participant's shards (_clip)
+        self.opt = optim.build(tcfg if self.world is None else
+                               dataclasses.replace(tcfg, grad_clip=0.0))
+        self._one = None
 
     @property
     def local_participants(self) -> int:
-        """The participant replicas this process holds (P / data in a
-        world, else P)."""
+        """The participant replicas this process holds (P over the size of
+        the participant axes in a world, else P)."""
         P = self.policy.n_participants
         if self.world is None:
             return P
         return P // self.world.axis_size(self.policy.part_axis)
+
+    @property
+    def shard_axes(self):
+        """The mesh axes over which a world splits one participant's leaves
+        (``model`` under tensor parallelism, ``data`` under FSDP)."""
+        if self.world is None:
+            return ()
+        return (("model",) if self.policy.splits_model else ()) + (
+            (self.policy.fsdp_axis,) if self.policy.splits_data else ())
 
     # ------------------------------------------------------------------ state
 
@@ -201,18 +323,24 @@ class DistributedTrainer:
         return TrainState(params_P, stack(opt_state), server,
                           torch.zeros((), dtype=torch.int32, device="meta"))
 
+    def _one_spec(self, one):
+        """One participant's parameter specs (in a world, its rules)."""
+        return self.policy.param_spec(one, with_participants=False,
+                                      world=self.world is not None)
+
     def init_state(self, seed: int = 0) -> TrainState:
         """P copies of one model drawn from ``seed`` on the trainer's
         device (placed by :meth:`shard_state` where there is a mesh). In a
-        world, this rank's shard: its P / data copies of its slices of the
-        model."""
+        world, this rank's shard: its P / (participant axes) copies of its
+        slices of the model, drawn leaf by leaf (:func:`draw_local`)."""
         P = self.policy.n_participants
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = self.model.init(gen, self.device)
         if self.world is not None:
-            params = local_shard(params, self.policy.param_spec(
-                params, with_participants=False, world=True), self.world)
+            params = draw_local(self.model, self._one_spec, self.world, seed,
+                                self.device)
             P = self.local_participants
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.model.init(gen, self.device)
         params_P = _stack_copies(params, P)
         opt_P = _stack_copies(self.opt.init(params), P)
         del params
@@ -242,39 +370,57 @@ class DistributedTrainer:
         return gather_tree(state, self.state_spec(self.abstract_state()),
                            self.world)
 
+    def _one_participant(self):
+        """One participant's parameter leaves on the ``meta`` device and
+        their specs (flat, in ``tree_leaves`` order), made once."""
+        if self._one is None:
+            one = self.model.init(torch.Generator().manual_seed(0), "meta")
+            self._one = one, tree_flatten(one)[1].flatten_up_to(
+                self._one_spec(one))
+        return self._one
+
+    def _counts(self, spec) -> bool:
+        """Whether this rank counts a leaf of ``spec`` in a sum over one
+        participant's shards: a leaf whole on a shard axis counts once,
+        on its rank 0 there."""
+        named = {a for e in spec for a in axis_names(e)}
+        return not any(a not in named and self.world.axis_index(a)
+                       for a in self.shard_axes)
+
+    def _reduce_shards(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed in place over the axes that split a participant
+        (:attr:`shard_axes`): alike on every rank that holds it."""
+        for a in self.shard_axes:
+            collectives.all_reduce(t, self.world.group(a))
+        return t
+
     def param_sketch(self, state: TrainState, k: int = 4) -> torch.Tensor:
         """``k`` seeded Gaussian projections of each parameter leaf of the
         first replica this process holds: ``(leaves, k)`` float64 on the
         CPU. In a world each rank projects its slice on the same slice of
-        the whole leaf's directions and the ``model`` axis sums the
-        pieces, so a world and one process give the same numbers for the
-        same replica, up to the order of the sums. The sketch is linear:
-        two runs' changes from one start compare by relative norm without
-        gathering a replica."""
-        tp = self.world is not None and self.world.axis_size("model") > 1
-        whole = self.abstract_state().params
-        one = tree_map(lambda x: torch.empty(tuple(x.shape[1:]),
-                                             dtype=x.dtype, device="meta"),
-                       whole)
-        specs = tree_flatten(one)[1].flatten_up_to(self.policy.param_spec(
-            one, with_participants=False, world=self.world is not None))
+        the whole leaf's directions and the axes that split a participant
+        (``model``, and ``data`` under FSDP) sum the pieces, a leaf whole
+        on an axis counted once, so a world and one process give the same
+        numbers for the same replica, up to the order of the sums. The
+        sketch is linear: two runs' changes from one start compare by
+        relative norm without gathering a replica."""
+        one, specs = self._one_participant()
         gen = torch.Generator(device=self.device)
         out = torch.zeros((len(specs), k), dtype=torch.float64,
                           device=self.device)
         for i, (x, w, spec) in enumerate(zip(tree_leaves(state.params),
                                              tree_leaves(one), specs)):
-            split = tp and any("model" in axis_names(a) for a in spec)
-            if tp and not split and self.world.axis_index("model"):
-                continue            # one model rank holds the whole leaf
+            if self.world is not None and not self._counts(spec):
+                continue
             for j in range(k):
                 gen.manual_seed(i * k + j)
                 r = torch.randn(tuple(w.shape), generator=gen,
                                 device=self.device)
                 if self.world is not None:
                     r = local_shard([r], [spec], self.world)[0]
-                out[i, j] = torch.sum(x[0].double() * r.double())
-        if tp:
-            collectives.all_reduce(out, self.world.group("model"))
+                out[i, j] = _dot64(x[0], r)
+        if self.world is not None:
+            self._reduce_shards(out)
         return out.cpu()
 
     # ------------------------------------------------------------- shardings
@@ -285,21 +431,17 @@ class DistributedTrainer:
         the server state takes the parameter rules, the round none (in a
         world, under the world's rules)."""
         part = self.policy.part_axis
-        world = self.world is not None
 
         def stacked(tree):
             one = tree_map(lambda x: torch.empty(
                 tuple(x.shape[1:]), dtype=x.dtype, device="meta"), tree)
-            specs = self.policy.param_spec(one, with_participants=False,
-                                           world=world)
+            specs = self._one_spec(one)
             treedef = tree_flatten(one)[1]
             return treedef.unflatten(
                 [(part,) + s for s in treedef.flatten_up_to(specs)])
 
         if tree_leaves(state.server_state):
-            server_spec = self.policy.param_spec(state.server_state,
-                                                 with_participants=False,
-                                                 world=world)
+            server_spec = self._one_spec(state.server_state)
         else:
             server_spec = tree_map(lambda _: (), state.server_state)
         return TrainState(stacked(state.params), stacked(state.opt_state),
@@ -319,30 +461,26 @@ class DistributedTrainer:
         axis is gradient-accumulation microbatches of ONE step, the mean of
         their gradients. Each participant's gradient is that of its own
         loss (``engine.lowering.stacked_value_and_grad``: the P losses
-        under ``torch.func.vmap``, one backward pass of their sum); the
-        optimizer's update is vmapped over P, so its
-        reductions (the clip's global norm, adamw's step count) are per
-        participant. ``local_steps`` is read from the batch, as in the
-        reference."""
-        from repro_torch.engine.lowering import (looped_value_and_grad,
-                                                 stacked_value_and_grad)
+        under ``torch.func.vmap``, one backward pass of their sum; a loop
+        over the participants where the loss issues collectives); the
+        optimizer's update is vmapped over P, so its reductions (the
+        clip's global norm, adamw's step count) are per participant; in a
+        world the clip's norm is taken over every shard of a participant's
+        gradient first (:meth:`_clip`). ``local_steps`` is read from the
+        batch, as in the reference."""
         from repro_torch.models.tasks import refuse_flash_training
 
-        cfg, model, opt, strategy = self.cfg, self.model, self.opt, \
-            self.strategy
-        world = self.world
-        tp = world is not None and world.axis_size("model") > 1
-        grads_of = (looped_value_and_grad if tp
-                    else stacked_value_and_grad)(model.loss_fn)
-        update_of = torch.func.vmap(opt.update)
+        cfg, world = self.cfg, self.world
+        grads_of = self._grads_fn()
+        update_of = torch.func.vmap(self.opt.update)
+
+        def update(grads, opt_P, params_P):
+            return update_of(self._clip(grads), opt_P, params_P)
 
         def train_step(state: TrainState, batch, weights):
             refuse_flash_training(cfg)
-            if world is None:
-                return local_step(state, batch, weights)
-            batch = _rows(batch, world, self.policy.part_axis,
-                          self.local_participants)
-            with L.tensor_parallel(world):
+            batch = self._local_batch(batch)
+            with self._in_world():
                 return local_step(state, batch, weights)
 
         def local_step(state: TrainState, batch, weights):
@@ -356,38 +494,164 @@ class DistributedTrainer:
                     acc = g if acc is None else tree_map(torch.add, acc, g)
                     loss_sum = loss_sum + loss
                 grads = tree_map(lambda g: g / E, acc)
-                upd, opt_P = update_of(grads, opt_P, params_P)
+                del acc
+                upd, opt_P = update(grads, opt_P, params_P)
+                del grads
                 params_P = optim.apply_updates(params_P, upd)
+                del upd
                 losses = loss_sum / E
             else:
                 step_losses = []
                 for mb in micro:
                     loss, grads = grads_of(params_P, mb)
-                    upd, opt_P = update_of(grads, opt_P, params_P)
+                    upd, opt_P = update(grads, opt_P, params_P)
+                    del grads       # no step holds more than one gradient
                     params_P = optim.apply_updates(params_P, upd)
+                    del upd
                     step_losses.append(loss)
                 losses = torch.mean(torch.stack(step_losses), dim=0)
             new_P, server = self._mix(state.params, params_P, weights,
                                       state.server_state, hop)
             if world is not None:
-                losses = collectives.all_gather(
-                    losses, world.group(self.policy.part_axis))
+                losses = gather_over(losses, world, self.policy.part_axis)
             metrics = {"loss": torch.mean(losses),
                        "active": torch.sum(weights)}
             return TrainState(new_P, opt_P, server, state.round + 1), metrics
 
         return train_step
 
+    def _grads_fn(self):
+        """``grads_of(params_P, batch) -> (losses (P,), grads)`` of the
+        local participants on their rows (``batch`` leaves ``(P, B,
+        ...)``), before any clip: the vmapped form, or a loop over the
+        participants where the loss issues collectives (tensor
+        parallelism, FSDP). Under FSDP the leaves whole on ``data`` have
+        their partial gradients summed there, and every gradient and loss
+        is the mean over the ``data`` ranks (:func:`_data_mean`)."""
+        from repro_torch.engine.lowering import (looped_value_and_grad,
+                                                 stacked_value_and_grad)
+
+        world = self.world
+        fsdp = world is not None and self.policy.splits_data
+        collective = fsdp or (world is not None and self.policy.splits_model)
+        raw = (looped_value_and_grad if collective
+               else stacked_value_and_grad)(self.model.loss_fn)
+        if not fsdp:
+            return raw
+        axis = self.policy.fsdp_axis
+        whole = [axis not in {a for e in s for a in axis_names(e)}
+                 for s in self._one_participant()[1]]
+        n = world.axis_size(axis)
+
+        def grads_of(params_P, batch):
+            loss, grads = raw(params_P, batch)
+            group = world.group(axis)
+            leaves, treedef = tree_flatten(grads)
+            leaves = [collectives.reduce_from_group(g, group) if w else g
+                      for g, w in zip(leaves, whole)]
+            loss = collectives.all_reduce(loss.clone(), group) / n
+            return loss, _data_mean(treedef.unflatten(leaves), n)
+
+        return grads_of
+
+    @contextlib.contextmanager
+    def _in_world(self):
+        """The layers' collectives of a world's step: tensor parallelism
+        where the policy splits ``model``, FSDP where it splits ``data``
+        (``cfg.remat`` honoured; the loss's means over every rank's rows)."""
+        world = self.world
+        tp = world is not None and self.policy.splits_model
+        fsdp = world is not None and self.policy.splits_data
+        dims = {}
+        if fsdp:
+            one = self._one_participant()[0]
+            dims = fsdp_dims(one, self._one_spec(one), self.policy.fsdp_axis)
+        with L.tensor_parallel(world if tp else None), \
+                L.fully_sharded(world if fsdp else None, dims,
+                                remat=self.cfg.remat, mean_rows=True):
+            yield
+
+    def _local_batch(self, batch):
+        """This rank's part of a whole batch ``(P, E, B, ...)``: its
+        participants' rows (:func:`_rows` over the participant axes) and,
+        under FSDP, its rows of each (:meth:`_participant_rows`)."""
+        if self.world is None:
+            return batch
+        batch = _rows(batch, self.world, self.policy.part_axis,
+                      self.local_participants)
+        if self.policy.splits_data:
+            batch = self._participant_rows(batch)
+        return batch
+
+    def grads(self, state: TrainState, batch):
+        """Each local participant's loss and gradient of the first local
+        step of ``batch`` (a step's whole ``(P, E, B, ...)`` batch), as
+        the step computes them before the clip: in a world this rank's
+        shards of the gradients, which :meth:`gather_state`'s specs put
+        back together."""
+        batch = tree_map(lambda x: x[:, 0], self._local_batch(batch))
+        with self._in_world():
+            return self._grads_fn()(state.params, batch)
+
+    def _participant_rows(self, batch):
+        """This rank's rows of each participant's batch (``batch_axis``,
+        dim 2 of ``(P, E, B, ...)``) under FSDP. Rows ``data`` does not
+        divide raise ``ValueError``; a ``mask`` raises (the participant's
+        loss is the mean over its valid tokens, not the mean of the ranks'
+        means), as does a MoE batch whose rank rows split a routing group
+        (ROADMAP A12b-3b)."""
+        axis = self.policy.batch_axis
+        n = self.world.axis_size(axis)
+        tokens = batch["tokens"]
+        B = tokens.shape[2]
+        if B % n:
+            raise ValueError(f"a participant's {B} rows over {n} "
+                             f"{axis} ranks")
+        if "mask" in batch:
+            raise NotImplementedError(
+                f"a masked batch with its rows split over {axis}: the "
+                "mean over the valid tokens is not the mean of the ranks' "
+                "means")
+        per_step = B * math.prod(tokens.shape[3:])
+        if self.cfg.family == "moe" and not moe.rank_groups_equal(
+                self.cfg, per_step, n):
+            raise NotImplementedError(
+                f"training on {per_step} tokens a participant in routing "
+                f"groups split over {n} {axis} ranks (ROADMAP A12b-3b)")
+        return _rows(batch, self.world, axis, B // n, dim=2)
+
+    def _clip(self, grads):
+        """In a world with ``tcfg.grad_clip``: each participant's gradient
+        scaled by ``optim.clip_scale`` of its global norm, the squares
+        summed over every shard (:meth:`_counts`, :meth:`_reduce_shards`),
+        so every shard takes the same factor as one process's whole
+        gradient; else ``grads``."""
+        if self.world is None or not self.tcfg.grad_clip:
+            return grads
+        _, specs = self._one_participant()
+        leaves, treedef = tree_flatten(grads)
+        P = leaves[0].shape[0]
+        sq = torch.zeros((P,), dtype=torch.float32, device=leaves[0].device)
+        for g, spec in zip(leaves, specs):
+            if self._counts(spec):
+                sq = sq + torch.sum(torch.square(
+                    g.to(torch.float32)).reshape(P, -1), dim=1)
+        scale = optim.clip_scale(torch.sqrt(self._reduce_shards(sq)),
+                                 self.tcfg.grad_clip)
+        for g in leaves:            # the step's own gradient: in place
+            g.mul_(scale.reshape((P,) + (1,) * (g.dim() - 1)).to(g.dtype))
+        return grads
+
     def mix_form(self, new_P) -> str:
-        """How a world's mix meets the other ``data`` ranks: ``"gather"``,
-        the whole P axis and the one-process arithmetic (bit for bit the
-        one-process mix), or ``"reduce"``, a weighted mean's fp32 partials
-        summed over ``data`` (at tolerance: another summation order). The
-        reduction serves a plain weighted mean alone (modest and fedavg
-        without a server optimizer), where the gathered replicas would take
-        more than half the card's memory (``config.H100.hbm_bytes``): the
-        state's own sizes decide, so a configuration takes one form on
-        every device and in every run."""
+        """How a world's mix meets the other participant ranks:
+        ``"gather"``, the whole P axis and the one-process arithmetic (bit
+        for bit the one-process mix), or ``"reduce"``, a weighted mean's
+        fp32 partials summed over the participant axes (at tolerance:
+        another summation order). The reduction serves a plain weighted
+        mean alone (modest and fedavg without a server optimizer), where
+        the gathered replicas would take more than half the card's memory
+        (``config.H100.hbm_bytes``): the state's own sizes decide, so a
+        configuration takes one form on every device and in every run."""
         plain_mean = (self.strategy.name in ("modest", "fedavg")
                       and self.tcfg.server_optimizer in ("avg", "sgd"))
         need = self.world.axis_size(self.policy.part_axis) * sum(
@@ -397,27 +661,28 @@ class DistributedTrainer:
 
     def _mix(self, prev_P, new_P, weights, server_state, hop):
         """The strategy's mix; in a world, by :meth:`mix_form`: of the
-        whole P axis gathered over ``data`` (this rank's rows kept), or the
-        weighted mean's shares (``strategy.weighted_mean_share``) summed
-        over ``data``."""
+        whole P axis gathered over the participant axes (this rank's rows
+        kept), or the weighted mean's shares
+        (``strategy.weighted_mean_share``) summed over them. Under FSDP
+        each rank mixes its shards (the mix is elementwise over P)."""
         if self.world is None:
             return self.strategy.mix(prev_P, new_P, weights, server_state,
                                      hop)
-        group = self.world.group(self.policy.part_axis)
+        axis = self.policy.part_axis
         if self.mix_form(new_P) == "reduce":
             n = self.local_participants
-            i = self.world.axis_index(self.policy.part_axis)
+            i = self.world.axis_index(axis)
             share = weighted_mean_share(weights, slice(i * n, (i + 1) * n),
                                         getattr(torch, self.tcfg.agg_dtype))
 
             def reduced(x):
-                part = collectives.all_reduce(share(x), group)
+                part = reduce_over(share(x), self.world, axis)
                 return part.to(x.dtype)[None].expand(x.shape).contiguous()
 
             return tree_map(reduced, new_P), server_state
 
         def whole(tree):
-            return tree_map(lambda x: collectives.all_gather(x, group),
+            return tree_map(lambda x: gather_over(x, self.world, axis),
                             tree)
 
         # only the server optimizer reads the replicas before the round
@@ -426,8 +691,7 @@ class DistributedTrainer:
         out, server_state = self.strategy.mix(
             whole(prev_P) if reads_prev else prev_P, whole(new_P), weights,
             server_state, hop)
-        out = _rows(out, self.world, self.policy.part_axis,
-                    self.local_participants)
+        out = _rows(out, self.world, axis, self.local_participants)
         return tree_map(lambda x: x.contiguous(), out), server_state
 
     def jit_train_step(self, state_template: Optional[TrainState] = None,
@@ -460,10 +724,23 @@ class Server:
         self.policy = ShardingPolicy(cfg, mesh_cfg)
         self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
         self.shard_seq = shard_seq
-        self.world = _world_of(self.mesh, cfg, self.policy, "serving")
+        self.world = _world_of(self.mesh)
         if self.world is not None and shard_seq:
             raise NotImplementedError("a cache split by sequence across "
-                                      "ranks (ROADMAP A12b-3)")
+                                      "ranks (ROADMAP A12b-3b)")
+        self._dims = None
+
+    def init_params(self, seed: int = 0):
+        """The parameters drawn from ``seed`` on the server's device, as
+        ``model.init(Generator(device).manual_seed(seed), device)`` draws
+        them, placed by :meth:`shard_params`; in a world this rank's
+        slices, drawn leaf by leaf (:func:`draw_local`)."""
+        if self.world is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            return self.shard_params(self.model.init(gen, self.device))
+        return draw_local(self.model, lambda t: self.policy.param_spec(
+            t, with_participants=False, world=True), self.world, seed,
+            self.device)
 
     def abstract_cache(self, batch_size: int, max_len: int):
         """The cache's shapes and dtypes, on the ``meta`` device."""
@@ -503,7 +780,7 @@ class Server:
                 if _k(path[-1]) in ("k", "v", "xk", "xv") and s[2]:
                     raise NotImplementedError(
                         f"a cache spec {s} splits the sequence (kv heads "
-                        "the model axis does not divide; ROADMAP A12b-3)")
+                        "the model axis does not divide; ROADMAP A12b-3b)")
             cache = tree_map(lambda x: x.to(self.device)
                              if isinstance(x, torch.Tensor) else x, cache)
             return local_shard(cache, spec, self.world)
@@ -532,9 +809,10 @@ class Server:
 
     def _serve(self, fn, params, batch, cache):
         """``fn(params, batch, cache)``; in a world, on this rank's batch
-        rows (``data``) and shards (``model``), the logits gathered over
-        ``data``: every rank returns the whole logits and its own
-        cache."""
+        rows (``data``) and shards (``model`` where the policy splits it;
+        ``data`` too under FSDP, each leaf gathered where it is read), the
+        logits gathered over ``data``: every rank returns the whole logits
+        and its own cache."""
         if self.world is None:
             return fn(params, batch, cache)
         tokens = tree_leaves(batch)[0]
@@ -547,8 +825,17 @@ class Server:
             raise NotImplementedError(
                 f"routing {tokens.numel()} tokens in groups split over {n} "
                 "data ranks, where a group could drop other slots than one "
-                "process's (ROADMAP A12b-3)")
-        with L.tensor_parallel(self.world):
+                "process's (ROADMAP A12b-3b)")
+        fsdp = self.policy.splits_data
+        if fsdp and self._dims is None:
+            meta = self.model.init(torch.Generator().manual_seed(0), "meta")
+            self._dims = fsdp_dims(meta, self.policy.param_spec(
+                meta, with_participants=False, world=True),
+                self.policy.fsdp_axis)
+        with L.tensor_parallel(self.world if self.policy.splits_model
+                               else None), \
+                L.fully_sharded(self.world if fsdp else None,
+                                self._dims or {}):
             logits, cache = fn(params, _rows(batch, self.world, "data",
                                              B // n), cache)
         return collectives.all_gather(logits, self.world.group("data")), \

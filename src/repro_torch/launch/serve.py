@@ -130,8 +130,7 @@ def serve(args, teacher=None, quiet: bool = False):
     n_img = cfg.image_tokens * cfg.anyres_tiles if cfg.family == "vlm" else 0
     max_len = args.prompt_len + args.new_tokens + 8 + n_img
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = server.shard_params(server.model.init(gen, dev))
+    params = server.init_params(args.seed)
     cache = server.shard_cache(server.model.init_cache(args.batch, max_len,
                                                        dev))
     rng = np.random.default_rng(args.seed)

@@ -10,8 +10,12 @@ the flat engine's lane chunks, and the ranks meet in the collectives of
     from repro_torch.launch.world import run_world
     results = run_world(body, 4, device="cpu", args=(...,), timeout=120.0)
 
-:func:`run_world` starts ``n`` ranks by the ``spawn`` method (CUDA may be
-initialised in the parent, so never ``fork``), each of which calls
+:func:`run_world` starts ``n`` ranks by the ``forkserver`` method (CUDA
+may be initialised in the parent, so never ``fork`` from it): a server
+process that has imported torch and the port, and nothing more, forks
+each rank, which starts with this process's environment of the moment
+(as a spawned one would) and without importing torch again (four ranks
+importing it at once took 8–9 s on one H100's host), and calls
 ``body(world, *args)`` with its :class:`World`, and returns the ranks'
 return values in rank order (tensors in them are moved to the CPU). The
 ranks rendezvous through a ``file://`` store in a temporary directory, so
@@ -41,12 +45,14 @@ named axes with a process group an axis
 
 from __future__ import annotations
 
+import glob
 import itertools
 import math
 import os
 import pickle
 import queue as queue_mod
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -58,6 +64,10 @@ import torch
 _WORLD: Optional["World"] = None
 
 SOURCES = ("fused_agg", "flash_attention", "aggregate", "quantize")
+# what the forkserver imports once, before it forks any rank
+FORKSERVER_PRELOAD = ["torch", "torch.distributed", "numpy",
+                      "repro_torch.launch.world",
+                      "repro_torch.core.distributed"]
 
 
 class WorldError(RuntimeError):
@@ -106,11 +116,14 @@ class World:
     """One rank's view of its world: ``rank`` of ``size``, its ``device``,
     every rank's ``devices`` and the ``backend``."""
 
-    def __init__(self, rank: int, size: int, devices, backend: str):
+    def __init__(self, rank: int, size: int, devices, backend: str,
+                 shm_prefix: str = ""):
         self.rank, self.size = rank, size
         self.devices = tuple(torch.device(d) for d in devices)
         self.device = self.devices[rank]
         self.backend = backend
+        # where its gloo groups' exchange files go (collectives.set_exchange)
+        self.shm_prefix = shm_prefix
         self._meshes: Dict[tuple, Any] = {}
 
     def mesh(self, shape, axes):
@@ -130,6 +143,8 @@ class World:
         if math.prod(shape) != self.size:
             raise ValueError(f"a mesh of {shape} over a world of "
                              f"{self.size} ranks")
+        from repro_torch import collectives
+
         groups = []
         for a in range(len(shape)):
             mine = None
@@ -143,6 +158,8 @@ class World:
                 g = dist.new_group(ranks)
                 if self.rank in ranks:
                     mine = g
+                    if self.backend == "gloo":      # ranks on one host
+                        collectives.set_exchange(g, self.shm_prefix)
             groups.append(mine)
         mesh = DeviceMesh(self.devices, axes, shape, rank=self.rank,
                           groups=tuple(groups))
@@ -170,12 +187,43 @@ def _to_host(x):
     return x
 
 
+class _CallerStd:
+    """The caller's standard output and error, handed to a rank: a rank
+    forked by the server would otherwise write to the server's, those of
+    the moment the server started. Passed as file descriptors
+    (``multiprocessing.reduction.DupFd``, as the start method passes a
+    queue's pipes) and put in place as the rank unpickles its
+    arguments."""
+
+    def __reduce__(self):
+        from multiprocessing import reduction
+        return (_take_std, (reduction.DupFd(1), reduction.DupFd(2)))
+
+
+def _take_std(out, err):
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(out.detach(), 1)
+    os.dup2(err.detach(), 2)
+
+
+def _shm_prefix(store: str) -> str:
+    """Where a world's exchange files go: shared memory, under the name of
+    the world's own temporary directory."""
+    root = "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir()
+    return os.path.join(root, os.path.basename(os.path.dirname(store)))
+
+
 def _rank_main(rank, size, devices, backend, store, timeout, threads, body,
-               results):
+               results, env, std):
+    del std                             # in place already (_CallerStd)
     global _WORLD
     try:
+        os.environ.clear()              # the parent's, as spawn gives it
+        os.environ.update(env)
         import torch.distributed as dist
 
+        from repro_torch import collectives
         from repro_torch.kernels import build
 
         with open(body, "rb") as f:
@@ -191,10 +239,11 @@ def _rank_main(rank, size, devices, backend, store, timeout, threads, body,
         dist.init_process_group(backend, init_method=f"file://{store}",
                                 rank=rank, world_size=size,
                                 timeout=timedelta(seconds=timeout), **kw)
-        _WORLD = World(rank, size, devices, backend)
+        _WORLD = World(rank, size, devices, backend, _shm_prefix(store))
         out = fn(_WORLD, *args)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        collectives.close_exchanges()
         # pickled here, so that tensors travel as bytes and not as
         # shared memory that dies with the rank
         results.put((rank, True, pickle.dumps(_to_host(out))))
@@ -212,14 +261,15 @@ def run_world(fn: Callable, n: int, *, device=None, args: tuple = (),
     """Run ``fn(world, *args)`` on ``n`` ranks and return their results in
     rank order (see the module's docstring). ``fn`` and ``args`` must
     pickle (``fn`` a module-level function). ``threads``: torch's
-    intra-op threads a rank (None: the host's cores shared out on the
-    CPU, torch's default on the card). ``quiet`` skips the line that names
+    intra-op threads a rank (None: the host's cores shared out; on the
+    card too, where the ranks' host work is the staged collectives' copies
+    and sums). ``quiet`` skips the line that names
     the backend."""
     import multiprocessing as mp
 
     devices = rank_devices(n, device)
     backend = pick_backend(devices)
-    if threads is None and devices[0].type == "cpu":
+    if threads is None:
         threads = max(1, (os.cpu_count() or 1) // n)
     if devices[0].type == "cuda":
         from repro_torch.kernels import build
@@ -234,12 +284,14 @@ def run_world(fn: Callable, n: int, *, device=None, args: tuple = (),
     body = os.path.join(tmp, "body.pkl")
     with open(body, "wb") as f:
         pickle.dump((fn, args), f)
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(FORKSERVER_PRELOAD)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, n, devices, backend,
                                os.path.join(tmp, "store"), timeout, threads,
-                               body, results))
+                               body, results, dict(os.environ),
+                               _CallerStd()))
              for r in range(n)]
     out: Dict[int, Any] = {}
     try:
@@ -279,23 +331,32 @@ def run_world(fn: Callable, n: int, *, device=None, args: tuple = (),
             p.join()
         results.close()
         shutil.rmtree(tmp, ignore_errors=True)
+        # a rank that failed leaves its exchange files behind
+        for path in glob.glob(_shm_prefix(os.path.join(tmp, "store"))
+                              + "_*"):
+            os.unlink(path)
     return [out[r] for r in range(n)]
 
 
 def rank_report(world: World, seconds: float) -> dict:
     """What a rank reports of a run: its rank and device, the backend, the
     kernel launches it counted, the bytes its collectives staged, its
-    seconds and its peak device bytes (None on the CPU)."""
+    seconds, its peak device bytes (None on the CPU) and its host peak
+    (the process's largest resident set, ``getrusage``)."""
+    import resource
+
     from repro_torch import collectives
     from repro_torch.kernels import KERNELS
 
     peak = (torch.cuda.max_memory_allocated(world.device)
             if world.device.type == "cuda" else None)
+    host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     return {"rank": world.rank, "device": str(world.device),
             "backend": world.backend,
             "launches": {k: v["wrapper"].launches for k, v in KERNELS.items()},
             "staged_bytes": collectives.COUNTS["staged_bytes"],
-            "seconds": seconds, "peak_bytes": peak}
+            "seconds": seconds, "peak_bytes": peak,
+            "host_peak_bytes": host}
 
 
 __all__ = ["World", "WorldError", "WorldTimeout", "current_world",

@@ -38,7 +38,6 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_map
 
 DT_RANK = 64
 
@@ -95,7 +94,7 @@ def init(generator, cfg, device=None):
     dt = _dtype(cfg)
     embed = L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device)
     blocks = [block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
-    layers = tree_map(lambda *ls: torch.stack(ls), *blocks)
+    layers = L.stack_blocks(blocks)
     del blocks
     return {
         "embed": embed,
@@ -219,8 +218,8 @@ def _stack(params, cfg, x, states, cache=None):
     mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
     positions = torch.arange(S, device=x.device)
     for i in range(cfg.n_layers):
-        x, mstate, (k, v) = _hybrid_block(
-            T._layer(params, i), cfg, x, positions, mask,
+        x, mstate, (k, v) = T.apply_layer(
+            _hybrid_block, params, i, cfg, x, positions, mask,
             {"conv": states["conv"][i], "ssm": states["ssm"][i]})
         if cache is not None:
             cache["k"][i, :, :S] = k
@@ -232,11 +231,11 @@ def _stack(params, cfg, x, states, cache=None):
 
 def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     h = _stack(params, cfg, x, _zero_mstates(
         cfg, tokens.shape[0], x.device,
         di=params["layers"]["mamba"]["conv_b"].shape[-1]))
-    loss = L.lm_xent(h, params["lm_head"], labels, cfg.vocab,
+    loss = L.lm_xent(h, L.param(params, "lm_head"), labels, cfg.vocab,
                      batch.get("mask"))
     return loss, {"loss": loss}
 
@@ -260,15 +259,15 @@ def init_cache(cfg, batch_size, max_len, device=None):
 
 def prefill(params, cfg, batch, cache):
     tokens = batch["tokens"]
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     h = _stack(params, cfg, x, cache, cache)     # layer i reads, then writes
-    return (L.lm_logits(h[:, -1:], params["lm_head"], cfg.vocab),
+    return (L.lm_logits(h[:, -1:], L.param(params, "lm_head"), cfg.vocab),
             dict(cache, pos=tokens.shape[1]))
 
 
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
-    x = L.embed_lookup(params["embed"], token, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)
     kpos = torch.arange(cache["k"].shape[2], device=x.device)
     valid = kpos <= pos
     if cfg.window:
@@ -281,5 +280,5 @@ def decode_step(params, cfg, token, cache):
         cache["conv"][i] = mstate["conv"]
         cache["ssm"][i] = mstate["ssm"]
     h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return (L.lm_logits(h, params["lm_head"], cfg.vocab),
+    return (L.lm_logits(h, L.param(params, "lm_head"), cfg.vocab),
             dict(cache, pos=pos + 1))

@@ -26,18 +26,37 @@ leading axis (:func:`expert_split`, ``models/moe.py``). A layer reads from
 its weights' shapes whether they are split: a dimension that the rules
 replicate (a vocab or head count the axis does not divide,
 ``replicate_attention``) needs no collective. The residual stream and the norms stay replicated.
+
+FSDP (a world's ``data`` axis at ``pod`` granularity, :func:`fully_sharded`):
+a rank holds its ``data`` slice of every leaf the rules split there (the
+``F`` entries of ``sharding.ShardingPolicy``), and the layers gather a
+leaf over ``data`` just before they read it (:func:`gathered_layer` for a
+layer of the stack, :func:`param` for a top-level leaf): what they get is
+the rank's tensor-parallel slice, read by its shape as above. The gather's
+backward reduce-scatters the gradient over ``data``
+(``collectives.gather_shards``). Under ``cfg.remat`` a block runs under a
+non-reentrant checkpoint with its gathers inside (:func:`remat`): the
+gathered weights are freed when its forward ends and gathered again for
+its backward.
+
+Drawing (:func:`drawing`): every weight :func:`dense_init` and
+:func:`embed_init` draw, and every stack of blocks (:func:`stack_blocks`),
+passes through a hook, so that a rank may keep only its slices of each
+leaf as it is drawn (``core.distributed.draw_local``).
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Any, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import collectives
 from repro_torch.kernels.flash_attention import flash_attention_bshd
+from repro_torch.sharding import _k
+from repro_torch.utils.pytree import tree_flatten_with_path, tree_map
 
 
 class TensorParallel(NamedTuple):
@@ -68,6 +87,87 @@ def tensor_parallel(mesh, axis: str = "model"):
         yield _TP
     finally:
         _TP = prev
+
+
+class FullyShardedData(NamedTuple):
+    """The group of the FSDP axis, its size, the dimension each leaf is
+    split along (by its '/'-joined path; a layer's leaves by their path
+    under the stack, the layer axis taken off; absent: whole), whether
+    blocks recompute their forward for the backward (``cfg.remat``), and
+    whether the rows of one participant's batch are split over the group
+    (training: its means are taken over every rank's rows)."""
+    group: Any
+    size: int
+    dims: Dict[str, int]
+    remat: bool
+    mean_rows: bool
+
+
+_FSDP: Optional[FullyShardedData] = None
+
+
+@contextmanager
+def fully_sharded(mesh, dims: Dict[str, int], *, remat: bool = False,
+                  mean_rows: bool = False):
+    """Run the layers with the leaves of ``dims`` split over the ``data``
+    axis of a world's ``mesh`` (the rules' FSDP axis) and gathered where
+    they are read (a no-op for a mesh outside a world, for None, and for
+    an axis of size 1)."""
+    global _FSDP
+    prev = _FSDP
+    if (mesh is not None and getattr(mesh, "in_world", False)
+            and mesh.axis_size("data") > 1):
+        _FSDP = FullyShardedData(mesh.group("data"), mesh.axis_size("data"),
+                                 dict(dims), remat, mean_rows)
+    else:
+        _FSDP = None
+    try:
+        yield _FSDP
+    finally:
+        _FSDP = prev
+
+
+def _gathered(x, path: str):
+    dim = None if _FSDP is None else _FSDP.dims.get(path)
+    return x if dim is None else collectives.gather_shards(x, _FSDP.group,
+                                                          dim)
+
+
+def param(params, key: str):
+    """The top-level leaf ``params[key]`` as the layers read it: under
+    :func:`fully_sharded`, gathered over the group."""
+    return _gathered(params[key], key)
+
+
+def gathered_layer(layer, prefix: str):
+    """A layer's leaves (a tree, its paths under ``prefix``: ``layers``,
+    ``encoder``, ``decoder``) as the layers read them: under
+    :func:`fully_sharded`, each leaf split over the group gathered."""
+    if _FSDP is None:
+        return layer
+    flat, treedef = tree_flatten_with_path(layer)
+    return treedef.unflatten([
+        _gathered(x, "/".join([prefix] + [_k(p) for p in path]))
+        for path, x in flat])
+
+
+def remat() -> bool:
+    """Whether a block runs under a checkpoint: :func:`fully_sharded` with
+    ``remat`` on, where autograd records."""
+    return _FSDP is not None and _FSDP.remat and torch.is_grad_enabled()
+
+
+def rows_mean(x):
+    """A mean over one participant's rows (``x`` this rank's): under
+    :func:`fully_sharded` with the rows split over the group, the mean of
+    the ranks' means (equal row counts), whose gradient reaches every
+    rank's ``x`` as one process's would (the group's sum both ways: each
+    rank's loss holds the whole mean, and the step takes the mean of the
+    ranks' gradients); else ``x``."""
+    if _FSDP is None or not _FSDP.mean_rows:
+        return x
+    y = collectives.copy_to_group(x, _FSDP.group)
+    return collectives.reduce_from_group(y, _FSDP.group) / _FSDP.size
 
 
 def _copy_in(x, split: bool):
@@ -154,6 +254,45 @@ def lm_xent(h, head_w, labels, vocab: int, mask=None):
     return softmax_xent(h @ head_w, labels, mask)
 
 
+_DRAW = None
+
+
+@contextmanager
+def drawing(hook):
+    """Pass every weight :func:`dense_init` / :func:`embed_init` draw
+    through ``hook.drawn(w)`` (the fp32 draw; what it returns is cast and
+    kept in the tree), and tell ``hook.stacked(parts, out)`` of every
+    stack of blocks (:func:`stack_blocks`)."""
+    global _DRAW
+    prev, _DRAW = _DRAW, hook
+    try:
+        yield hook
+    finally:
+        _DRAW = prev
+
+
+def _drawn(w, dtype, device):
+    """A drawn weight ``w`` in ``dtype`` on ``device``: under
+    :func:`drawing`, what the hook keeps of it, taken before the cast
+    (an elementwise cast: the same bits as a slice of the cast whole,
+    without a second whole copy)."""
+    if _DRAW is not None:
+        w = _DRAW.drawn(w)
+    return w.to(dtype=dtype, device=device)
+
+
+def stack_blocks(blocks):
+    """The blocks' (trees of one layer's leaves) leaves stacked along a new
+    leading layer axis."""
+    def stack(*parts):
+        out = torch.stack(parts)
+        if _DRAW is not None:
+            _DRAW.stacked(parts, out)
+        return out
+
+    return tree_map(stack, *blocks)
+
+
 def _is_meta(device) -> bool:
     """An init on the ``meta`` device gives shapes and dtypes only: it
     draws nothing (a layout needs no weights)."""
@@ -167,20 +306,22 @@ def dense_init(generator, shape, dtype, scale: Optional[float] = None,
     so the same seed gives the same weights on every device; on ``meta``
     nothing is drawn."""
     if _is_meta(device):
-        return torch.empty(shape, dtype=dtype, device="meta")
+        return _drawn(torch.empty(shape, dtype=dtype, device="meta"),
+                      dtype, "meta")
     fan_in = shape[0]
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device) * scale
-    return w.to(dtype=dtype, device=device)
+                    device=generator.device).mul_(scale)
+    return _drawn(w, dtype, device)
 
 
 def embed_init(generator, vocab, d, dtype, device=None):
     if _is_meta(device):
-        return torch.empty((vocab, d), dtype=dtype, device="meta")
+        return _drawn(torch.empty((vocab, d), dtype=dtype, device="meta"),
+                      dtype, "meta")
     w = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
-                    device=generator.device) * 0.02
-    return w.to(dtype=dtype, device=device)
+                    device=generator.device).mul_(0.02)
+    return _drawn(w, dtype, device)
 
 
 # ---------------------------------------------------------------------------

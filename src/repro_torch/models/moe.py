@@ -24,6 +24,13 @@ fills and runs only their buffers, and the group sums the combined outputs
 gradients are whole and alike on every rank. Attention, arctic's dense
 residual (column- and row-parallel ``swiglu``), the embedding and the head
 split as in the dense family.
+
+Under FSDP (``layers.fully_sharded``) the experts' ``(M, F, None)`` slices
+and the router's ``(F, None)`` gather over ``data`` like any other leaf.
+Routing groups are a participant's, as in the reference: a training
+batch's rows split over ``data`` must fill whole groups on each rank
+(:func:`rank_groups_equal`), and the load-balance loss takes its means
+over every rank's rows (``layers.rows_mean``).
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ from repro_torch import collectives
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_map
 
 AUX_LOSS_WEIGHT = 0.01
 
@@ -86,7 +92,7 @@ def init(generator, cfg, device=None):
     dt = _dtype(cfg)
     embed = L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device)
     blocks = [block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
-    layers = tree_map(lambda *ls: torch.stack(ls), *blocks)
+    layers = L.stack_blocks(blocks)
     del blocks
     return {
         "embed": embed,
@@ -173,8 +179,10 @@ def moe_ffn(p, cfg, x):
         out = out + L.swiglu(p["dense"], x, cfg.moe_dense_ff)
 
     # Switch-style load-balance loss: E·Σ_e f_e·p_e == 1 at uniform routing
-    f = dispatch.sum(dim=3).mean(dim=(0, 1)) / k                # token share
-    imp = r["probs"].mean(dim=(0, 1))                           # router mass
+    # token share and router mass: under FSDP the means over every rank's
+    # rows of the participant (layers.rows_mean)
+    f = L.rows_mean(dispatch.sum(dim=3).mean(dim=(0, 1)) / k)
+    imp = L.rows_mean(r["probs"].mean(dim=(0, 1)))
     aux = E * torch.sum(f * imp)
     return out, aux
 
@@ -185,17 +193,28 @@ def capacity(cfg, G: int) -> int:
                                 * cfg.moe_capacity_factor)))
 
 
+def rank_groups_equal(cfg, tokens: int, n: int) -> bool:
+    """Whether the ``tokens // n`` contiguous tokens of ``tokens`` that each
+    of ``n`` ranks routes fill whole groups of the one-process grouping
+    (no padding on either side): then every group, and every mean over the
+    groups (the load-balance loss's, ``layers.rows_mean``), is one
+    process's."""
+    G_all = min(cfg.moe_group_size, tokens)
+    local = tokens // n
+    return local % G_all == 0 and min(cfg.moe_group_size, local) == G_all
+
+
 def rank_groups_match(cfg, tokens: int, n: int) -> bool:
     """Whether routing ``tokens // n`` contiguous tokens of ``tokens`` on
     each of ``n`` ranks (a world's serving splits the batch over ``data``)
     gives one process's dispatch: the rank's tokens fill whole groups of
-    the one-process grouping, or no group on either side can drop a slot
-    (each expert's capacity holds every token of a group)."""
-    G_all = min(cfg.moe_group_size, tokens)
-    local = tokens // n
-    G = min(cfg.moe_group_size, local)
-    if local % G_all == 0 and G == G_all:
+    the one-process grouping (:func:`rank_groups_equal`), or no group on
+    either side can drop a slot (each expert's capacity holds every token
+    of a group)."""
+    if rank_groups_equal(cfg, tokens, n):
         return True
+    G_all = min(cfg.moe_group_size, tokens)
+    G = min(cfg.moe_group_size, tokens // n)
     return capacity(cfg, G_all) >= G_all and capacity(cfg, G) >= G
 
 
@@ -229,7 +248,8 @@ def _stack(params, cfg, x, positions, mask, cache=None):
     S = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a, (k, v) = _block(T._layer(params, i), cfg, x, positions, mask)
+        x, a, (k, v) = T.apply_layer(_block, params, i, cfg, x, positions,
+                                     mask)
         aux = aux + a
         if cache is not None:
             cache["k"][i, :, :S] = k
@@ -240,18 +260,19 @@ def _stack(params, cfg, x, positions, mask, cache=None):
 
 def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     S = tokens.shape[1]
     mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
     h, aux = _stack(params, cfg, x, torch.arange(S, device=x.device), mask)
-    if L.vocab_split(params["lm_head"], cfg.vocab):
-        xent = L.vocab_parallel_xent(h, params["lm_head"], labels,
+    head = L.param(params, "lm_head")
+    if L.vocab_split(head, cfg.vocab):
+        xent = L.vocab_parallel_xent(h, head, labels,
                                      cfg.xent_chunk, mask=batch.get("mask"))
     elif cfg.xent_chunk:
-        xent = L.chunked_softmax_xent(h, params["lm_head"], labels,
+        xent = L.chunked_softmax_xent(h, head, labels,
                                       cfg.xent_chunk, mask=batch.get("mask"))
     else:
-        logits = h @ params["lm_head"]
+        logits = h @ head
         xent = L.softmax_xent(logits, labels, batch.get("mask"))
     loss = xent + AUX_LOSS_WEIGHT * aux
     return loss, {"loss": xent, "aux_loss": aux}
@@ -264,17 +285,17 @@ def init_cache(cfg, batch_size, max_len, device=None):
 def prefill(params, cfg, batch, cache):
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     mask = L.causal_mask(S, S, window=cfg.window, device=x.device)
     h, _ = _stack(params, cfg, x, torch.arange(S, device=x.device), mask,
                   cache)
-    return L.lm_logits(h[:, -1:], params["lm_head"], cfg.vocab), \
+    return L.lm_logits(h[:, -1:], L.param(params, "lm_head"), cfg.vocab), \
         dict(cache, pos=S)
 
 
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
-    x = L.embed_lookup(params["embed"], token, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)
     kpos = torch.arange(cache["k"].shape[2], device=x.device)
     valid = kpos <= pos
     if cfg.window:
@@ -288,5 +309,5 @@ def decode_step(params, cfg, token, cache):
         h, _ = moe_ffn(p["moe"], cfg, L.rms_norm(p["ln2"], x, cfg.norm_eps))
         x = x + h
     h = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return L.lm_logits(h, params["lm_head"], cfg.vocab), \
+    return L.lm_logits(h, L.param(params, "lm_head"), cfg.vocab), \
         dict(cache, pos=pos + 1)

@@ -39,7 +39,6 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_map
 
 DECAY_LORA = 64
 
@@ -57,10 +56,11 @@ def _uniform_half(generator, shape, dtype, device=None):
     """Uniform [0, 0.5) weights drawn on the generator's device, then moved
     (nothing is drawn on ``meta``)."""
     if L._is_meta(device):
-        return torch.empty(shape, dtype=dtype, device="meta")
+        return L._drawn(torch.empty(shape, dtype=dtype, device="meta"),
+                        dtype, "meta")
     w = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=generator.device) * 0.5
-    return w.to(dtype=dtype, device=device)
+                   device=generator.device).mul_(0.5)
+    return L._drawn(w, dtype, device)
 
 
 def block_init(generator, cfg, device=None):
@@ -105,7 +105,7 @@ def init(generator, cfg, device=None):
     dt = _dtype(cfg)
     embed = L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device)
     blocks = [block_init(generator, cfg, device) for _ in range(cfg.n_layers)]
-    layers = tree_map(lambda *ls: torch.stack(ls), *blocks)
+    layers = L.stack_blocks(blocks)
     del blocks
     return {
         "embed": embed,
@@ -226,6 +226,18 @@ def _zero_states(cfg, B, device=None, H=None):
     }
 
 
+def _block(p, cfg, x, S, last_tm, last_cm):
+    """One block from its states -> (x, the time-mix's state, the
+    channel-mix's token shift)."""
+    h, tm_state = time_mix(p["tm"], cfg,
+                           L.layer_norm(p["ln1"], x, cfg.norm_eps),
+                           {"S": S, "last": last_tm})
+    x = x + h
+    h, lcm = channel_mix(p["cm"], cfg, L.layer_norm(p["ln2"], x, cfg.norm_eps),
+                         last_cm)
+    return x + h, tm_state, lcm
+
+
 def _stack(params, cfg, x, states, write=True):
     """The layer stack from ``states``, which it advances in place (layer i
     reads its state before writing it) -> (final-normed h, states with
@@ -233,16 +245,10 @@ def _stack(params, cfg, x, states, write=True):
     ``states`` as they are: the loss writes nothing in place, so that it
     runs under ``torch.func.vmap`` and autograd."""
     for i in range(cfg.n_layers):
-        p = T._layer(params, i)
-        h, tm_state = time_mix(p["tm"], cfg,
-                               L.layer_norm(p["ln1"], x, cfg.norm_eps),
-                               {"S": states["S"][i],
-                                "last": states["last_tm"][i]})
-        x = x + h
-        h, lcm = channel_mix(p["cm"], cfg,
-                             L.layer_norm(p["ln2"], x, cfg.norm_eps),
-                             states["last_cm"][i])
-        x = x + h
+        x, tm_state, lcm = T.apply_layer(_block, params, i, cfg, x,
+                                         states["S"][i],
+                                         states["last_tm"][i],
+                                         states["last_cm"][i])
         if not write:
             continue
         states["S"][i] = tm_state["S"]
@@ -254,11 +260,11 @@ def _stack(params, cfg, x, states, write=True):
 
 def loss_fn(params, cfg, batch):
     tokens, labels = batch["tokens"], batch["labels"]
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     states = _zero_states(cfg, tokens.shape[0], x.device,
                           H=params["layers"]["tm"]["u"].shape[1])
     h, _ = _stack(params, cfg, x, states, write=False)
-    loss = L.lm_xent(h, params["lm_head"], labels, cfg.vocab,
+    loss = L.lm_xent(h, L.param(params, "lm_head"), labels, cfg.vocab,
                      batch.get("mask"))
     return loss, {"loss": loss}
 
@@ -269,12 +275,13 @@ def init_cache(cfg, batch_size, max_len, device=None):
 
 
 def prefill(params, cfg, batch, cache):
-    x = L.embed_lookup(params["embed"], batch["tokens"], cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), batch["tokens"], cfg.vocab)
     h, states = _stack(params, cfg, x, cache)
-    return L.lm_logits(h[:, -1:], params["lm_head"], cfg.vocab), states
+    return L.lm_logits(h[:, -1:], L.param(params, "lm_head"), cfg.vocab), \
+        states
 
 
 def decode_step(params, cfg, token, cache):
-    x = L.embed_lookup(params["embed"], token, cfg.vocab)      # (B,1,d)
+    x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)  # (B,1,d)
     h, states = _stack(params, cfg, x, cache)
-    return L.lm_logits(h, params["lm_head"], cfg.vocab), states
+    return L.lm_logits(h, L.param(params, "lm_head"), cfg.vocab), states

@@ -14,8 +14,12 @@ Exports the uniform model interface (init / loss_fn / init_cache / prefill /
 decode_step). Under ``layers.tensor_parallel`` every function here takes a
 rank's shards of the parameters and the cache (its heads, its slices of
 d_ff and of the vocab) and returns the whole logits or loss on every rank.
-``cfg.remat`` (checkpoint each block in the reference) has no
-effect on a forward pass and is not read. The cache is
+Under ``layers.fully_sharded`` (FSDP over ``data``) every leaf is read
+through :func:`_layer` or ``layers.param``, which gather it over ``data``;
+``cfg.remat`` (checkpoint each block, as the reference's
+``jax.checkpoint``) then runs each block under a non-reentrant checkpoint
+with its gathers inside (:func:`apply_layer`), and changes no value. The
+cache is
 ``{"k", "v": (L,B,T,KV,hd), "pos": int}``; prefill and decode write the new
 keys and values into its tensors in place (the reference's serving loop
 donates its cache) and ``pos`` is a host integer, so no step synchronises
@@ -25,6 +29,7 @@ with the device to index the cache.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.utils.device import resolve_device
@@ -35,8 +40,23 @@ def _dtype(cfg):
     return getattr(torch, cfg.param_dtype)
 
 
-def _layer(params, i):
-    return tree_map(lambda t: t[i], params["layers"])
+def _layer(params, i, key: str = "layers"):
+    """Layer ``i``'s leaves of the stack ``params[key]`` (views; every
+    family takes its layers here): under ``layers.fully_sharded``, each
+    leaf split over ``data`` gathered."""
+    return L.gathered_layer(tree_map(lambda t: t[i], params[key]), key)
+
+
+def apply_layer(fn, params, i, *args, key: str = "layers"):
+    """``fn(_layer(params, i, key), *args)``; where ``layers.remat`` says
+    so, under a non-reentrant checkpoint with the gather inside it: the
+    gathered weights and the block's activations are freed when its
+    forward ends, and its backward runs the forward (and its gathers)
+    again."""
+    if L.remat():
+        return checkpoint(lambda *a: fn(_layer(params, i, key), *a), *args,
+                          use_reentrant=False)
+    return fn(_layer(params, i, key), *args)
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +88,7 @@ def init(generator, cfg, device=None):
     params = {
         "embed": embed,
         "final_norm": L.rms_norm_init(cfg.d_model, dt, device),
-        "layers": tree_map(lambda *ls: torch.stack(ls), *blocks),
+        "layers": L.stack_blocks(blocks),
     }
     del blocks
     if not cfg.local_global_alt:                 # gemma2 ties the LM head
@@ -119,8 +139,8 @@ def stack_forward(params, cfg, x, positions, cache=None):
     S = x.shape[1]
     full, local = _masks(cfg, S, S, device=x.device)
     for i in range(cfg.n_layers):
-        x, (k, v) = _block_apply(_layer(params, i), cfg, x, positions,
-                                 _layer_mask(cfg, i, full, local))
+        x, (k, v) = apply_layer(_block_apply, params, i, cfg, x, positions,
+                                _layer_mask(cfg, i, full, local))
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -132,7 +152,12 @@ def logits_fn(params, cfg, h):
     """The LM head's fp32 logits (soft-capped); under tensor parallelism
     with the head split by vocab, the slices gathered over the group."""
     tied = "lm_head" not in params
-    head = params["embed"] if tied else params["lm_head"]
+    return _head_logits(cfg, h, L.param(params, "embed" if tied else
+                                        "lm_head"), tied)
+
+
+def _head_logits(cfg, h, head, tied: bool):
+    """:func:`logits_fn` of the head as the layers read it."""
     if L.vocab_split(head, cfg.vocab, transposed=tied):
         logits = L.vocab_logits(h, head, transposed=tied)
     elif tied:
@@ -143,7 +168,7 @@ def logits_fn(params, cfg, h):
 
 
 def embed_tokens(params, cfg, tokens):
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     if cfg.local_global_alt:                     # gemma scales embeddings
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
@@ -158,7 +183,7 @@ def head_loss(params, cfg, h, labels, mask=None):
     :func:`logits_fn`. The dense loss, LLaVA's (its text positions) and
     Whisper's (its tied head) share it."""
     tied = "lm_head" not in params
-    head = params["embed"] if tied else params["lm_head"]
+    head = L.param(params, "embed" if tied else "lm_head")
     if L.vocab_split(head, cfg.vocab, transposed=tied):
         return L.vocab_parallel_xent(h, head, labels, cfg.xent_chunk,
                                      softcap_v=cfg.final_softcap, mask=mask,
@@ -167,7 +192,7 @@ def head_loss(params, cfg, h, labels, mask=None):
         return L.chunked_softmax_xent(h, head, labels, cfg.xent_chunk,
                                       softcap_v=cfg.final_softcap, mask=mask,
                                       head_transposed=tied)
-    return L.softmax_xent(logits_fn(params, cfg, h), labels, mask)
+    return L.softmax_xent(_head_logits(cfg, h, head, tied), labels, mask)
 
 
 def loss_fn(params, cfg, batch):

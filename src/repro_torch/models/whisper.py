@@ -13,7 +13,10 @@ Under ``layers.tensor_parallel`` every function here takes a rank's shards
 (its heads of both attentions and of the cross cache ``xk`` / ``xv``, its
 slice of d_ff, its vocab slice of the tied ``embed``) and returns the
 whole logits or loss on every rank. ``enc_pos``, the norms and the
-residual streams stay replicated. The encoder's output feeds every decoder
+residual streams stay replicated over ``model``. Its layers come from the
+dense family's ``transformer._layer`` (``encoder`` and ``decoder``), and
+``enc_pos`` and ``embed`` through ``layers.param``, so that FSDP gathers
+them as it does every family's. The encoder's output feeds every decoder
 layer's cross-attention keys and values, so its gradient is partial on
 each rank: one *f* on it ahead of the decoder (:func:`_enc_in`) sums the
 layers' partials locally and then once over the group.
@@ -26,19 +29,12 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import tree_map
 
 
 def _dtype(cfg):
     return getattr(torch, cfg.param_dtype)
 
 
-def _stack(blocks):
-    return tree_map(lambda *ls: torch.stack(ls), *blocks)
-
-
-def _layer(stack, i):
-    return tree_map(lambda t: t[i], stack)
 
 
 # ---------------------------------------------------------------------------
@@ -78,11 +74,11 @@ def init(generator, cfg, device=None):
         "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, dt, device),
         "enc_pos": L.embed_init(generator, cfg.n_frames, cfg.d_model, dt,
                                 device),
-        "encoder": _stack([enc_block_init(generator, cfg, device)
-                           for _ in range(cfg.encoder_layers)]),
+        "encoder": L.stack_blocks([enc_block_init(generator, cfg, device)
+                                   for _ in range(cfg.encoder_layers)]),
         "enc_norm": L.layer_norm_init(cfg.d_model, dt, device),
-        "decoder": _stack([dec_block_init(generator, cfg, device)
-                           for _ in range(cfg.n_layers)]),
+        "decoder": L.stack_blocks([dec_block_init(generator, cfg, device)
+                                   for _ in range(cfg.n_layers)]),
         "final_norm": L.layer_norm_init(cfg.d_model, dt, device),
     }
     return dict(sorted(p.items()))
@@ -95,18 +91,22 @@ def init(generator, cfg, device=None):
 
 def encode(params, cfg, frames):
     """frames: (B, n_frames, d) stubbed embeddings -> encoder states."""
-    x = frames.to(_dtype(cfg)) + params["enc_pos"][None]
+    x = frames.to(_dtype(cfg)) + L.param(params, "enc_pos")[None]
     for i in range(cfg.encoder_layers):
-        p = _layer(params["encoder"], i)
-        xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)
-        # bidirectional self-attention, no RoPE (the position table): the
-        # reference passes an all-true mask, which masks nothing
-        h, _ = L.attention(p["attn"], xn, cfg, kv_override=xn)
-        x = x + h
-        h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps),
-                       cfg.d_ff)
-        x = x + h
+        x = T.apply_layer(_enc_block, params, i, cfg, x, key="encoder")
     return L.layer_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _enc_block(p, cfg, x):
+    """One encoder block."""
+    xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)
+    # bidirectional self-attention, no RoPE (the position table): the
+    # reference passes an all-true mask, which masks nothing
+    h, _ = L.attention(p["attn"], xn, cfg, kv_override=xn)
+    x = x + h
+    h = L.gelu_mlp(p["mlp"], L.layer_norm(p["ln2"], x, cfg.norm_eps),
+                   cfg.d_ff)
+    return x + h
 
 
 # ---------------------------------------------------------------------------
@@ -144,12 +144,13 @@ def _decode_stack(params, cfg, tokens, enc, cache=None):
     into ``xk``/``xv``."""
     S = tokens.shape[1]
     enc = _enc_in(enc, params, cfg)
-    x = L.embed_lookup(params["embed"], tokens, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), tokens, cfg.vocab)
     mask = L.causal_mask(S, S, device=x.device)
     positions = torch.arange(S, device=x.device)
     for i in range(cfg.n_layers):
-        x, (k, v), (xk, xv) = _dec_block(_layer(params["decoder"], i), cfg, x,
-                                         positions, mask, enc)
+        x, (k, v), (xk, xv) = T.apply_layer(_dec_block, params, i, cfg, x,
+                                            positions, mask, enc,
+                                            key="decoder")
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
@@ -198,10 +199,10 @@ def prefill(params, cfg, batch, cache):
 
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
-    x = L.embed_lookup(params["embed"], token, cfg.vocab)
+    x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)
     valid = torch.arange(cache["k"].shape[2], device=x.device) <= pos
     for i in range(cfg.n_layers):
-        p = _layer(params["decoder"], i)
+        p = T._layer(params, i, "decoder")
         xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)
         out, _, _ = L.attention_decode_masked(
             p["attn"], xn, cache["k"][i], cache["v"][i], pos, cfg, valid)

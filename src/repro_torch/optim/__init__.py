@@ -132,10 +132,18 @@ def yogi(lr: float, b1: float = 0.9, b2: float = 0.99,
 # ---------------------------------------------------------------------------
 
 
+def clip_scale(norm, max_norm: float):
+    """The factor that brings a gradient of global norm ``norm`` within
+    ``max_norm`` (1 where it is within already)."""
+    return torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
+
+
 def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
+    """``opt`` on the gradient scaled by :func:`clip_scale` of its global
+    norm. Across ranks, where one gradient lies in shards, the norm is
+    taken over every shard (``core.distributed.DistributedTrainer``)."""
     def update(grads, state, params=None):
-        norm = tree_global_norm(grads)
-        scale = torch.clamp_max(max_norm / (norm + 1e-12), 1.0)
+        scale = clip_scale(tree_global_norm(grads), max_norm)
         grads = tree_map(lambda g: g * scale, grads)
         return opt.update(grads, state, params)
 

@@ -227,8 +227,11 @@ def local_shard(tree, specs, mesh: DeviceMesh):
                                      f"of shape {tuple(leaf.shape)}")
                 block = leaf.shape[d] // blocks
                 size, i = block // n, mesh.axis_index(axis)
-                leaf = torch.cat([leaf.narrow(d, b * block + i * size, size)
-                                  for b in range(blocks)], dim=d)
+                pieces = [leaf.narrow(d, b * block + i * size, size)
+                          for b in range(blocks)]
+                # a view where the rank's piece is one block: one copy at
+                # the end, not one a split dimension
+                leaf = pieces[0] if blocks == 1 else torch.cat(pieces, dim=d)
             leaf = leaf.contiguous()
         out.append(leaf)
     return treedef.unflatten(out)
@@ -257,6 +260,30 @@ def gather_tree(tree, specs, mesh: DeviceMesh):
                                           for r in range(n)], dim=d)
         out.append(leaf)
     return treedef.unflatten(out)
+
+
+def gather_over(x, mesh: DeviceMesh, axis, dim: int = 0):
+    """``x`` of every rank along ``axis`` (a name, a tuple of names or
+    None) concatenated along ``dim``: gathered axis by axis, the innermost
+    first, so that the pieces lie in row-major order, as
+    :meth:`DeviceMesh.axis_index` reads a tuple; None gathers nothing."""
+    from repro_torch import collectives
+
+    for a in reversed(axis_names(axis)):
+        if mesh.axis_size(a) > 1:
+            x = collectives.all_gather(x, mesh.group(a), dim=dim)
+    return x
+
+
+def reduce_over(x, mesh: DeviceMesh, axis, op: str = "sum"):
+    """``x`` reduced in place over every rank along ``axis`` (a name, a
+    tuple of names or None), axis by axis; None reduces nothing."""
+    from repro_torch import collectives
+
+    for a in reversed(axis_names(axis)):
+        if mesh.axis_size(a) > 1:
+            collectives.all_reduce(x, mesh.group(a), op)
+    return x
 
 
 @dataclass(frozen=True)
@@ -390,6 +417,22 @@ class ShardingPolicy:
             self.batch_axis = None
 
     _replicated = False
+
+    @property
+    def splits_model(self) -> bool:
+        """Whether a participant's leaves are split over ``model`` (tensor
+        and expert parallelism): not at ``chip`` granularity, where the
+        ``model`` axis carries participants, nor on a ``model`` axis of
+        one."""
+        return not self._replicated and self._axis_size["model"] > 1
+
+    @property
+    def splits_data(self) -> bool:
+        """Whether a participant's leaves and batch rows are split over
+        ``data`` (FSDP: ``pod`` granularity on a ``data`` axis past
+        one)."""
+        return self.fsdp_axis is not None and \
+            self._axes_size(self.fsdp_axis) > 1
 
     # ------------------------------------------------------------------ rules
 
@@ -566,7 +609,8 @@ class ShardingPolicy:
         ``shard_seq`` (long_500k, B=1): shard T over ``data`` —
         flash-decoding-style partial softmax; otherwise shard B.
         ``world``: a world rank's layout (the rules ``token_shift_whole``
-        and ``attention_whole`` of the module docstring).
+        and ``attention_whole`` of the module docstring; at ``chip``
+        granularity, whose replicas are whole, nothing over ``model``).
         """
         def leaf_spec(path_elems, leaf):
             name = _k(path_elems[-1]) if path_elems else ""
@@ -595,9 +639,10 @@ class ShardingPolicy:
             else:
                 spec = tuple([None] * nd)
             spec = self._fix_divisibility(spec, shape)
-            if world and (name in ("last_tm", "last_cm") or (
-                    name in ("k", "v", "xk", "xv")
-                    and self._attention_whole())):
+            if world and (not self.splits_model
+                          or name in ("last_tm", "last_cm") or (
+                              name in ("k", "v", "xk", "xv")
+                              and self._attention_whole())):
                 spec = tuple(None if a == "model" else a for a in spec)
             return spec
 
@@ -672,5 +717,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, policy: ShardingPolicy):
 
 
 __all__ = ["Blocks", "DeviceMesh", "FlatPlacement", "FlatShardings",
-           "ShardingPolicy", "axis_names", "flat_shardings", "gather_tree",
-           "input_specs", "local_shard", "mesh_device"]
+           "ShardingPolicy", "axis_names", "flat_shardings", "gather_over",
+           "gather_tree", "input_specs", "local_shard", "mesh_device",
+           "reduce_over"]

@@ -238,35 +238,59 @@ def test_launchers_start_a_world(capfd):
                                   "moe_serve_tp", "seq_cache"])
 def test_world_refuses_what_this_slice_does_not_split(what):
     """In a world (a mesh with a rank) the trainer and server refuse, with
-    ``NotImplementedError`` naming A12b-3, what is not split across ranks
+    ``NotImplementedError`` naming A12b-3b, what is not split across ranks
     yet; nothing falls back to one device. No process is started: the
-    refusals come before any collective. Every LM family splits now, so
-    the trainers and servers of the MoE, RWKV-6, Hymba, Whisper and LLaVA
-    are built, and the cases named before for the MoE refuse what is
-    still held back: a ``pod``-granularity trainer, and a server whose
-    cache a dense config's kv heads, which the axis does not divide, would
-    split by sequence."""
+    refusals come before any collective. Every LM family, every
+    participant granularity, a gradient clip under tensor parallelism and
+    a ``pod`` axis are built now (the trainers and servers are asserted),
+    and each case refuses what is still held back: a MoE training batch
+    at ``pod`` granularity whose rank rows split a routing group
+    (``moe_tp``), a cache split by sequence at ``pod`` granularity
+    (``grad_clip``), a MoE serve at ``chip`` granularity whose rank rows
+    split a group that could drop slots (``chip_granularity``), a dense
+    config's kv heads that the axis does not divide (``moe_serve_tp``),
+    and ``shard_seq`` (``seq_cache``)."""
     from repro_torch.config import H100, MeshConfig, TrainConfig
     from repro_torch.core.distributed import DistributedTrainer, Server
 
     mesh = DeviceMesh(("cpu",) * 8, ("data", "model"), (4, 2), rank=3)
     mcfg = MeshConfig(data=4, model=2)
     dense = configs.reduced(configs.get_config("tinyllama-1.1b"))
+    arctic = configs.reduced(configs.get_config("arctic-480b"))
     kw = dict(mesh=mesh, device="cpu")
     for arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "hymba-1.5b",
                  "whisper-large-v3", "llava-next-mistral-7b"):
         cfg = configs.reduced(configs.get_config(arch))
         assert DistributedTrainer(cfg, TrainConfig(), mcfg, **kw).world is mesh
         assert Server(cfg, mcfg, **kw).world is mesh
-    with pytest.raises(NotImplementedError, match="A12b-3"):
+    for gran in ("pod", "chip"):
+        for cfg in (dense, arctic):
+            cfg = cfg.with_(participant_granularity=gran)
+            assert DistributedTrainer(cfg, TrainConfig(grad_clip=1.0), mcfg,
+                                      **kw).world is mesh
+            assert Server(cfg, mcfg, **kw).world is mesh
+    pod_mesh = DeviceMesh(("cpu",) * 8, ("pod", "data", "model"), (2, 2, 2),
+                          rank=5)
+    pod_cfg = MeshConfig(multi_pod=True, pods=2, data=2, model=2)
+    assert DistributedTrainer(dense, TrainConfig(grad_clip=1.0), pod_cfg,
+                              mesh=pod_mesh, device="cpu").world is pod_mesh
+    toks = torch.zeros((1, 1, 4, 8), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="A12b-3b"):
         if what == "moe_tp":
-            DistributedTrainer(dense.with_(participant_granularity="pod"),
-                               TrainConfig(), mcfg, **kw)
+            # 32 tokens a participant in groups of 16: a rank's 8 split one
+            tr = DistributedTrainer(arctic.with_(participant_granularity="pod"),
+                                    TrainConfig(), mcfg, **kw)
+            tr.jit_train_step()(None, {"tokens": toks, "labels": toks},
+                                torch.ones(1))
         elif what == "grad_clip":
-            DistributedTrainer(dense, TrainConfig(grad_clip=1.0), mcfg, **kw)
+            Server(dense.with_(participant_granularity="pod"), mcfg,
+                   shard_seq=True, **kw)
         elif what == "chip_granularity":
-            DistributedTrainer(dense.with_(participant_granularity="chip"),
-                               TrainConfig(), mcfg, **kw)
+            chip = arctic.with_(participant_granularity="chip",
+                                moe_capacity_factor=0.5)
+            Server(chip, mcfg, **kw).prefill(
+                None, {"tokens": torch.zeros((4, 8), dtype=torch.long)},
+                None)
         elif what == "moe_serve_tp":
             one_kv = dense.with_(n_kv_heads=1)
             server = Server(one_kv, mcfg, **kw)

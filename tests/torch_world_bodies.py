@@ -695,3 +695,185 @@ def multimodal_world_body(world, arch, params_np, batch_np, weights,
             "cache": {k: tuple(v.shape) for k, v in cache.items()
                       if isinstance(v, torch.Tensor)},
             "pos": cache["pos"], "serve_counts": dict(collectives.COUNTS)}
+
+
+# ---------------------------------------------------------------------------
+# participant granularities across ranks (``pod`` as FSDP over ``data``,
+# ``chip``, a ``pod`` mesh axis) and the gradient clip
+# ---------------------------------------------------------------------------
+
+
+def _granularity_cfg(arch, gran, **overrides):
+    return configs.reduced(configs.get_config(arch)).with_(
+        participant_granularity=gran, **overrides)
+
+
+def granularity_world_body(world, arch, gran, mesh_kw, params_np, batch_np,
+                           weights, clip, prompt_np, max_len,
+                           controls=False):
+    """A reduced ``arch`` at participant granularity ``gran`` on the world
+    of ``MeshConfig(**mesh_kw)``: MoDeST rounds of ``weights`` from
+    ``params_np`` over ``batch_np`` (``(P, E, B, S)``), SGD at 0.1 with a
+    clip of ``clip`` (0: none), each round's loss and gathered parameters
+    (rank 0) and the local shapes; then, from the same weights, a prefill
+    of ``prompt_np`` and one greedy decode. ``controls``: one round each of
+    two controls that must be caught (rank 0's parameters): the step
+    without its ``1 / data`` (``core.distributed._data_mean`` made the
+    identity; no clip, which would scale the doubled gradient back) and
+    the clip's norm taken of a rank's own shards (the sums over the shard
+    axes left out). ``mixed_in``: what the strategy's first mix was given
+    (rank 0's whole P axis, gathered over the participant axes)."""
+    from repro_torch.core import distributed
+    from repro_torch.core.distributed import DistributedTrainer, Server
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = _granularity_cfg(arch, gran)
+    mcfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+
+    mixed = []
+
+    def rounds(tcfg, n=len(weights), local_clip=False):
+        trainer = DistributedTrainer(cfg, tcfg, mcfg, strategy="modest",
+                                     mesh=mesh, device="cpu")
+        if local_clip:
+            trainer._reduce_shards = lambda t: t
+        real_mix = trainer.strategy.mix
+
+        def recording(prev_P, new_P, *a):
+            if not mixed:       # the first mix's input: the whole P axis
+                mixed.append(new_P)
+            return real_mix(prev_P, new_P, *a)
+
+        trainer.strategy = trainer.strategy._replace(mix=recording)
+        state = trainer.shard_state(
+            whole_state(trainer, params_from_numpy(params_np, "cpu")))
+        step = trainer.jit_train_step()
+        losses, finals = [], []
+        for w in weights[:n]:
+            state, m = step(state, batch, torch.tensor(w,
+                                                       dtype=torch.float32))
+            losses.append(float(m["loss"]))
+            whole = trainer.gather_state(state)
+            finals.append(whole.params if world.rank == 0 else None)
+        return losses, finals, [tuple(x.shape)
+                                for x in tree_leaves(state.params)]
+
+    out = {}
+    out["losses"], out["rounds"], out["local"] = rounds(
+        TrainConfig(optimizer="sgd", lr=0.1, grad_clip=clip))
+    out["mixed_in"] = mixed[0] if world.rank == 0 else None
+    if controls:
+        real = distributed._data_mean
+        distributed._data_mean = lambda grads, n: grads
+        try:
+            out["no_data_mean"] = rounds(TrainConfig(optimizer="sgd",
+                                                     lr=0.1), n=1)[1][0]
+        finally:
+            distributed._data_mean = real
+        out["local_clip"] = rounds(
+            TrainConfig(optimizer="sgd", lr=0.1, grad_clip=clip), n=1,
+            local_clip=True)[1][0]
+
+    server = Server(cfg, mcfg, mesh=mesh, device="cpu")
+    params = server.shard_params(params_from_numpy(params_np, "cpu"))
+    cache = server.shard_cache(server.model.init_cache(
+        prompt_np.shape[0], max_len, "cpu"))
+    collectives.reset_counts()
+    logits, cache = server.prefill(params, {"tokens": torch.as_tensor(
+        prompt_np)}, cache)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    dlogits, cache = server.decode(params, tok, cache)
+    out.update(prefill=logits, decode=dlogits, tok=tok, pos=cache["pos"],
+               serve_counts=dict(collectives.COUNTS),
+               served=[tuple(x.shape) for x in tree_leaves(params)])
+    return out
+
+
+def granularity_worlds_body(world, cases):
+    """:func:`granularity_world_body` of every case (``{name: its
+    arguments}``), one after another in one world."""
+    return {name: granularity_world_body(world, *args)
+            for name, args in cases.items()}
+
+
+def granularity_grad_body(world, arch, mesh_kw, params_np, batch_np):
+    """Every leaf's gradient of a reduced ``arch`` at ``pod`` granularity
+    (FSDP over ``data``) on the world of ``MeshConfig(**mesh_kw)``, as a
+    step computes it (``DistributedTrainer.grads``), gathered by the
+    state's specs, with ``cfg.remat`` off and on: the loss, the gradients
+    (rank 0) and the collectives each issued; then the collectives of one
+    whole step of the ``local`` strategy (no remat)."""
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.sharding import gather_tree
+
+    mcfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    out = {}
+    for remat in (False, True):
+        trainer = DistributedTrainer(
+            _granularity_cfg(arch, "pod", remat=remat),
+            TrainConfig(optimizer="sgd", lr=0.1), mcfg, mesh=mesh,
+            device="cpu")
+        state = trainer.shard_state(
+            whole_state(trainer, params_from_numpy(params_np, "cpu")))
+        collectives.reset_counts()
+        loss, grads = trainer.grads(state, batch)
+        counts = dict(collectives.COUNTS)
+        specs = trainer.state_spec(trainer.abstract_state()).params
+        whole = gather_tree(grads, specs, mesh)
+        out[remat] = {"loss": loss, "counts": counts,
+                      "grads": whole if world.rank == 0 else None}
+    trainer = DistributedTrainer(_granularity_cfg(arch, "pod"),
+                                 TrainConfig(optimizer="sgd", lr=0.1), mcfg,
+                                 strategy="local", mesh=mesh, device="cpu")
+    state = trainer.shard_state(
+        whole_state(trainer, params_from_numpy(params_np, "cpu")))
+    collectives.reset_counts()
+    trainer.jit_train_step()(state, batch, torch.ones(
+        trainer.policy.n_participants))
+    out["step_counts"] = dict(collectives.COUNTS)
+    return out
+
+
+def reduce_scatter_body(world):
+    """``collectives.reduce_scatter`` of a bf16 tensor along dim 1 over a
+    2-rank ``data`` group, plain and through the staging path (forced on
+    the CPU) with its counts, and a staged ``all_gather`` along the last
+    dimension, both again for a tensor twice as large (the exchange's
+    files grown); ``gather_shards`` forward and its gradient (each rank's
+    loss weighted by its rank + 1)."""
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    mesh = make_mesh_from_config(MeshConfig(data=2, model=1), "cpu")
+    group, r = mesh.group("data"), world.rank
+    x = (torch.arange(8.0).reshape(2, 4) + 10 * r).to(torch.bfloat16)
+    plain = collectives.reduce_scatter(x, group, dim=1)
+    collectives.reset_counts()
+    real = collectives._needs_staging
+    collectives._needs_staging = lambda x, group: True
+    ex = collectives._EXCHANGES[group]
+    step, ex.STEP = ex.STEP, 16         # files grown in 16-byte steps
+    try:
+        staged = collectives.reduce_scatter(x, group, dim=1)
+        gathered_last = collectives.all_gather(x, group, dim=-1)
+        counts = dict(collectives.COUNTS)
+        # a tensor twice as large: the exchange's files grow
+        big = torch.cat([x, x + 100], dim=1)
+        grown = (collectives.reduce_scatter(big, group, dim=1),
+                 collectives.all_gather(big, group, dim=-1), ex.gen)
+    finally:
+        collectives._needs_staging = real
+        ex.STEP = step
+    w = (torch.arange(4.0).reshape(2, 2) + r).requires_grad_(True)
+    y = collectives.gather_shards(w, group, 0)
+    (torch.sum(y * torch.arange(8.0).reshape(4, 2)) * (r + 1)).backward()
+    return {"plain": plain, "staged": staged, "counts": counts,
+            "gathered_last": gathered_last, "grown": grown,
+            "gathered": y.detach(), "grad": w.grad,
+            "shm_prefix": world.shm_prefix}
