@@ -1188,7 +1188,8 @@ def flash_rows(rows, dev):
     qwen3-moe: B 2, 16 / 2 heads at hd 128, S 1024; Hymba: B 2, 25 / 5
     heads, S 512; Whisper: B 2, 10 / 10 heads, S 128; LLaVA: B 2, 16 / 4
     heads at hd 128, S 3,072; llama3-405b: B 2, 64 / 4 heads at hd 128, S
-    1024; bf16, causal), timed
+    1024; TinyLlama's shard_seq serve: B 1, 16 / 2 heads, S 8,192; its
+    kv_whole serve: B 4, 4 / 1 heads, S 1024; bf16, causal), timed
     beside its plain version and PyTorch's ``scaled_dot_product_attention``
     (a yardstick; the package never calls it), whose error under the same
     check is reported, not gated. bf16 rows also time each block shape of
@@ -1235,6 +1236,14 @@ def flash_rows(rows, dev):
     B, S = WORLD_FSDP_SERVE
     cases.append((B // 2, 128 // 2, 8 // 2, S, 128, torch.bfloat16, True,
                   WORLD_FSDP_FLASH_ROW))
+    # and a rank's share in TinyLlama's shard_seq serve (W3): the whole
+    # batch of 1 on every data rank, 32 / 4 heads halved over model
+    cases.append((1, 32 // 2, 4 // 2, WORLD_SEQ_S, 64, torch.bfloat16, True,
+                  WORLD_SEQ_FLASH_ROW))
+    # and in its kv_whole serve (W4): the whole batch, 32 / 8 query heads
+    # a rank meeting their group's one kv head
+    cases.append((SERVE_B, 32 // WORLD_KV_RANKS, 1, SERVE_S, 64,
+                  torch.bfloat16, True, WORLD_KV_FLASH_ROW))
     for i, (B, Hq, Hkv, S, hd, dtype, causal, arch) in enumerate(cases):
         name = arch or (
             f"S{S}_{str(dtype)[6:]}_{'causal' if causal else 'full'}"
@@ -3508,8 +3517,8 @@ def moe_loss_check(server, params, batch):
 
     routing, kept = moe.routing, []
 
-    def recording(p, cfg, xg):
-        r = routing(p, cfg, xg)
+    def recording(p, cfg, xg, *span):
+        r = routing(p, cfg, xg, *span)
         kept.append(float(r["keep"].mean()))
         return r
 
@@ -3698,8 +3707,8 @@ def recorded_routes(run, n_calls: int):
 
     real, routes = moe.routing, []
 
-    def recording(p, cfg, xg):
-        r = real(p, cfg, xg)
+    def recording(p, cfg, xg, *span):
+        r = real(p, cfg, xg, *span)
         if len(routes) < n_calls:
             routes.append(r["idx"].reshape(-1, r["idx"].shape[-1]).cpu())
         return r
@@ -3785,8 +3794,8 @@ def moe_dropped_slots(task, buffer, data):
     seen = []
     routing = moe.routing
 
-    def spy(p, cfg, xg):
-        r = routing(p, cfg, xg)
+    def spy(p, cfg, xg, *span):
+        r = routing(p, cfg, xg, *span)
         seen.append(r["keep"])
         return r
 
@@ -4375,8 +4384,17 @@ def example_line(session, res, wall, n_agg, metric="accuracy"):
 # ---------------------------------------------------------------------------
 
 WORLD_RANKS = 4                 # the CNN session's world (N over 4 ranks)
-WORLD_SIM_SECONDS = 20.0        # its simulated seconds, plain and masked
-WORLD_TRAIN_ROUNDS = 3          # mesh_train's modest run, on 2 x 2
+# its simulated seconds, plain and masked (20 until W3-W5 needed the
+# script's clock)
+WORLD_SIM_SECONDS = 10.0
+# The rounds of the families' and the granularities' worlds (W1, W2): 3
+# until W3-W5 needed the script's clock. The gates whose control needs a
+# third round keep 3 (WORLD_CONTROL_ROUNDS): TinyLlama's 2 x 2 round
+# (mesh_train's modest run; its skipped update moves round 2's loss by
+# 4.16e-4, round 3's by 5.20e-4, against 4 bounds of 4e-4), RWKV-6's fp32
+# round (3.70e-4 at round 2: a third round's 1.22e-3 passes) and W4.
+WORLD_TRAIN_ROUNDS = 2
+WORLD_CONTROL_ROUNDS = 3
 WORLD_NEW = 4                   # prefill, then 3 teacher-forced decodes
 WORLD_FLASH_ROW = "world_rank"  # flash_rows' row at a rank's serve share
 # The world's bf16 logits and losses against one process's: tensor
@@ -4447,7 +4465,7 @@ WORLD_HYMBA_FLASH_ROW = "world_rank_hymba"
 # written after the first reading and before the next run: PERF.md
 # section 6, Whisper and LLaVA).
 WORLD_MULTIMODAL = ("whisper-large-v3", "llava-next-mistral-7b")
-WORLD_LLAVA_CUT = {"n_layers": 8}
+WORLD_LLAVA_CUT = {"n_layers": 4}     # 8 until W3-W5 needed the clock
 WORLD_MULTIMODAL_LOSS_RTOL = 1e-3
 WORLD_MULTIMODAL_WEIGHTS = ((1.0, 1.0), (1.0, 0.0), (1.0, 1.0))
 WORLD_MULTIMODAL_FLASH_ROWS = {"whisper-large-v3": "world_rank_whisper",
@@ -4487,6 +4505,47 @@ WORLD_POD_RUNS = (("pod", 2, 0.5), ("chip", 4, None),
 WORLD_POD_WEIGHTS = {2: ((1.0, 1.0), (1.0, 0.0), (1.0, 1.0)),
                      4: ((1.0, 1.0, 1.0, 1.0), (1.0, 0.0, 1.0, 1.0),
                          (1.0, 1.0, 0.0, 1.0))}
+
+# What a world refused before: caches split by sequence, kv heads the
+# model axis does not divide, MoE routing groups split over data. W3:
+# TinyLlama at full depth served with ``--shard-seq`` (the cache's
+# sequence over data, B 1, a prompt of WORLD_SEQ_S tokens that every data
+# rank prefills whole) in the 2 x 2 serve world, after its flash serve.
+# W4: TinyLlama at full depth on a data=1, model=8 world (32 / 4 heads:
+# the world rule kv_whole, wk / wv whole on every rank, the cache's
+# sequence over model: the serving launcher rounds a world's cache length
+# up to a multiple of its size, 1,036 to 1,040 here), its serve at the
+# serve phase's shape and 3 mesh rounds at WORLD_KV_TRAIN's cut (P = 1,
+# no failures, so every round updates), their losses within
+# WORLD_LOSS_RTOL: the sound rounds' largest gap (7.9e-5) and a skipped
+# update's smallest (1.69e-4) lie either side of it, and at 2 layers a
+# skipped update lies under the 4 bounds the control gate asks, so the
+# lr-0 control's loss gaps are reported and its change sketch holds the
+# update (readings in PERF.md section 6, what a world refused). W5:
+# qwen3-moe at 4 of 48 layers served at WORLD_MOE_GROUP (B, prompt) in
+# the qwen3-moe serve world, each decode routing B tokens in one group,
+# B / 2 a rank: 64 tokens' 8 choices over 128 experts give an expert 4
+# slots on average against a capacity of 5, so the checked layer drops
+# slots (``moe_group_check`` asks for a drop; at B 8, capacity 4, it
+# dropped none). The prompt is a multiple of 128, so that the prefill
+# runs B9, and long enough that the prefill's bf16 rounding moves few
+# routes: one process's bf16 prefill logits lie 0.053 from its fp32 ones
+# at 128 tokens, 0.041 at 256 and 0.015 at 1,024, and the world's are held
+# within WORLD_LOGITS_REL_L2 of one process's (PERF.md section 6, what a
+# world refused). Serves are held by ``held_serve``, rounds by
+# ``world_train``; the predictions stand in PERF.md section 6 (what a
+# world refused).
+WORLD_SEQ_S = 8192
+WORLD_SEQ_FLASH_ROW = "world_rank_shard_seq"
+WORLD_KV_RANKS = 8
+WORLD_KV_FLASH_ROW = "world_rank_kv_whole"
+WORLD_KV_TRAIN = ["--mode", "mesh", "--arch", "tinyllama-1.1b",
+                  "--full-size", "--set", "n_layers=2", "--devices",
+                  str(WORLD_KV_RANKS), "--model-parallel",
+                  str(WORLD_KV_RANKS), "--failure-rate", "0.0", "--seed",
+                  "0", "--algo", "modest", "--rounds",
+                  str(WORLD_CONTROL_ROUNDS)]
+WORLD_MOE_GROUP = (64, 512)
 
 
 def digest(t) -> str:
@@ -4660,13 +4719,13 @@ def world_chunk_rows(dev):
 
 def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
                 loss_rtol=WORLD_LOSS_RTOL, loss_control=True, own=None,
-                loss_rounds=WORLD_TRAIN_ROUNDS, change_control=True,
-                run=None):
+                loss_rounds=None, change_control=True, run=None,
+                rounds=WORLD_TRAIN_ROUNDS):
     """``launch/train.py --mode mesh --world`` at ``argv`` (None:
     ``MESH_ARGS``; MoDeST, 2 x 2, ranks on ``where``), or ``run(device,
     world, lr)`` where given (the launcher's result: ``history``,
     ``change_sketch`` and, in a world, ``ranks``), for
-    WORLD_TRAIN_ROUNDS rounds, gated against the one-process run's rounds
+    ``rounds`` rounds, gated against the one-process run's rounds
     ``mesh_rounds`` (losses within ``loss_rtol``) and change sketch
     ``mesh_sketch`` (``launch.train`` on ``dev``) and against a control
     run here: the same rounds with the update skipped (learning rate 0),
@@ -4683,8 +4742,7 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
 
     if run is None:
         argv = (MESH_ARGS if argv is None else argv) + [
-            "--algo", "modest", "--devices", "4", "--rounds",
-            str(WORLD_TRAIN_ROUNDS)]
+            "--algo", "modest", "--devices", "4", "--rounds", str(rounds)]
 
         def run(device, world, lr=None):
             return train.main(argv + ["--device", device] + (
@@ -4705,7 +4763,7 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
                                                  want["active"]):
                 raise AssertionError(f"world round {got} against {want}")
             gaps.append(abs(got["loss"] - want["loss"]) / abs(want["loss"]))
-        if len(gaps) != WORLD_TRAIN_ROUNDS:
+        if len(gaps) != rounds:
             raise AssertionError(f"{len(gaps)} rounds")
         return gaps
 
@@ -4718,8 +4776,8 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
         return float(np.linalg.norm(np.asarray(sketch) - want)
                      / np.linalg.norm(want))
 
-    loss_bounds = [loss_rtol] * loss_rounds + [None] * (
-        WORLD_TRAIN_ROUNDS - loss_rounds)
+    loss_rounds = rounds if loss_rounds is None else loss_rounds
+    loss_bounds = [loss_rtol] * loss_rounds + [None] * (rounds - loss_rounds)
     change_bound = WORLD_CHANGE_REL
     line = {}
     if own is not None:
@@ -4730,7 +4788,7 @@ def world_train(dev, where, mesh_rounds, mesh_sketch, argv=None,
         line = {"one_ulp_loss_rel_gaps": own_gaps,
                 "one_ulp_change_rel_gap": own_change}
     line = {"world": "2 x 2", "rounds": trained["history"],
-            "one_process": mesh_rounds[:WORLD_TRAIN_ROUNDS],
+            "one_process": mesh_rounds[:rounds],
             "loss_rel_gaps": gaps_train, "loss_rel_bound": loss_rtol,
             "loss_rel_bounds": loss_bounds,
             "skipped_update_loss_rel_gaps": gaps_skipped,
@@ -4786,28 +4844,92 @@ def nudged_init(seed: int = 7):
         DistributedTrainer.init_state = real
 
 
-def world_moe_serve_body(world, argv, teacher, n_calls):
+def world_moe_serve_body(world, argv, teacher, n_calls, group=None):
     """A rank of the qwen3-moe serve world: the serving launcher's own rank
     (``launch.serve._serve_rank``, what ``--world`` runs) on ``argv``, with
     the routing of its first ``n_calls`` MoE layers kept (the prefill's and
-    the decodes', ``recorded_routes``)."""
+    the decodes', ``recorded_routes``); then, with ``group = (argv,
+    teacher, call)``, W5's serve in the same world (``world_serves_body``'s
+    counts set to 0 first), the router's input and this rank's routing at
+    its MoE call ``call`` kept (``captured_route``)."""
     from repro_torch.launch import serve
 
     out = {}
     routes = recorded_routes(lambda: out.update(serve._serve_rank(
         world, serve.parse_args(argv), teacher)), n_calls)
-    return dict(out, routes=routes, coords=world.rank)
+    out = dict(out, routes=routes, coords=world.rank)
+    if group is not None:
+        g_argv, g_teacher, call = group
+        release()
+        out["group"] = {}
+        out["group"]["route"] = captured_route(lambda: out["group"].update(
+            world_serves_body(world, [(g_argv, g_teacher)])[0]), call)
+    return out
 
 
-def world_moe(dev, where, moe_ref):
+def world_serves_body(world, runs):
+    """A rank of a serve world that runs the serving launcher's own rank
+    (``launch.serve._serve_rank``, what ``--world`` runs) once for each
+    ``(argv, teacher)`` of ``runs``, one after another in one world (one
+    start-up): the kernels' and the collectives' counts and the card's
+    peak set to 0 before each, so each report is its own serve's."""
+    from repro_torch import collectives
+    from repro_torch.launch import serve
+
+    outs = []
+    for argv, teacher in runs:
+        release()
+        reset_counts()
+        collectives.reset_counts()
+        if world.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(world.device)
+        outs.append(serve._serve_rank(world, serve.parse_args(argv),
+                                      teacher))
+    return outs
+
+
+def captured_route(run, call: int):
+    """``run()`` with ``models.moe.routing`` wrapped to keep, of its call
+    number ``call``, the router's input (this rank's layout of the groups
+    its tokens touch), the router, the slots' ``pos``, ``keep`` and
+    ``every_keep`` and the rank's place in the groups (``span``: None where
+    its tokens route alone), on the CPU; the port's function is put back
+    after."""
+    from repro_torch.models import moe
+
+    real, seen, kept = moe.routing, [0], {}
+
+    def capture(p, cfg, xg, *span):
+        r = real(p, cfg, xg, *span)
+        if seen[0] == call:
+            sp = span[0] if span else None
+            kept.update(
+                x=xg.cpu(), router=p["router"].cpu(), pos=r["pos"].cpu(),
+                keep=r["keep"].cpu(), every_keep=None if sp is None
+                else r["every_keep"].cpu(),
+                C=r["C"], span=None if sp is None else {
+                    "off": sp.off, "t": sp.t, "G": sp.G, "N": sp.N,
+                    "g0": sp.g0})
+        seen[0] += 1
+        return r
+
+    moe.routing = capture
+    try:
+        run()
+    finally:
+        moe.routing = real
+    return kept
+
+
+def world_moe(dev, where, moe_ref, group_ref):
     """qwen3-moe across ranks on 2 x 2 worlds whose ranks share the card:
-    ``world_moe_serve``, then ``world_moe_train``."""
-    serve_line = world_moe_serve(where, moe_ref)
+    ``world_moe_serve`` (W5 in its world), then ``world_moe_train``."""
+    serve_line = world_moe_serve(where, moe_ref, group_ref)
     release()
     return {"serve": serve_line, "train": world_moe_train(dev, where)}
 
 
-def world_moe_serve(where, moe_ref):
+def world_moe_serve(where, moe_ref, group_ref):
     """qwen3-moe's serve across ranks (experts over ``model``):
 
     * ``launch/serve.py --full-size --set n_layers=4 --set use_flash=true
@@ -4825,6 +4947,15 @@ def world_moe_serve(where, moe_ref):
       heads, and nothing else. Reported: the shares of (token, choice)
       slots routed to another expert than one process's bf16 run (and
       than its fp32 run), by step.
+    * W5, in the same world: the same launcher at ``--batch``
+      WORLD_MOE_GROUP[0] and a prompt of WORLD_MOE_GROUP[1] tokens, whose
+      decodes route B tokens in one group of capacity 4 split B / 2 a
+      rank (``models.moe.routing`` with a span), held by ``held_serve``
+      against ``group_ref``; and exactly: the first decode's first MoE
+      layer, each rank's ``pos`` and ``keep`` at its own slots bit for
+      bit one process's routing of that layer's whole router input, the
+      ranks' own rows put together, where one process drops slots
+      (``moe_group_check``).
     """
     from repro_torch.launch.world import run_world
 
@@ -4837,9 +4968,15 @@ def world_moe_serve(where, moe_ref):
             "--seed", "0", "--device", where]
     argv += [a for k, v in over.items() for a in ("--set", f"{k}={v}")]
     teacher = moe_ref["tokens"][:, :WORLD_NEW - 1].numpy()
+    gB, gS = WORLD_MOE_GROUP
+    g_argv = list(argv)
+    g_argv[g_argv.index("--batch") + 1] = str(gB)
+    g_argv[g_argv.index("--prompt-len") + 1] = str(gS)
+    g_teacher = group_ref["tokens"][:, :WORLD_NEW - 1].numpy()
     t0 = time.perf_counter()
     ranks = run_world(world_moe_serve_body, 4, device=where,
-                      args=(argv, teacher, L * WORLD_NEW), timeout=600.0)
+                      args=(argv, teacher, L * WORLD_NEW,
+                            (g_argv, g_teacher, L)), timeout=600.0)
     t_serve = time.perf_counter() - t0
     served = ranks[0]
     one, exact = moe_ref["bfloat16"], moe_ref["float32"]
@@ -4893,7 +5030,64 @@ def world_moe_serve(where, moe_ref):
     if len(gaps) != WORLD_NEW or gaps[0] > WORLD_LOGITS_REL_L2 or any(
             e > b for e, b in zip(world_err, bounds)):
         raise AssertionError(f"moe world logits: {json.dumps(serve_line)}")
+    group = dict(ranks[0]["group"], ranks=[r["group"]["report"]
+                                           for r in ranks])
+    serve_line["groups_split"] = dict(
+        held_serve(arch, group, group_ref, n_attn, t_serve, "2 x 2", gB, gS,
+                   over),
+        route=moe_group_check([r["group"]["route"] for r in ranks],
+                              [r["coords"] for r in ranks], over, where))
     return serve_line
+
+
+def moe_group_check(routes, coords, over, dev):
+    """W5's exact check: one MoE layer's routing in a world whose ranks
+    split its routing group over ``data`` (``captured_route`` of each
+    rank, on a 2 x 2 world: ``coords`` the ranks' flat indices) against
+    one process's routing (``models.moe.routing``, on ``dev``) of the
+    whole router input, put together from the ranks' own rows (model rank
+    0 of each data rank): each rank's ``pos`` and ``keep`` at its own
+    slots, and its ``every_keep`` at every slot of the group, bit for bit;
+    one process drops at least one slot there (else the check could not
+    see a fault in how the ranks compute ``keep``). Reported: the slots
+    one process keeps and drops there."""
+    from repro_torch.models import moe
+
+    cfg = family_config(WORLD_MOE_ARCH, over)
+    k = cfg.moe_top_k
+    own = [r for r, c in zip(routes, coords) if c % 2 == 0]
+    if any(r["span"] is None for r in routes):
+        raise AssertionError("a W5 rank routed its tokens alone: "
+                             f"{[r['span'] for r in routes]}")
+    x = torch.cat([r["x"].reshape(-1, r["x"].shape[-1])[
+        r["span"]["off"]:r["span"]["off"] + r["span"]["t"]] for r in own])
+    G = routes[0]["span"]["G"]
+    whole = moe.routing({"router": routes[0]["router"].to(dev)}, cfg,
+                        x.reshape(-1, G, x.shape[-1]).to(dev))
+    want_pos, want_keep = whole["pos"].cpu(), whole["keep"].cpu()
+    equal = []
+    for r, c in zip(routes, coords):
+        sp, d = r["span"], c // 2
+        a, lo, t = d * sp["t"], sp["off"], sp["t"]
+        mine = slice(lo * k, (lo + t) * k)
+        theirs = slice(a * k, (a + t) * k)
+        equal.append(
+            torch.equal(r["pos"].reshape(-1)[mine],
+                        want_pos.reshape(-1)[theirs])
+            and torch.equal(r["keep"].reshape(-1)[mine],
+                            want_keep.reshape(-1)[theirs])
+            and torch.equal(r["every_keep"].reshape(-1),
+                            want_keep.reshape(-1)[
+                                sp["g0"] * G * k:(sp["g0"] + 1) * G * k]))
+    line = {"tokens": int(x.shape[0]), "group": G, "capacity": whole["C"],
+            "top_k": k, "slots": int(want_keep.numel()),
+            "kept": int(want_keep.sum()),
+            "dropped": int(want_keep.numel() - want_keep.sum()),
+            "ranks_equal_bit_for_bit": equal}
+    if not all(equal) or len(equal) != 4 or line["dropped"] == 0:
+        raise AssertionError(f"W5 routing off one process's, or no slot "
+                             f"dropped: {line}")
+    return line
 
 
 def world_moe_train(dev, where):
@@ -4967,7 +5161,25 @@ def world_family_serve(where, arch, ref, over=None, n_attn=None,
     teacher = ref["tokens"][:, :WORLD_NEW - 1].numpy()
     t0 = time.perf_counter()
     served = serve.main(argv, teacher=teacher)
-    t_serve = time.perf_counter() - t0
+    return held_serve(arch, served, ref, n_attn, time.perf_counter() - t0,
+                      "2 x 2", B, S, over)
+
+
+def held_serve(arch, served, ref, n_attn, t_serve, world, B, S, over=None,
+               seq_axis=None):
+    """A serve world's result ``served`` (``launch/serve.py --world``'s:
+    rank 0's ``step_logits`` and every rank's report under ``ranks``),
+    teacher-forced on ``ref``'s tokens, held against the one-process
+    reference ``ref`` (``world_reference``: bf16, and fp32 as the
+    control). Gates: at every step the world's distance from the fp32
+    logits at most WORLD_MOE_ERR_RATIO times one process's bf16 distance
+    (or WORLD_LOGITS_REL_L2 where that is larger); the prefill's logits
+    within WORLD_LOGITS_REL_L2 of one process's bf16 ones, or within one
+    process's own bf16 distance from fp32 where that is larger; every rank
+    launches ``flash_attention`` ``n_attn`` times and nothing else, and
+    served a cache whose sequence its spec splits over ``seq_axis`` (None:
+    whole; the rank report's ``seq_axes``); the logits finite. Returns its
+    line."""
     one, exact = ref["bfloat16"], ref["float32"]
     steps = served["step_logits"]
     gaps = [rel_l2(g, w) for g, w in zip(steps, one["step_logits"])]
@@ -4983,10 +5195,14 @@ def world_family_serve(where, arch, ref, over=None, n_attn=None,
             raise AssertionError(f"{arch} serve rank {r['rank']} launched "
                                  f"{r['launches']}, want {n_attn} flash "
                                  "and nothing else")
+        if r["seq_axes"]["k"] != seq_axis:
+            raise AssertionError(f"{arch} serve rank {r['rank']} split its "
+                                 f"cache's sequence over {r['seq_axes']}, "
+                                 f"want {seq_axis}")
     line = {
-        "world": "2 x 2", "arch": arch, "depth_cut": over or None,
-        "batch": B, "prompt_len": S, "step_rel_l2": gaps,
-        "prefill_rel_l2_bound": prefill_bound,
+        "world": world, "arch": arch, "depth_cut": over or None,
+        "batch": B, "prompt_len": S, "cache_seq_axis": seq_axis,
+        "step_rel_l2": gaps, "prefill_rel_l2_bound": prefill_bound,
         "world_vs_fp32_rel_l2": world_err,
         "one_process_bf16_vs_fp32_rel_l2": one_err,
         "vs_fp32_bounds": bounds, "err_ratio_bound": WORLD_MOE_ERR_RATIO,
@@ -5027,11 +5243,10 @@ def world_recurrent_train(dev, where, arch):
     argv = ["--mode", "mesh", "--arch", arch, "--full-size", "--set",
             "n_layers=2", "--model-parallel", "2", "--failure-rate", "0.3",
             "--seed", "0"]
-    one_argv = ["--algo", "modest", "--devices", "4", "--rounds",
-                str(WORLD_TRAIN_ROUNDS), "--device", str(dev)]
+    one_argv = ["--algo", "modest", "--devices", "4", "--device", str(dev)]
 
-    def one_process(args):
-        out = train.main(args + one_argv)
+    def one_process(args, rounds=WORLD_TRAIN_ROUNDS):
+        out = train.main(args + one_argv + ["--rounds", str(rounds)])
         rounds, sketch = out["history"], out["change_sketch"]
         del out
         release()
@@ -5053,8 +5268,9 @@ def world_recurrent_train(dev, where, arch):
                           change_control=False)
     t1 = time.perf_counter()
     argv32 = argv + ["--set", "param_dtype=float32"]
-    rounds32, sketch32 = one_process(argv32)
-    fp32 = world_train(dev, where, rounds32, sketch32, argv32, loss_rounds=2)
+    rounds32, sketch32 = one_process(argv32, WORLD_CONTROL_ROUNDS)
+    fp32 = world_train(dev, where, rounds32, sketch32, argv32, loss_rounds=2,
+                       rounds=WORLD_CONTROL_ROUNDS)
     return dict(trained, arch=arch, depth_cut={"n_layers": 2},
                 world_seconds=t1 - t0,
                 fp32=dict(fp32, world_seconds=time.perf_counter() - t1))
@@ -5419,6 +5635,72 @@ def world_granularities(dev, where):
             "seconds": time.perf_counter() - t0}
 
 
+def world_kv_whole_body(world, train_argv, serve_argv, teacher):
+    """A rank of W4's world: the mesh launcher's own rank
+    (``launch.train._mesh_rank``, what ``--mode mesh --world`` runs) on
+    ``train_argv``, then the serving launcher's (``world_serves_body``) on
+    ``serve_argv``, in one world."""
+    from repro_torch.launch import train
+
+    out = {"train": train._mesh_rank(world, train.parse_args(train_argv))}
+    out["serve"] = world_serves_body(world, [(serve_argv, teacher)])[0]
+    return out
+
+
+def world_kv_whole(dev, where, ref):
+    """W4: TinyLlama at published widths on a data=1, model=8 world whose
+    eight ranks share the card (the world rule ``kv_whole``: 32 / 4 heads,
+    ``wk`` / ``wv`` whole on every rank, each rank's 4 query heads meeting
+    their group's kv head, the cache's sequence over ``model``), in one
+    world: 3 mesh rounds at WORLD_KV_TRAIN's cut (MoDeST, P = 1), held by
+    ``world_train`` against the same rounds in one process here (and the
+    learning-rate-0 control), then the serving launcher at full depth at
+    the serve phase's shape with flash, decodes teacher-forced, held by
+    ``held_serve`` against ``ref`` (22 B9 a rank, at B 4, 4 / 1 heads)."""
+    from repro_torch.launch import train
+    from repro_torch.launch.world import run_world
+
+    serve_argv = ["--arch", "tinyllama-1.1b", "--full-size", "--devices",
+                  str(WORLD_KV_RANKS), "--model-parallel",
+                  str(WORLD_KV_RANKS), "--set", "use_flash=true", "--batch",
+                  str(SERVE_B), "--prompt-len", str(SERVE_S),
+                  "--new-tokens", str(WORLD_NEW), "--seed", "0", "--device",
+                  where]
+    teacher = ref["tokens"][:, :WORLD_NEW - 1].numpy()
+    t0 = time.perf_counter()
+    with ranks_alloc_conf():
+        ranks = run_world(world_kv_whole_body, WORLD_KV_RANKS, device=where,
+                          args=(WORLD_KV_TRAIN + ["--device", where],
+                                serve_argv, teacher), timeout=900.0)
+    t_world = time.perf_counter() - t0
+    world = f"1 x {WORLD_KV_RANKS}"
+    serve_line = held_serve(
+        "tinyllama-1.1b", dict(ranks[0]["serve"], ranks=[
+            r["serve"]["report"] for r in ranks]), ref, 22, t_world, world,
+        SERVE_B, SERVE_S, seq_axis="model")
+    trained = {"history": ranks[0]["train"]["history"],
+               "ranks": [r["train"] for r in ranks]}
+    del ranks
+    release()
+    one = train.main(WORLD_KV_TRAIN + ["--device", str(dev)])
+    one_rounds, sketch = one["history"], one["change_sketch"]
+    del one
+    release()
+
+    def run(device, in_world, lr=None):
+        if in_world:
+            return trained
+        return train.main(WORLD_KV_TRAIN + ["--device", device] + (
+            ["--lr", str(lr)] if lr is not None else []))
+
+    train_line = world_train(dev, where, one_rounds, sketch,
+                             loss_control=False, run=run,
+                             rounds=WORLD_CONTROL_ROUNDS)
+    train_line.update(world=world, depth_cut={"n_layers": 2})
+    return {"serve": serve_line, "train": train_line,
+            "world_seconds": t_world}
+
+
 def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                 world_refs, world_device=None):
     """The port across ranks (``launch.world``) on the one card, whose
@@ -5458,7 +5740,21 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
       (FSDP over ``data``, TP over ``model``), its serve and its round
       with a clip that binds; W2, TinyLlama at 2 layers on a ``pods=2,
       data=2, model=1`` world at ``pod``, ``chip`` and ``data_rank``
-      granularity; each rank's peak, staged bytes and host peak reported.
+      granularity; each rank's peak, staged bytes and host peak reported;
+    * what a world refused before (``held_serve``, ``world_train``; their
+      one-process references first, while the card is free): W3,
+      TinyLlama at full depth served with ``--shard-seq`` (B 1,
+      WORLD_SEQ_S prompt tokens, the cache's sequence over ``data``) as the
+      second serve of the 2 x 2 serve world; W5, qwen3-moe's decodes
+      routing a group split over ``data`` (``WORLD_MOE_GROUP``), the
+      second serve of its serve world, with the exact routing check
+      (``moe_group_check``); W4, TinyLlama on a ``data=1, model=8`` world
+      (the rule ``kv_whole``, the cache's sequence over ``model``), 3
+      mesh rounds at 2 layers and its serve at full depth in one world
+      (``world_kv_whole``).
+
+    The families' and the granularities' worlds run WORLD_TRAIN_ROUNDS
+    rounds; TinyLlama's, RWKV-6's fp32 and W4's WORLD_CONTROL_ROUNDS.
 
     ``world_device`` (None: ``dev``) is where the worlds' ranks run:
     ``"cuda"`` spreads them over the cards, one a rank where there are
@@ -5467,6 +5763,15 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
     from repro_torch.launch.world import run_world
 
     t0 = time.perf_counter()
+    # the one-process references of W3, W4 and W5, while the card is free
+    split_refs = {
+        "seq": world_cut_reference(dev, "tinyllama-1.1b", {}, 1,
+                                   WORLD_SEQ_S),
+        "kv": world_cut_reference(dev, "tinyllama-1.1b", {}, SERVE_B,
+                                  SERVE_S),
+        "group": world_cut_reference(dev, WORLD_MOE_ARCH, {"n_layers": 4},
+                                     *WORLD_MOE_GROUP)}
+    t_split_refs = time.perf_counter() - t0
     chunk_rows = world_chunk_rows(dev)
     refs = [world_session_run("batched", sa, WORLD_SIM_SECONDS, dev)
             for sa in (None, "masked")]
@@ -5497,7 +5802,8 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
     world_sessions_check(nccl, refs[:1], "nccl")
 
     t1 = time.perf_counter()
-    trained = world_train(dev, where, mesh_rounds, mesh_sketch)
+    trained = world_train(dev, where, mesh_rounds, mesh_sketch,
+                          rounds=WORLD_CONTROL_ROUNDS)
     t_train = time.perf_counter() - t1
 
     argv = ["--arch", "tinyllama-1.1b", "--full-size", "--devices", "4",
@@ -5509,10 +5815,22 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
     one = serve.main(argv, teacher=teacher)
     one_launches = read_counts()
     release()
+    seq_argv = argv[:-2] + ["--device", where, "--shard-seq"]
+    seq_argv[seq_argv.index("--batch") + 1] = "1"
+    seq_argv[seq_argv.index("--prompt-len") + 1] = str(WORLD_SEQ_S)
     t1 = time.perf_counter()
-    served = serve.main(argv[:-2] + ["--device", where, "--world"],
-                        teacher=teacher)
+    both = run_world(world_serves_body, 4, device=where, args=(
+        [(argv[:-2] + ["--device", where], teacher),
+         (seq_argv, split_refs["seq"]["tokens"][:, :WORLD_NEW - 1].numpy())],
+    ), timeout=900.0)
     t_serve = time.perf_counter() - t1
+    served = dict(both[0][0], ranks=[r[0]["report"] for r in both])
+    seq_line = held_serve("tinyllama-1.1b", dict(
+        both[0][1], ranks=[r[1]["report"] for r in both]),
+        split_refs["seq"], 22, t_serve, "2 x 2, shard_seq", 1, WORLD_SEQ_S,
+        seq_axis="data")
+    seq_line["prefill_seconds_by_rank"] = [r[1]["prefill_seconds"]
+                                           for r in both]
     gaps = [rel_l2(g, w) for g, w in zip(served["step_logits"],
                                          one["step_logits"])]
     prefill_gap = rel_l2(served["step_logits"][0], serve_prefill)
@@ -5530,7 +5848,8 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
         raise AssertionError(f"one-process launcher: {one_launches}")
 
     release()
-    moe = world_moe(dev, where, world_refs[WORLD_MOE_ARCH])
+    moe = world_moe(dev, where, world_refs[WORLD_MOE_ARCH],
+                    split_refs["group"])
     recurrent = {}
     for arch in WORLD_RECURRENT:
         release()
@@ -5547,6 +5866,10 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                                 seconds=time.perf_counter() - t1)
     release()
     grans = world_granularities(dev, where)
+    release()
+    t1 = time.perf_counter()
+    kv_whole = world_kv_whole(dev, where, split_refs["kv"])
+    kv_whole["seconds"] = time.perf_counter() - t1
 
     def reports(rs):
         return [{k: r[k] for k in ("rank", "backend", "launches",
@@ -5576,7 +5899,8 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                   "prefill_seconds": served["prefill_seconds"],
                   "one_process_prefill_seconds": one["prefill_seconds"],
                   "ranks_report": reports(served["ranks"])},
-        "moe_serve": dict(moe["serve"], ranks_report=reports(
+        "moe_serve": dict({k: v for k, v in moe["serve"].items()
+                           if k != "groups_split"}, ranks_report=reports(
             moe["serve"]["ranks_report"])),
         "moe_train": dict(moe["train"], ranks_report=reports(
             moe["train"]["ranks_report"])),
@@ -5608,6 +5932,20 @@ def world_phase(dev, mesh_rounds, mesh_sketch, serve_tokens, serve_prefill,
                 grans["pod_mesh"].items()},
             "rounds_world_seconds": grans["rounds_world_seconds"],
             "rounds_seconds": grans["rounds_seconds"]},
+        "shard_seq_serve": dict(seq_line, ranks_report=reports(
+            seq_line["ranks_report"])),
+        "moe_groups_split": dict(moe["serve"]["groups_split"],
+                                 ranks_report=reports(
+                                     moe["serve"]["groups_split"][
+                                         "ranks_report"])),
+        "kv_whole": {
+            "seconds": kv_whole["seconds"],
+            "world_seconds": kv_whole["world_seconds"],
+            "serve": dict(kv_whole["serve"], ranks_report=reports(
+                kv_whole["serve"]["ranks_report"])),
+            "train": dict(kv_whole["train"], ranks_report=reports(
+                kv_whole["train"]["ranks_report"]))},
+        "split_references_seconds": t_split_refs,
         "seconds": time.perf_counter() - t0}
     emit("world", **line)
     return line
@@ -5964,7 +6302,20 @@ def main() -> int:
             flash_row(WORLD_FSDP_FLASH_ROW), arch=WORLD_FSDP_ARCH,
             launches_by_rank=[
                 r["launches"]["flash_attention"] for r in
-                world["granularities"]["fsdp_serve"]["ranks_report"]]))
+                world["granularities"]["fsdp_serve"]["ranks_report"]]),
+        shard_seq=dict(
+            flash_row(WORLD_SEQ_FLASH_ROW), arch="tinyllama-1.1b",
+            launches_by_rank=[
+                r["launches"]["flash_attention"] for r in
+                world["shard_seq_serve"]["ranks_report"]]),
+        kv_whole=dict(
+            flash_row(WORLD_KV_FLASH_ROW), arch="tinyllama-1.1b",
+            launches_by_rank=[
+                r["launches"]["flash_attention"] for r in
+                world["kv_whole"]["serve"]["ranks_report"]]),
+        moe_groups_split={"arch": WORLD_MOE_ARCH, "launches_by_rank": [
+            r["launches"]["flash_attention"] for r in
+            world["moe_groups_split"]["ranks_report"]]})
 
     kernels = []
     for name, meta in KERNELS.items():

@@ -53,6 +53,9 @@ participant granularity and on a mesh with a ``pod`` axis:
   and its batch rows over ``data``: each rank's loss is the mean over its
   rows, the participant's gradient the mean over ``data`` of the ranks'
   (leaves whole on ``data`` all-reduced), its loss the mean of the ranks'.
+  A masked batch takes the participant's count of valid tokens (one
+  all-reduce, ``models.layers.token_mean``), so ranks with unequal
+  counts give one process's loss and gradient.
 
 ``init_state`` and ``Server.init_params`` draw a rank's shards leaf by
 leaf (:func:`draw_local`, bit for bit the whole draw's slices),
@@ -70,19 +73,21 @@ server splits the batch over ``data``, the parameters by ``param_spec``
 and the cache by ``cache_spec`` (kv heads, Whisper's cross kv heads or
 RWKV-6's state heads over ``model``, under the same rules); ``prefill``
 and ``decode`` take the whole batch and return the whole logits on every
-rank. A cache split by sequence (``shard_seq``, or kv heads the ``model``
-axis does not divide) and a MoE batch whose rank's tokens would route in
-other groups than one process's (serving: where a group could drop slots,
-``models.moe.rank_groups_match``; training under FSDP: any split group,
-``models.moe.rank_groups_equal``) raise ``NotImplementedError``
-(ROADMAP A12b-3b).
+rank. A cache split by sequence keeps the reference's spec: over
+``model`` where the kv heads do not divide it (the world rule
+``kv_whole``), over ``data`` under ``shard_seq``, whose batch and decode
+token are whole on every ``data`` rank (each runs the whole prefill, and
+the logits need no gather); the decode combines the ranks' partial
+softmaxes (``models.layers.seq_split``). A MoE batch whose rank rows split
+a routing group routes each token in one process's group: the ranks
+gather their expert choices over the rows' axis and rebuild one process's
+slots (``models.moe.routing``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -93,7 +98,6 @@ from repro_torch.core.strategy import (Strategy, build_strategy,
                                        weighted_mean_share)
 from repro_torch.models import Model, build
 from repro_torch.models import layers as L
-from repro_torch.models import moe
 from repro_torch.sharding import (DeviceMesh, ShardingPolicy, _k,
                                   axis_names, gather_over, gather_tree,
                                   local_shard, mesh_device, reduce_over)
@@ -264,8 +268,9 @@ def _dot64(a: torch.Tensor, b: torch.Tensor,
 
 def _data_mean(grads, n: int):
     """One participant's gradient from the sum over its ``n`` FSDP ranks
-    of their gradients, each of the mean loss over the rank's rows: the
-    mean over the ranks (equal row counts)."""
+    of their gradients, each of the rank's loss (the mean over its rows,
+    or its share of the participant's masked mean scaled by ``n``,
+    ``layers.token_mean``): the mean over the ranks."""
     return tree_map(lambda g: g / n, grads)
 
 
@@ -558,7 +563,8 @@ class DistributedTrainer:
     def _in_world(self):
         """The layers' collectives of a world's step: tensor parallelism
         where the policy splits ``model``, FSDP where it splits ``data``
-        (``cfg.remat`` honoured; the loss's means over every rank's rows)."""
+        (``cfg.remat`` honoured; the loss's means over every rank's rows,
+        ``layers.split_rows``)."""
         world = self.world
         tp = world is not None and self.policy.splits_model
         fsdp = world is not None and self.policy.splits_data
@@ -568,7 +574,9 @@ class DistributedTrainer:
             dims = fsdp_dims(one, self._one_spec(one), self.policy.fsdp_axis)
         with L.tensor_parallel(world if tp else None), \
                 L.fully_sharded(world if fsdp else None, dims,
-                                remat=self.cfg.remat, mean_rows=True):
+                                remat=self.cfg.remat), \
+                L.split_rows(world if fsdp else None, self.policy.batch_axis,
+                             means=True):
             yield
 
     def _local_batch(self, batch):
@@ -594,30 +602,18 @@ class DistributedTrainer:
             return self._grads_fn()(state.params, batch)
 
     def _participant_rows(self, batch):
-        """This rank's rows of each participant's batch (``batch_axis``,
-        dim 2 of ``(P, E, B, ...)``) under FSDP. Rows ``data`` does not
-        divide raise ``ValueError``; a ``mask`` raises (the participant's
-        loss is the mean over its valid tokens, not the mean of the ranks'
-        means), as does a MoE batch whose rank rows split a routing group
-        (ROADMAP A12b-3b)."""
+        """This rank's contiguous rows of each participant's batch
+        (``batch_axis``, dim 2 of ``(P, E, B, ...)``) under FSDP; rows
+        ``data`` does not divide raise ``ValueError``. The loss's means
+        over them are the participant's (``layers.split_rows``: a masked
+        mean over the participant's valid tokens, the MoE's routing groups
+        and load-balance loss one process's)."""
         axis = self.policy.batch_axis
         n = self.world.axis_size(axis)
-        tokens = batch["tokens"]
-        B = tokens.shape[2]
+        B = batch["tokens"].shape[2]
         if B % n:
             raise ValueError(f"a participant's {B} rows over {n} "
                              f"{axis} ranks")
-        if "mask" in batch:
-            raise NotImplementedError(
-                f"a masked batch with its rows split over {axis}: the "
-                "mean over the valid tokens is not the mean of the ranks' "
-                "means")
-        per_step = B * math.prod(tokens.shape[3:])
-        if self.cfg.family == "moe" and not moe.rank_groups_equal(
-                self.cfg, per_step, n):
-            raise NotImplementedError(
-                f"training on {per_step} tokens a participant in routing "
-                f"groups split over {n} {axis} ranks (ROADMAP A12b-3b)")
         return _rows(batch, self.world, axis, B // n, dim=2)
 
     def _clip(self, grads):
@@ -725,9 +721,6 @@ class Server:
         self.mesh, self.device = _mesh_and_device(mesh, mesh_cfg, device)
         self.shard_seq = shard_seq
         self.world = _world_of(self.mesh)
-        if self.world is not None and shard_seq:
-            raise NotImplementedError("a cache split by sequence across "
-                                      "ranks (ROADMAP A12b-3b)")
         self._dims = None
 
     def init_params(self, seed: int = 0):
@@ -768,22 +761,21 @@ class Server:
 
     def shard_cache(self, cache):
         """Place a whole cache by its specs (in a world: this rank's
-        slices, batch rows over ``data`` and kv or state heads over
-        ``model``, under the world's rules; a spec that splits the sequence
-        raises)."""
+        slices, batch rows over ``data``, kv or state heads over ``model``
+        and the sequence over the axis the spec names, under the world's
+        rules). A world's placed cache carries the axes that split its
+        sequence under ``"seq_axes"`` (``{"k": axis, "xk": axis}``, None:
+        whole), which :meth:`prefill` and :meth:`decode` read from the
+        cache they are given (a cache without them is taken whole along
+        its sequence)."""
         spec = self.policy.cache_spec(cache, shard_seq=self.shard_seq,
                                       world=self.world is not None)
         if self.world is not None:
-            for (path, _), s in zip(tree_flatten_with_path(cache)[0],
-                                    tree_flatten(cache)[1].flatten_up_to(
-                                        spec)):
-                if _k(path[-1]) in ("k", "v", "xk", "xv") and s[2]:
-                    raise NotImplementedError(
-                        f"a cache spec {s} splits the sequence (kv heads "
-                        "the model axis does not divide; ROADMAP A12b-3b)")
             cache = tree_map(lambda x: x.to(self.device)
                              if isinstance(x, torch.Tensor) else x, cache)
-            return local_shard(cache, spec, self.world)
+            return dict(local_shard(cache, spec, self.world),
+                        seq_axes={name: ShardingPolicy.seq_axis(spec, name)
+                                  for name in ("k", "xk")})
         return _place(cache, spec, self.policy, self.device)
 
     def jit_prefill(self, params_t, batch_t, cache_t):
@@ -809,23 +801,20 @@ class Server:
 
     def _serve(self, fn, params, batch, cache):
         """``fn(params, batch, cache)``; in a world, on this rank's batch
-        rows (``data``) and shards (``model`` where the policy splits it;
-        ``data`` too under FSDP, each leaf gathered where it is read), the
-        logits gathered over ``data``: every rank returns the whole logits
-        and its own cache."""
+        rows (``data``; under ``shard_seq`` the whole batch) and shards
+        (``model`` where the policy splits it; ``data`` too under FSDP,
+        each leaf gathered where it is read) and on its chunk of the
+        cache's sequence (the cache's ``seq_axes``, ``layers.seq_split``),
+        the logits gathered over
+        ``data`` where the rows were split: every rank returns the whole
+        logits and its own cache."""
         if self.world is None:
             return fn(params, batch, cache)
-        tokens = tree_leaves(batch)[0]
-        B = tokens.shape[0]
-        n = self.world.axis_size("data")
+        B = tree_leaves(batch)[0].shape[0]
+        rows = None if self.shard_seq else "data"
+        n = self.world.axis_size(rows)
         if B % n:
             raise ValueError(f"a batch of {B} over {n} data ranks")
-        if self.cfg.family == "moe" and not moe.rank_groups_match(
-                self.cfg, tokens.numel(), n):
-            raise NotImplementedError(
-                f"routing {tokens.numel()} tokens in groups split over {n} "
-                "data ranks, where a group could drop other slots than one "
-                "process's (ROADMAP A12b-3b)")
         fsdp = self.policy.splits_data
         if fsdp and self._dims is None:
             meta = self.model.init(torch.Generator().manual_seed(0), "meta")
@@ -835,8 +824,11 @@ class Server:
         with L.tensor_parallel(self.world if self.policy.splits_model
                                else None), \
                 L.fully_sharded(self.world if fsdp else None,
-                                self._dims or {}):
-            logits, cache = fn(params, _rows(batch, self.world, "data",
+                                self._dims or {}), \
+                L.split_rows(self.world, rows), \
+                L.seq_split(self.world, cache.get("seq_axes", {})):
+            logits, cache = fn(params, _rows(batch, self.world, rows,
                                              B // n), cache)
-        return collectives.all_gather(logits, self.world.group("data")), \
-            cache
+        if n > 1:
+            logits = collectives.all_gather(logits, self.world.group(rows))
+        return logits, cache

@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch 4 --prompt-len 32 --new-tokens 16 [--devices 8] \\
-        [--full-size] [--set use_flash=true] [--device cpu] [--world]
+        [--full-size] [--set use_flash=true] [--device cpu] [--world] \\
+        [--shard-seq]
 
 Runs the reduced config by default and the published one with
 ``--full-size``, on the card unless ``--device`` names another. Weights come
@@ -29,7 +30,16 @@ ranks, one process a device (``launch.world``): the batch is split over
 the flash kernel on its own heads), every rank holds the whole logits and
 so draws the same tokens, and rank 0 prints the lines. :func:`main` then
 returns rank 0's results with ``ranks``, each rank's report
-(``launch.world.rank_report``).
+(``launch.world.rank_report``). ``--shard-seq`` splits the cache's
+sequence over ``data`` instead of the batch (the reference's long-context
+serving, ``long_500k``): every ``data`` rank runs the whole batch, and
+the decode combines the ranks' partial softmaxes. Where the kv heads are
+whole over ``model`` (the world rule ``kv_whole``) the cache's sequence
+splits over ``model``. In a world the cache's length is rounded up to a
+multiple of the world's size, so that the axis its spec splits the
+sequence over divides it (the positions past the prompt and the new
+tokens are never valid, so the logits are those of the unrounded cache);
+each rank's report names that axis (``seq_axes``, the placed cache's).
 
 ``main(argv, teacher=ids)`` feeds the decode steps the ``(B, >=
 new_tokens - 1)`` ``ids`` in place of its own greedy tokens and returns
@@ -73,6 +83,9 @@ def parse_args(argv=None):
     ap.add_argument("--world", action="store_true",
                     help="with --devices N: a world of N ranks, one "
                          "process a device (launch.world)")
+    ap.add_argument("--shard-seq", action="store_true",
+                    help="split the cache's sequence over data, not the "
+                         "batch")
     return ap.parse_args(argv)
 
 
@@ -95,7 +108,8 @@ def _serve_rank(world, args, teacher):
 
     t0 = time.perf_counter()  # noqa: DL002(a rank's seconds, reported only)
     out = serve(args, teacher, quiet=world.rank != 0)
-    out["report"] = rank_report(world, time.perf_counter() - t0)  # noqa: DL002(a rank's seconds, reported only)
+    out["report"] = dict(rank_report(world, time.perf_counter() - t0),  # noqa: DL002(a rank's seconds, reported only)
+                         seq_axes=out.pop("seq_axes"))
     if world.rank != 0:
         out.pop("step_logits", None)
     return out
@@ -125,10 +139,12 @@ def serve(args, teacher=None, quiet: bool = False):
         mesh_cfg = MeshConfig(data=1, model=1)
 
     mesh = make_mesh_from_config(mesh_cfg, args.device)
-    server = Server(cfg, mesh_cfg, mesh=mesh)
+    server = Server(cfg, mesh_cfg, mesh=mesh, shard_seq=args.shard_seq)
     dev = server.device
     n_img = cfg.image_tokens * cfg.anyres_tiles if cfg.family == "vlm" else 0
     max_len = args.prompt_len + args.new_tokens + 8 + n_img
+    if server.world is not None:
+        max_len = -(-max_len // mesh.size) * mesh.size
 
     params = server.init_params(args.seed)
     cache = server.shard_cache(server.model.init_cache(args.batch, max_len,
@@ -181,7 +197,7 @@ def serve(args, teacher=None, quiet: bool = False):
               f"decode={t_decode:.3f}s ({tps:.1f} tok/s)")
         print(f"[serve] sample output ids: {toks[0, :12].tolist()}")
     out = {"arch": cfg.name, "devices": mesh.size, "tokens": toks,
-           "prefill_seconds": t_prefill,
+           "seq_axes": cache.get("seq_axes"), "prefill_seconds": t_prefill,
            "decode_seconds": t_decode, "decode_tokens_per_s": tps}
     if steps is not None:
         out["step_logits"] = steps

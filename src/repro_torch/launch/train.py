@@ -254,6 +254,14 @@ def _mesh_rounds(args, quiet: bool = False):
 def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` when None) and run; returns the
     session's result (``--mode sim``) or :func:`run_mesh`'s."""
+    args = parse_args(argv)
+    if args.mode == "mesh":
+        return run_mesh(args)
+    return run_sim(args)
+
+
+def parse_args(argv=None):
+    """The options of :func:`main` (``sys.argv[1:]`` when None)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="sim", choices=["sim", "mesh"])
     ap.add_argument("--algo", default="modest",
@@ -295,10 +303,7 @@ def main(argv=None):
     ap.add_argument("--world", action="store_true",
                     help="mesh mode: a world of --devices ranks, one "
                          "process a device (launch.world)")
-    args = ap.parse_args(argv)
-    if args.mode == "mesh":
-        return run_mesh(args)
-    return run_sim(args)
+    return ap.parse_args(argv)
 
 
 if __name__ == "__main__":

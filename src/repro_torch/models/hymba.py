@@ -222,8 +222,8 @@ def _stack(params, cfg, x, states, cache=None):
             _hybrid_block, params, i, cfg, x, positions, mask,
             {"conv": states["conv"][i], "ssm": states["ssm"][i]})
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            L.write_prefill(cache["k"][i], k)
+            L.write_prefill(cache["v"][i], v)
             cache["conv"][i] = mstate["conv"]
             cache["ssm"][i] = mstate["ssm"]
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
@@ -268,7 +268,7 @@ def prefill(params, cfg, batch, cache):
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
     x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)
-    kpos = torch.arange(cache["k"].shape[2], device=x.device)
+    kpos = L.cache_positions(cache["k"])
     valid = kpos <= pos
     if cfg.window:
         valid &= (pos - kpos) < cfg.window

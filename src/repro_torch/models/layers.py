@@ -26,6 +26,30 @@ leading axis (:func:`expert_split`, ``models/moe.py``). A layer reads from
 its weights' shapes whether they are split: a dimension that the rules
 replicate (a vocab or head count the axis does not divide,
 ``replicate_attention``) needs no collective. The residual stream and the norms stay replicated.
+Where the axis divides the query heads but not the kv heads (the world
+rule ``kv_whole``), ``wk`` and ``wv`` are whole on every rank: a rank's
+query heads read their kv group's columns, and *f* on the weights sums
+their gradient over the group (:func:`_local_heads`).
+
+A cache split by sequence (:func:`seq_split`: T over ``model`` where the
+kv heads do not divide it, or over ``data`` under ``shard_seq``): rank
+``r`` of ``n`` holds the positions ``[r T/n, (r+1) T/n)`` of every kv
+head of its cache. Every write goes through :func:`write_prefill` (the
+positions of the rank's chunk) or the decode (the new token on the rank
+that owns ``pos``); the models build their validity vectors over global
+positions (:func:`cache_positions`). A decode computes fp32 partials over
+the rank's chunk (the row max ``m``, the sum of exponentials ``l``, the
+weighted values ``o``), gathers them over the chunk's axis in one
+``all_gather`` a layer and combines them in rank order, so that every rank
+holds the same bits (:func:`_cached_attention`); a chunk with no valid
+position has ``l = o = 0``. Where T is split over ``model``, the rank
+gathers ``q`` over ``model`` first, attends with every head and keeps its
+own heads' output for its row-parallel ``wo``.
+
+Rows split over ranks (:func:`split_rows`: serving's batch over ``data``,
+FSDP's participant rows): a MoE layer routes its own tokens in the
+one-process groups (``models/moe.py``), and under training the means over
+the rows (:func:`rows_mean`, :func:`token_mean`) are one participant's.
 
 FSDP (a world's ``data`` axis at ``pod`` granularity, :func:`fully_sharded`):
 a rank holds its ``data`` slice of every leaf the rules split there (the
@@ -92,23 +116,19 @@ def tensor_parallel(mesh, axis: str = "model"):
 class FullyShardedData(NamedTuple):
     """The group of the FSDP axis, its size, the dimension each leaf is
     split along (by its '/'-joined path; a layer's leaves by their path
-    under the stack, the layer axis taken off; absent: whole), whether
-    blocks recompute their forward for the backward (``cfg.remat``), and
-    whether the rows of one participant's batch are split over the group
-    (training: its means are taken over every rank's rows)."""
+    under the stack, the layer axis taken off; absent: whole), and whether
+    blocks recompute their forward for the backward (``cfg.remat``)."""
     group: Any
     size: int
     dims: Dict[str, int]
     remat: bool
-    mean_rows: bool
 
 
 _FSDP: Optional[FullyShardedData] = None
 
 
 @contextmanager
-def fully_sharded(mesh, dims: Dict[str, int], *, remat: bool = False,
-                  mean_rows: bool = False):
+def fully_sharded(mesh, dims: Dict[str, int], *, remat: bool = False):
     """Run the layers with the leaves of ``dims`` split over the ``data``
     axis of a world's ``mesh`` (the rules' FSDP axis) and gathered where
     they are read (a no-op for a mesh outside a world, for None, and for
@@ -118,13 +138,112 @@ def fully_sharded(mesh, dims: Dict[str, int], *, remat: bool = False,
     if (mesh is not None and getattr(mesh, "in_world", False)
             and mesh.axis_size("data") > 1):
         _FSDP = FullyShardedData(mesh.group("data"), mesh.axis_size("data"),
-                                 dict(dims), remat, mean_rows)
+                                 dict(dims), remat)
     else:
         _FSDP = None
     try:
         yield _FSDP
     finally:
         _FSDP = prev
+
+
+class RowSplit(NamedTuple):
+    """The rows of a batch split over a world's axis, in contiguous
+    blocks: the axis's group, this rank's index and its size, and whether
+    the loss's means are one participant's over every rank's rows
+    (training; serving discards the MoE's load-balance loss)."""
+    group: Any
+    rank: int
+    size: int
+    means: bool
+
+
+_ROWS: Optional[RowSplit] = None
+
+
+@contextmanager
+def split_rows(mesh, axis, *, means: bool = False):
+    """Run the layers on this rank's contiguous block of a batch's rows,
+    split over ``axis`` of a world's ``mesh`` (a no-op for a mesh outside
+    a world, for None, and for an axis of size 1)."""
+    global _ROWS
+    prev = _ROWS
+    if (mesh is not None and getattr(mesh, "in_world", False)
+            and mesh.axis_size(axis) > 1):
+        _ROWS = RowSplit(mesh.group(axis), mesh.axis_index(axis),
+                         mesh.axis_size(axis), means)
+    else:
+        _ROWS = None
+    try:
+        yield _ROWS
+    finally:
+        _ROWS = prev
+
+
+def row_split() -> Optional[RowSplit]:
+    """The rows' split of :func:`split_rows`, or None."""
+    return _ROWS
+
+
+class SeqChunk(NamedTuple):
+    """A cache's sequence split over a world's axis (its name): the
+    axis's group, this rank's index on it and its size."""
+    axis: str
+    group: Any
+    rank: int
+    size: int
+
+
+_SEQ: Dict[str, SeqChunk] = {}
+
+
+@contextmanager
+def seq_split(mesh, axes: Dict[str, Optional[str]]):
+    """Run the layers with the caches of ``axes`` (``{"k": axis, "xk":
+    axis}``: the self-attention's keys and values, Whisper's cross cache;
+    None: whole) split by sequence over those axes of a world's ``mesh``
+    (an axis of size 1, or a mesh outside a world, splits nothing)."""
+    global _SEQ
+    prev = _SEQ
+    on = mesh is not None and getattr(mesh, "in_world", False)
+    _SEQ = {name: SeqChunk(a, mesh.group(a), mesh.axis_index(a),
+                           mesh.axis_size(a))
+            for name, a in axes.items()
+            if on and a is not None and mesh.axis_size(a) > 1}
+    try:
+        yield _SEQ
+    finally:
+        _SEQ = prev
+
+
+def _chunk(cache, which: str):
+    """``(chunk, first, T)`` of one layer's cache ``(B, T_local, ...)``:
+    its :class:`SeqChunk` (None: whole), its first global position and
+    the whole cache's length."""
+    c = _SEQ.get(which)
+    n = cache.shape[1]
+    return (c, c.rank * n, c.size * n) if c is not None else (None, 0, n)
+
+
+def cache_positions(cache, which: str = "k"):
+    """The global positions ``arange(T)`` of a layer-stacked cache leaf
+    ``(L, B, T_local, ...)`` (the models' validity vectors are built over
+    them, so windows and local/global layers read the same positions on
+    every rank)."""
+    return torch.arange(_chunk(cache[0], which)[2], device=cache.device)
+
+
+def write_prefill(dst, src, which: str = "k"):
+    """Write a prompt's keys or values ``src`` (B, S, KV, hd), positions
+    ``0 .. S-1``, into one layer's cache ``dst`` (B, T_local, KV, hd):
+    under :func:`seq_split`, the positions of this rank's chunk only."""
+    _, lo, T = _chunk(dst, which)
+    if src.shape[1] > T:
+        raise IndexError(f"a prompt of {src.shape[1]} positions into a "
+                         f"cache of {T}")
+    n = min(src.shape[1] - lo, dst.shape[1])
+    if n > 0:
+        dst[:, :n] = src[:, lo:lo + n]
 
 
 def _gathered(x, path: str):
@@ -157,17 +276,38 @@ def remat() -> bool:
     return _FSDP is not None and _FSDP.remat and torch.is_grad_enabled()
 
 
-def rows_mean(x):
-    """A mean over one participant's rows (``x`` this rank's): under
-    :func:`fully_sharded` with the rows split over the group, the mean of
-    the ranks' means (equal row counts), whose gradient reaches every
-    rank's ``x`` as one process's would (the group's sum both ways: each
-    rank's loss holds the whole mean, and the step takes the mean of the
-    ranks' gradients); else ``x``."""
-    if _FSDP is None or not _FSDP.mean_rows:
+def rows_sum(x):
+    """A sum over one participant's rows (``x`` this rank's part): under
+    :func:`split_rows` with ``means``, the group's sum, whose gradient
+    reaches every rank's ``x`` as one process's would (the group's sum
+    both ways: each rank's loss holds the whole sum, and the step takes the
+    mean of the ranks' gradients); else ``x``."""
+    if _ROWS is None or not _ROWS.means:
         return x
-    y = collectives.copy_to_group(x, _FSDP.group)
-    return collectives.reduce_from_group(y, _FSDP.group) / _FSDP.size
+    y = collectives.copy_to_group(x, _ROWS.group)
+    return collectives.reduce_from_group(y, _ROWS.group)
+
+
+def rows_mean(x):
+    """A mean over one participant's rows (``x`` this rank's mean): the
+    mean of the ranks' means (equal row counts) under :func:`split_rows`
+    with ``means`` (:func:`rows_sum`); else ``x``."""
+    if _ROWS is None or not _ROWS.means:
+        return x
+    return rows_sum(x) / _ROWS.size
+
+
+def token_mean(total, count):
+    """A loss's mean ``total / count`` over valid tokens. Under
+    :func:`split_rows` with ``means`` the count is the participant's (one
+    all-reduce over the group), and the rank's share is scaled by the
+    group's size, so that the mean of the ranks' losses and of their
+    gradients (the step's) is one process's, however unequal the ranks'
+    valid counts."""
+    if _ROWS is None or not _ROWS.means:
+        return total / torch.clamp_min(count, 1.0)
+    n = collectives.all_reduce(count.detach().clone(), _ROWS.group)
+    return total * _ROWS.size / torch.clamp_min(n, 1.0)
 
 
 def _copy_in(x, split: bool):
@@ -452,7 +592,7 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
     """
     B, S, d = x.shape
     hd = cfg.resolved_head_dim()
-    H, KV, split, wk, wv = _local_heads(p, cfg)
+    H, KV, split, kv, wk, wv = _local_heads(p, cfg)
     own_kv = kv_override is x
     x = _copy_in(x, split)
     q = _split_heads(x @ p["wq"], H, hd)
@@ -465,7 +605,8 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
         k = rope(k, positions, cfg.rope_theta)
         if (cfg.use_flash and not cfg.attn_softcap and not window
                 and not cfg.local_global_alt and S % 128 == 0):
-            out = flash_attention_bshd(q, k, v, causal=True)
+            out = flash_attention_bshd(q, k[:, :, kv], v[:, :, kv],
+                                       causal=True)
             out = out.reshape(B, S, H * hd) @ p["wo"]
             return _reduce_out(out, split), (k, v)
         if mask is None:
@@ -474,27 +615,40 @@ def attention(p, x, cfg, *, window: int = 0, positions=None,
         enc = x if own_kv else kv_override
         k = _split_heads(enc @ wk, KV, hd)
         v = _split_heads(enc @ wv, KV, hd)
-    scores = _gqa_scores(q, k, KV)
+    ka, va = k[:, :, kv], v[:, :, kv]
+    scores = _gqa_scores(q, ka, ka.shape[2])
     scores = softcap(scores, cfg.attn_softcap)
     if mask is not None:
         scores = torch.where(mask[None, :, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, v, H).to(x.dtype) @ p["wo"]
+    out = _gqa_out(probs, va, H).to(x.dtype) @ p["wo"]
     return _reduce_out(out, split), (k, v)
 
 
+def _kv_whole_in(w):
+    """Megatron's *f* on a key or value weight that is whole on every rank
+    of the group (the world rule ``kv_whole``): the identity forward; the
+    group's sum of its gradient backward, since each rank's query heads
+    read only their group's columns."""
+    return collectives.copy_to_group(w, _TP.group)
+
+
 def _local_heads(p, cfg):
-    """``(H, KV, split, wk, wv)``: the query and key/value heads of this
-    rank's attention weights, whether they are split over the
-    tensor-parallel group, and the key and value projections of the kv
-    heads its query heads meet. Where the rules replicate the kv
-    projections (kv heads the axis does not divide) and split the query
-    heads, the rank takes the columns of its own query heads' kv heads."""
+    """``(H, KV, split, kv, wk, wv)``: the query heads of this rank's
+    attention weights, the kv heads of its key and value weights, whether
+    the query heads are split over the tensor-parallel group, the slice of
+    the kv heads its query heads meet, and the key and value weights.
+    Where the rules keep the kv projections whole (``kv_whole``: kv heads
+    the axis does not divide) and split the query heads, the rank's query
+    heads meet their own group's kv heads, and the weights' gradient is
+    summed over the group (:func:`_kv_whole_in`). The keys and values of
+    every kv head the weights hold are what a cache keeps."""
     hd = cfg.resolved_head_dim()
     H = p["wq"].shape[1] // hd
     KV = p["wk"].shape[1] // hd
     wk, wv = p["wk"], p["wv"]
     split = _TP is not None and H != cfg.n_heads
+    kv = slice(0, KV)
     if split and KV == cfg.n_kv_heads:
         g = cfg.n_heads // cfg.n_kv_heads
         first = _TP.rank * H
@@ -503,9 +657,9 @@ def _local_heads(p, cfg):
             raise NotImplementedError(
                 f"{H} query heads a rank over {cfg.n_kv_heads} replicated "
                 "kv heads do not fall into whole groups")
-        wk, wv = wk[:, lo * hd:hi * hd], wv[:, lo * hd:hi * hd]
-        KV = hi - lo
-    return H, KV, split, wk, wv
+        kv = slice(lo, hi)
+        wk, wv = _kv_whole_in(wk), _kv_whole_in(wv)
+    return H, KV, split, kv, wk, wv
 
 
 def attention_decode(p, x, cache_k, cache_v, pos: int, cfg, *,
@@ -518,7 +672,7 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg, *,
     into the caches in place (the reference's serving loop donates its
     cache). Returns (out (B,1,d), cache_k, cache_v).
     """
-    kpos = torch.arange(cache_k.shape[1], device=x.device)
+    kpos = torch.arange(_chunk(cache_k, "k")[2], device=x.device)
     valid = kpos <= pos
     if window:
         valid &= (pos - kpos) < window
@@ -527,15 +681,19 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg, *,
 
 def attention_decode_masked(p, x, cache_k, cache_v, pos: int, cfg, valid):
     """:func:`attention_decode` with the validity vector over the cache's
-    T positions given (the model chooses local or global by layer). A
-    ``pos`` past the cache raises (the reference's ``dynamic_update_slice``
-    clamps it and overwrites the last slot; ROADMAP C10)."""
-    if pos >= cache_k.shape[1]:
+    T global positions given (the model chooses local or global by layer).
+    A ``pos`` past the cache raises (the reference's
+    ``dynamic_update_slice`` clamps it and overwrites the last slot;
+    ROADMAP C10). Under :func:`seq_split` the new key and value go into
+    the cache of the rank whose chunk holds ``pos``, and the attention
+    combines the ranks' partials (:func:`_cached_attention`)."""
+    _, lo, T = _chunk(cache_k, "k")
+    if pos >= T:
         raise IndexError(f"decode at position {pos} of a cache of "
-                         f"{cache_k.shape[1]} positions")
+                         f"{T} positions")
     B = x.shape[0]
     hd = cfg.resolved_head_dim()
-    H, KV, split, wk, wv = _local_heads(p, cfg)
+    H, KV, split, kv, wk, wv = _local_heads(p, cfg)
     x = _copy_in(x, split)
     q = _split_heads(x @ p["wq"], H, hd)
     k_new = _split_heads(x @ wk, KV, hd)
@@ -543,14 +701,13 @@ def attention_decode_masked(p, x, cache_k, cache_v, pos: int, cfg, valid):
     posv = torch.full((B, 1), pos, device=x.device)
     q = rope(q, posv, cfg.rope_theta)
     k_new = rope(k_new, posv, cfg.rope_theta)
-    cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
-    scores = _gqa_scores(q, cache_k, KV)                    # (B,1,KV,G,T)
-    scores = softcap(scores, cfg.attn_softcap)
-    scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = _gqa_out(probs, cache_v, H).to(x.dtype)
-    return _reduce_out(out @ p["wo"], split), cache_k, cache_v
+    at = pos - lo
+    if 0 <= at < cache_k.shape[1]:
+        cache_k[:, at:at + 1] = k_new.to(cache_k.dtype)
+        cache_v[:, at:at + 1] = v_new.to(cache_v.dtype)
+    out = _cached_attention(q, cache_k, cache_v,
+                            valid[lo:lo + cache_k.shape[1]], cfg, "k", kv)
+    return _reduce_out(out.to(x.dtype) @ p["wo"], split), cache_k, cache_v
 
 
 def cross_attention_decode(p, x, xk, xv, cfg):
@@ -559,14 +716,74 @@ def cross_attention_decode(p, x, xk, xv, cfg):
     visible. Under :func:`tensor_parallel` the rank's query heads (from
     ``wq``'s width) meet the rank's kv heads of the cache, and the output
     of ``wo`` is summed over the group, as in
-    :func:`attention_decode_masked`."""
+    :func:`attention_decode_masked`; under :func:`seq_split` the ranks'
+    partials over their frames are combined."""
     hd = cfg.resolved_head_dim()
-    H, KV, split, _, _ = _local_heads(p, cfg)
+    H, _, split, kv, _, _ = _local_heads(p, cfg)
     x = _copy_in(x, split)
     q = _split_heads(x @ p["wq"], H, hd)
-    probs = torch.softmax(_gqa_scores(q, xk, KV), dim=-1)
-    out = _gqa_out(probs, xv, H).to(x.dtype)
-    return _reduce_out(out @ p["wo"], split)
+    out = _cached_attention(q, xk, xv, None, cfg, "xk", kv)
+    return _reduce_out(out.to(x.dtype) @ p["wo"], split)
+
+
+def _cached_attention(q, ck, cv, valid, cfg, which: str, kv):
+    """One token's attention, fp32 (B, 1, H*hd), of this rank's query heads
+    ``q`` (B, 1, H, hd) over one layer's cache ``ck`` / ``cv`` (B, T, KV,
+    hd), the positions of ``valid`` (T,) visible (None: all), the kv heads
+    of ``kv`` meeting the query heads.
+
+    Under :func:`seq_split` of the cache ``which``: fp32 partials over the
+    rank's chunk, gathered over the chunk's axis and combined in rank order
+    (:func:`combine_partials`). Where that axis is the tensor-parallel one
+    (T over ``model``; the cache holds every kv head), ``q`` is gathered
+    over it first, every head attends, and the rank keeps its own heads'
+    output."""
+    chunk = _SEQ.get(which)
+    H = q.shape[2]
+    over_model = (chunk is not None and chunk.axis == "model"
+                  and _TP is not None)
+    if over_model:
+        q = collectives.all_gather(q, chunk.group, dim=2)
+    else:
+        ck, cv = ck[:, :, kv], cv[:, :, kv]
+    scores = softcap(_gqa_scores(q, ck, ck.shape[2]), cfg.attn_softcap)
+    if valid is not None:
+        scores = torch.where(valid[None, None, None, None, :], scores, -1e30)
+    if chunk is None:
+        return _gqa_out(torch.softmax(scores, dim=-1), cv, H)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    if valid is not None:
+        e = e * valid.to(e.dtype)
+    l = torch.sum(e, dim=-1, keepdim=True)
+    o = torch.einsum("bskgt,btkh->bskgh", e, cv.to(torch.float32))
+    out = combine_partials(torch.cat([m, l, o], dim=-1), chunk.group)
+    B = out.shape[0]
+    out = out.reshape(B, 1, -1)
+    if over_model:
+        hd = q.shape[-1]
+        out = out[..., chunk.rank * H * hd:(chunk.rank + 1) * H * hd]
+    return out
+
+
+def combine_partials(part, group):
+    """The softmax-weighted values from every rank's partials ``part``
+    (``(..., 2 + hd)``: the row max ``m``, the sum of exponentials ``l``
+    and the weighted values ``o`` over the rank's positions, fp32),
+    gathered over ``group`` in one ``all_gather`` and combined in rank
+    order: ``sum_r e^(m_r - M) o_r / sum_r e^(m_r - M) l_r`` with ``M``
+    the largest ``m``. Every rank combines the same bits in the same
+    order. A rank with no valid position has ``l = o = 0`` (its ``m`` is
+    the mask's -1e30, below every valid row max), so it adds nothing."""
+    parts = collectives.all_gather(part[None], group, dim=0)
+    M = torch.amax(parts[..., :1], dim=0)
+    num = den = None
+    for r in range(parts.shape[0]):
+        w = torch.exp(parts[r, ..., :1] - M)
+        d, n = w * parts[r, ..., 1:2], w * parts[r, ..., 2:]
+        den = d if den is None else den + d
+        num = n if num is None else num + n
+    return num / den
 
 
 # ---------------------------------------------------------------------------
@@ -640,6 +857,8 @@ def chunked_softmax_xent(h, head_w, labels, chunk, *, softcap_v=0.0,
         gold = torch.gather(logits, -1, l_i[..., None].long())[..., 0]
         nll = nll + torch.sum((logz - gold) * m_i)
         denom = denom + torch.sum(m_i)
+    if mask is not None:
+        return token_mean(nll, denom)
     return nll / torch.clamp_min(denom, 1.0)
 
 
@@ -685,6 +904,8 @@ def vocab_parallel_xent(h, head_w, labels, chunk: int = 0, *,
             torch.where(ok, gold, torch.zeros_like(gold)), group)
         nll = nll + torch.sum((torch.log(sumexp) + top - gold) * m_i)
         denom = denom + torch.sum(m_i)
+    if mask is not None:
+        return token_mean(nll, denom)
     return nll / torch.clamp_min(denom, 1.0)
 
 
@@ -704,5 +925,5 @@ def softmax_xent(logits, labels, mask=None):
     nll = logz - gold
     if mask is not None:
         mask = mask.to(torch.float32)
-        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        return token_mean(torch.sum(nll * mask), torch.sum(mask))
     return torch.mean(nll)

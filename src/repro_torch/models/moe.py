@@ -27,15 +27,26 @@ split as in the dense family.
 
 Under FSDP (``layers.fully_sharded``) the experts' ``(M, F, None)`` slices
 and the router's ``(F, None)`` gather over ``data`` like any other leaf.
-Routing groups are a participant's, as in the reference: a training
-batch's rows split over ``data`` must fill whole groups on each rank
-(:func:`rank_groups_equal`), and the load-balance loss takes its means
-over every rank's rows (``layers.rows_mean``).
+
+Routing groups are one process's, as in the reference, wherever a world
+splits the rows of a batch over ranks (``layers.split_rows``: serving's
+batch over ``data``, FSDP's participant rows). Each rank routes its own
+tokens and gathers their top-k expert indices over the rows' axis; every
+rank then rebuilds one process's order of the slots in each group its
+tokens touch, the last group's padding included, so its own slots'
+``pos`` and ``keep`` are one process's, bit for bit (:func:`routing`).
+It fills only its own slots of the capacity buffers (an expert acts on
+each slot alone: no activation crosses ranks). The load-balance loss's
+``f`` and ``imp`` are one process's means over every token
+(``layers.rows_sum``). Where the rank's tokens fill whole groups
+(:func:`rank_groups_equal`), or, serving, no group can drop a slot
+(:func:`rank_groups_match`), they route alone, with no gather.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -108,44 +119,142 @@ def init(generator, cfg, device=None):
 # ---------------------------------------------------------------------------
 
 
-def routing(p, cfg, xg):
+class Span(NamedTuple):
+    """Where a world splits the tokens' rows over ranks (``layers.
+    split_rows``), this rank's place in one process's routing groups: the
+    rows' group and size, the one-process token count ``N``, group size
+    ``G`` and group count ``Gn``, the first group this rank's tokens touch
+    ``g0``, the place ``off`` of its first token in those groups, its
+    token count ``t``, and whether it holds the last token (and so counts
+    the padding in the load-balance loss)."""
+    group: Any
+    size: int
+    N: int
+    G: int
+    Gn: int
+    g0: int
+    off: int
+    t: int
+    last: bool
+
+
+def _choices(p, cfg, xg):
+    """The router's ``probs`` (Gn,G,E) and each token's normalised top-k
+    ``gates`` and expert ``idx`` (Gn,G,k), from a stable descending sort."""
+    k = cfg.moe_top_k
+    logits = xg.to(torch.float32) @ p["router"]                 # (Gn,G,E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :k], idx[..., :k]                   # (Gn,G,k)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    return probs, gates, idx
+
+
+def _slots(cfg, idx, C: int):
+    """Each (token, choice) slot's one-hot expert ``flat`` (Gn,G*k,E), its
+    place ``pos`` in its expert's buffer (the slots ahead of it in its
+    group) and ``keep`` (pos < C), fp32, from the experts ``idx``
+    (Gn,G,k)."""
+    Gn, G, k = idx.shape
+    flat = F.one_hot(idx, cfg.moe_num_experts).to(torch.float32).reshape(
+        Gn, G * k, -1)
+    prio = torch.cumsum(flat, dim=1) - flat                     # slots ahead
+    pos = torch.sum(prio * flat, dim=-1)                        # (Gn,G*k)
+    return flat, pos, (pos < C).to(torch.float32)
+
+
+def _own_slots(span: Span, ng: int, k: int, device, padding: bool = False):
+    """(ng, G*k) fp32: 1 at this rank's slots in the groups it touches
+    (``padding``: the last group's padding too, where this rank holds the
+    last token)."""
+    j = torch.arange(ng * span.G, device=device)
+    own = (j >= span.off) & (j < span.off + span.t)
+    if padding and span.last:
+        own |= j >= span.off + span.t
+    return own.to(torch.float32).repeat_interleave(k).reshape(ng, -1)
+
+
+def routing(p, cfg, xg, span: Optional[Span] = None):
     """Router of grouped tokens xg (Gn,G,d) -> dict of ``probs`` (Gn,G,E),
     normalised top-k ``gates`` and ``idx`` (Gn,G,k), each (token, choice)
     slot's place ``pos`` in its expert's buffer and ``keep`` (Gn,G*k), fp32,
     and ``C``, the slots an expert has in a group. The top k come from a stable descending sort,
     so equal probabilities (a padding token's are all equal) keep the lower
     expert first, as ``jax.lax.top_k`` does (``torch.topk`` breaks ties in
-    no set order); the cumulative priority depends on that order."""
-    E, k = cfg.moe_num_experts, cfg.moe_top_k
-    Gn, G = xg.shape[:2]
-    logits = xg.to(torch.float32) @ p["router"]                 # (Gn,G,E)
-    probs = torch.softmax(logits, dim=-1)
-    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = gates[..., :k], idx[..., :k]                   # (Gn,G,k)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    no set order); the cumulative priority depends on that order.
+
+    ``span``: ``xg`` holds this rank's tokens at their places in the
+    one-process groups they touch (zeros elsewhere). The ranks gather
+    their tokens' experts over the rows' group, and every rank rebuilds
+    the one-process order of the slots in those groups, the last group's
+    padding included (zero inputs: uniform probabilities, experts
+    ``0 .. k-1`` by the stable sort); its own slots' ``pos`` and ``keep``
+    are then one process's, and ``keep`` is 0 at every other slot. The
+    dict's ``every_keep`` is one process's ``keep`` at every slot of those
+    groups."""
+    k = cfg.moe_top_k
+    G = xg.shape[1]
+    probs, gates, idx = _choices(p, cfg, xg)
     C = capacity(cfg, G)
-    flat = F.one_hot(idx, E).to(torch.float32).reshape(Gn, G * k, E)
-    prio = torch.cumsum(flat, dim=1) - flat                     # slots ahead
-    pos = torch.sum(prio * flat, dim=-1)                        # (Gn,G*k)
-    keep = (pos < C).to(torch.float32)
-    return {"probs": probs, "gates": gates, "idx": idx, "flat": flat,
-            "pos": pos, "keep": keep, "C": C}
+    out = {"probs": probs, "gates": gates, "idx": idx, "C": C}
+    if span is None:
+        out["flat"], out["pos"], out["keep"] = _slots(cfg, idx, C)
+        return out
+    mine = idx.reshape(-1, k)[span.off:span.off + span.t]
+    every = collectives.all_gather(mine, span.group, dim=0)         # (N,k)
+    pad = torch.arange(k, device=idx.device).expand(span.Gn * G - span.N, k)
+    touched = torch.cat([every, pad])[span.g0 * G:
+                                      span.g0 * G + idx.numel() // k]
+    out["flat"], out["pos"], out["every_keep"] = _slots(
+        cfg, touched.reshape(idx.shape), C)
+    out["keep"] = out["every_keep"] * _own_slots(span, xg.shape[0], k,
+                                                 xg.device)
+    return out
+
+
+def _span(cfg, t: int) -> Optional[Span]:
+    """This rank's :class:`Span` where a world splits the rows
+    (``layers.split_rows``) and its ``t`` tokens would not route alone as
+    one process's do; None where they do (:func:`rank_groups_equal` for
+    training, whose load-balance loss counts too; :func:`rank_groups_match`
+    for serving, which discards it) or where no world splits the rows."""
+    rows = L.row_split()
+    if rows is None:
+        return None
+    n, N = rows.size, t * rows.size
+    alone = rank_groups_equal if rows.means else rank_groups_match
+    if alone(cfg, N, n):
+        return None
+    G = min(cfg.moe_group_size, N)
+    a = rows.rank * t
+    return Span(rows.group, n, N, G, -(-N // G), a // G, a % G, t,
+                rows.rank == n - 1)
 
 
 def moe_ffn(p, cfg, x):
-    """x: (B,S,d) -> (out (B,S,d), aux_loss scalar)."""
+    """x: (B,S,d) -> (out (B,S,d), aux_loss scalar). Where a world splits
+    the rows and a rank's tokens would route in other groups than one
+    process's (:func:`_span`), they route in one process's groups
+    (:func:`routing`), their buffers holding only their own slots (an
+    expert acts on each slot alone), and the load-balance loss counts
+    every token of every rank, padding included (``layers.rows_sum``)."""
     B, S, d = x.shape
     tokens = B * S
-    G = min(cfg.moe_group_size, tokens)
-    Gn = -(-tokens // G)
-    pad = Gn * G - tokens
+    span = _span(cfg, tokens)
     xt = x.reshape(tokens, d)
-    if pad:
-        xt = F.pad(xt, (0, 0, 0, pad))
+    if span is None:
+        G = min(cfg.moe_group_size, tokens)
+        Gn = -(-tokens // G)
+        off, n_all = 0, Gn * G
+        xt = F.pad(xt, (0, 0, 0, Gn * G - tokens))
+    else:
+        G, off, n_all = span.G, span.off, span.Gn * span.G
+        Gn = (off + tokens - 1) // G + 1                        # touched
+        xt = F.pad(xt, (0, 0, off, Gn * G - off - tokens))
     xg = xt.reshape(Gn, G, d)
 
     E, k = cfg.moe_num_experts, cfg.moe_top_k
-    r = routing(p, cfg, xg)
+    r = routing(p, cfg, xg, span)
     C = r["C"]
     # one-hot of each slot's place; an overflowed slot (pos >= C) gets an
     # all-zero row, as jax.nn.one_hot gives (F.one_hot would raise)
@@ -174,15 +283,22 @@ def moe_ffn(p, cfg, x):
     if split is not None:
         out = collectives.reduce_from_group(out, split[1])
 
-    out = out.reshape(Gn * G, d)[:tokens].reshape(B, S, d)
+    out = out.reshape(Gn * G, d)[off:off + tokens].reshape(B, S, d)
     if "dense" in p:                                            # arctic
         out = out + L.swiglu(p["dense"], x, cfg.moe_dense_ff)
 
     # Switch-style load-balance loss: E·Σ_e f_e·p_e == 1 at uniform routing
-    # token share and router mass: under FSDP the means over every rank's
-    # rows of the participant (layers.rows_mean)
-    f = L.rows_mean(dispatch.sum(dim=3).mean(dim=(0, 1)) / k)
-    imp = L.rows_mean(r["probs"].mean(dim=(0, 1)))
+    # token share and router mass over every token of one process's groups:
+    # under a row split the group's sums (layers.rows_mean / rows_sum)
+    if span is None:
+        f = L.rows_mean(dispatch.sum(dim=3).mean(dim=(0, 1)) / k)
+        imp = L.rows_mean(r["probs"].mean(dim=(0, 1)))
+    else:
+        counted = _own_slots(span, Gn, k, x.device, padding=True)
+        f = L.rows_sum(torch.einsum("gse,gs->e", r["flat"],
+                                    r["every_keep"] * counted)) / (n_all * k)
+        tok = counted.reshape(Gn, G, k)[..., 0]
+        imp = L.rows_sum(torch.einsum("gte,gt->e", r["probs"], tok)) / n_all
     aux = E * torch.sum(f * imp)
     return out, aux
 
@@ -198,7 +314,7 @@ def rank_groups_equal(cfg, tokens: int, n: int) -> bool:
     of ``n`` ranks routes fill whole groups of the one-process grouping
     (no padding on either side): then every group, and every mean over the
     groups (the load-balance loss's, ``layers.rows_mean``), is one
-    process's."""
+    process's, and the rank routes alone (:func:`_span`)."""
     G_all = min(cfg.moe_group_size, tokens)
     local = tokens // n
     return local % G_all == 0 and min(cfg.moe_group_size, local) == G_all
@@ -210,7 +326,7 @@ def rank_groups_match(cfg, tokens: int, n: int) -> bool:
     gives one process's dispatch: the rank's tokens fill whole groups of
     the one-process grouping (:func:`rank_groups_equal`), or no group on
     either side can drop a slot (each expert's capacity holds every token
-    of a group)."""
+    of a group). Serving's ranks then route alone (:func:`_span`)."""
     if rank_groups_equal(cfg, tokens, n):
         return True
     G_all = min(cfg.moe_group_size, tokens)
@@ -245,15 +361,14 @@ def _stack(params, cfg, x, positions, mask, cache=None):
     """The layer stack -> (final-normed h, mean aux loss); with a
     ``cache``, each layer's keys and values go into its first S
     positions."""
-    S = x.shape[1]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a, (k, v) = T.apply_layer(_block, params, i, cfg, x, positions,
                                      mask)
         aux = aux + a
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            L.write_prefill(cache["k"][i], k)
+            L.write_prefill(cache["v"][i], v)
     return (L.rms_norm(params["final_norm"], x, cfg.norm_eps),
             aux / cfg.n_layers)
 
@@ -296,7 +411,7 @@ def prefill(params, cfg, batch, cache):
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
     x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)
-    kpos = torch.arange(cache["k"].shape[2], device=x.device)
+    kpos = L.cache_positions(cache["k"])
     valid = kpos <= pos
     if cfg.window:
         valid &= (pos - kpos) < cfg.window

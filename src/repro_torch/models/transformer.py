@@ -23,7 +23,9 @@ cache is
 ``{"k", "v": (L,B,T,KV,hd), "pos": int}``; prefill and decode write the new
 keys and values into its tensors in place (the reference's serving loop
 donates its cache) and ``pos`` is a host integer, so no step synchronises
-with the device to index the cache.
+with the device to index the cache. A cache split by sequence
+(``layers.seq_split``) is written through ``layers.write_prefill`` and
+the decode, its validity vectors over global positions.
 """
 
 from __future__ import annotations
@@ -142,8 +144,8 @@ def stack_forward(params, cfg, x, positions, cache=None):
         x, (k, v) = apply_layer(_block_apply, params, i, cfg, x, positions,
                                 _layer_mask(cfg, i, full, local))
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            L.write_prefill(cache["k"][i], k)
+            L.write_prefill(cache["v"][i], v)
         x = L.shard_activations(x, cfg.act_shard)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps)
 
@@ -239,7 +241,7 @@ def decode_step(params, cfg, token, cache):
     """One new token (B,1) against the cache; returns (logits, cache)."""
     pos = cache["pos"]
     x = embed_tokens(params, cfg, token)
-    kpos = torch.arange(cache["k"].shape[2], device=x.device)
+    kpos = L.cache_positions(cache["k"])
     valid_full = kpos <= pos
     valid_local = (valid_full & ((pos - kpos) < cfg.window) if cfg.window
                    else valid_full)

@@ -152,10 +152,10 @@ def _decode_stack(params, cfg, tokens, enc, cache=None):
                                             positions, mask, enc,
                                             key="decoder")
         if cache is not None:
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-            cache["xk"][i] = xk
-            cache["xv"][i] = xv
+            L.write_prefill(cache["k"][i], k)
+            L.write_prefill(cache["v"][i], v)
+            L.write_prefill(cache["xk"][i], xk, "xk")
+            L.write_prefill(cache["xv"][i], xv, "xk")
     return L.layer_norm(params["final_norm"], x, cfg.norm_eps)
 
 
@@ -200,7 +200,7 @@ def prefill(params, cfg, batch, cache):
 def decode_step(params, cfg, token, cache):
     pos = cache["pos"]
     x = L.embed_lookup(L.param(params, "embed"), token, cfg.vocab)
-    valid = torch.arange(cache["k"].shape[2], device=x.device) <= pos
+    valid = L.cache_positions(cache["k"]) <= pos
     for i in range(cfg.n_layers):
         p = T._layer(params, i, "decoder")
         xn = L.layer_norm(p["ln1"], x, cfg.norm_eps)

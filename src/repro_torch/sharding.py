@@ -62,6 +62,21 @@ specs is what ``launch/dryrun.py`` reckons:
   Whisper's cross-attention's) and the ``k`` / ``v`` cache (and Whisper's
   ``xk`` / ``xv``) lie whole over ``model`` and the attention runs
   replicated; the reference's specs split a head there.
+* ``kv_whole``: where ``model`` divides the query heads but not the kv
+  heads (TinyLlama's 32 / 4 at ``model = 8``), ``attn/wk`` and
+  ``attn/wv`` (and Whisper's cross-attention's) lie whole over ``model``;
+  a rank's query heads read the columns of their own kv group
+  (``models.layers._local_heads``), and the gradient of the whole weights
+  is summed over ``model`` (Megatron's *f* on the weights). The
+  reference's specs split their lanes, in the middle of a head. The cache
+  keeps the reference's spec there: its sequence over ``model``, every kv
+  head on each rank (``models.layers.seq_split``).
+
+A cache split by sequence (``cache_spec``: T over ``model`` where the kv
+heads do not divide it, or over ``data`` under ``shard_seq``) keeps the
+reference's layout: a rank holds the positions ``[r T / n, (r+1) T / n)``
+of every batch row it holds, and the decode combines the ranks' partial
+softmaxes (``models.layers.seq_split``).
 """
 
 from __future__ import annotations
@@ -542,10 +557,18 @@ class ShardingPolicy:
         the query heads."""
         return self.cfg.n_heads % self._axis_size["model"] != 0
 
+    def kv_whole(self) -> bool:
+        """The world rule ``kv_whole``: ``model`` divides the query heads
+        but not the kv heads (and the policy splits ``model``)."""
+        M = self._axis_size["model"]
+        return (self.splits_model and not self._attention_whole()
+                and self.cfg.n_kv_heads % M != 0)
+
     def _world_param_rule(self, path: str, spec: Tuple) -> Tuple:
         """A parameter's spec under the world's rules (module docstring):
-        ``attention_whole`` and ``in_proj_halves``."""
-        if re.search(r"attn/w[qkvo]$", path) and self._attention_whole():
+        ``attention_whole``, ``kv_whole`` and ``in_proj_halves``."""
+        if (re.search(r"attn/w[qkvo]$", path) and self._attention_whole()
+                or re.search(r"attn/w[kv]$", path) and self.kv_whole()):
             return tuple(None if "model" in axis_names(a) else a
                          for a in spec)
         if re.search(r"mamba/in_proj$", path) and spec[-1] is not None:
@@ -611,6 +634,9 @@ class ShardingPolicy:
         ``world``: a world rank's layout (the rules ``token_shift_whole``
         and ``attention_whole`` of the module docstring; at ``chip``
         granularity, whose replicas are whole, nothing over ``model``).
+        A split sequence (T over ``model`` where the kv heads do not divide
+        it, over ``data`` under ``shard_seq``) is the reference's in a
+        world too (:meth:`seq_axis`).
         """
         def leaf_spec(path_elems, leaf):
             name = _k(path_elems[-1]) if path_elems else ""
@@ -648,6 +674,15 @@ class ShardingPolicy:
 
         flat, treedef = tree_flatten_with_path(cache)
         return treedef.unflatten([leaf_spec(pe, leaf) for pe, leaf in flat])
+
+    @staticmethod
+    def seq_axis(cache_spec, name: str = "k"):
+        """The mesh axis over which ``cache_spec`` (a tree of
+        :meth:`cache_spec`) splits the sequence of the cache leaf ``name``
+        (``k``: the self-attention's keys and values; ``xk``: Whisper's
+        cross cache), or None: whole."""
+        spec = cache_spec.get(name) if isinstance(cache_spec, dict) else None
+        return spec[2] if spec is not None and len(spec) > 2 else None
 
     def weights_spec(self) -> Tuple:
         return (self.part_axis,)

@@ -157,8 +157,8 @@ def test_moe_routing_under_vmap_is_the_references_per_member():
     def routed(params, tokens, labels, mask):
         seen = []
 
-        def spy(p, c, xg):
-            r = routing(p, c, xg)
+        def spy(p, c, xg, span=None):
+            r = routing(p, c, xg, span)
             seen.append(r)
             return r
 

@@ -234,22 +234,14 @@ def test_launchers_start_a_world(capfd):
     assert got["step_logits"][0].shape == (4, 512)
 
 
-@pytest.mark.parametrize("what", ["moe_tp", "grad_clip", "chip_granularity",
-                                  "moe_serve_tp", "seq_cache"])
-def test_world_refuses_what_this_slice_does_not_split(what):
-    """In a world (a mesh with a rank) the trainer and server refuse, with
-    ``NotImplementedError`` naming A12b-3b, what is not split across ranks
-    yet; nothing falls back to one device. No process is started: the
-    refusals come before any collective. Every LM family, every
-    participant granularity, a gradient clip under tensor parallelism and
-    a ``pod`` axis are built now (the trainers and servers are asserted),
-    and each case refuses what is still held back: a MoE training batch
-    at ``pod`` granularity whose rank rows split a routing group
-    (``moe_tp``), a cache split by sequence at ``pod`` granularity
-    (``grad_clip``), a MoE serve at ``chip`` granularity whose rank rows
-    split a group that could drop slots (``chip_granularity``), a dense
-    config's kv heads that the axis does not divide (``moe_serve_tp``),
-    and ``shard_seq`` (``seq_cache``)."""
+def test_world_builds_every_family_and_granularity():
+    """In a world (a mesh with a rank) the trainer and server of every LM
+    family and participant granularity, with a gradient clip and on a
+    ``pod`` axis, build, ``shard_seq`` too; no process is started. A MoE
+    batch whose rank rows split routing groups, a cache split by sequence
+    and kv heads the ``model`` axis does not divide run in
+    ``test_torch_world_seqcache.py`` and ``test_torch_world_moe_groups.py``.
+    """
     from repro_torch.config import H100, MeshConfig, TrainConfig
     from repro_torch.core.distributed import DistributedTrainer, Server
 
@@ -263,6 +255,7 @@ def test_world_refuses_what_this_slice_does_not_split(what):
         cfg = configs.reduced(configs.get_config(arch))
         assert DistributedTrainer(cfg, TrainConfig(), mcfg, **kw).world is mesh
         assert Server(cfg, mcfg, **kw).world is mesh
+        assert Server(cfg, mcfg, shard_seq=True, **kw).world is mesh
     for gran in ("pod", "chip"):
         for cfg in (dense, arctic):
             cfg = cfg.with_(participant_granularity=gran)
@@ -274,29 +267,6 @@ def test_world_refuses_what_this_slice_does_not_split(what):
     pod_cfg = MeshConfig(multi_pod=True, pods=2, data=2, model=2)
     assert DistributedTrainer(dense, TrainConfig(grad_clip=1.0), pod_cfg,
                               mesh=pod_mesh, device="cpu").world is pod_mesh
-    toks = torch.zeros((1, 1, 4, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A12b-3b"):
-        if what == "moe_tp":
-            # 32 tokens a participant in groups of 16: a rank's 8 split one
-            tr = DistributedTrainer(arctic.with_(participant_granularity="pod"),
-                                    TrainConfig(), mcfg, **kw)
-            tr.jit_train_step()(None, {"tokens": toks, "labels": toks},
-                                torch.ones(1))
-        elif what == "grad_clip":
-            Server(dense.with_(participant_granularity="pod"), mcfg,
-                   shard_seq=True, **kw)
-        elif what == "chip_granularity":
-            chip = arctic.with_(participant_granularity="chip",
-                                moe_capacity_factor=0.5)
-            Server(chip, mcfg, **kw).prefill(
-                None, {"tokens": torch.zeros((4, 8), dtype=torch.long)},
-                None)
-        elif what == "moe_serve_tp":
-            one_kv = dense.with_(n_kv_heads=1)
-            server = Server(one_kv, mcfg, **kw)
-            server.shard_cache(server.model.init_cache(8, 8, "cpu"))
-        else:
-            Server(dense, mcfg, shard_seq=True, **kw)
     assert mesh_device(mesh) == torch.device("cpu")
     # a world's mix on the CPU gathers P (the one-process arithmetic)
     tr = DistributedTrainer(dense, TrainConfig(), mcfg, **kw)

@@ -877,3 +877,172 @@ def reduce_scatter_body(world):
             "gathered_last": gathered_last, "grown": grown,
             "gathered": y.detach(), "grad": w.grad,
             "shm_prefix": world.shm_prefix}
+
+
+# ---------------------------------------------------------------------------
+# caches split by sequence, kv heads the ``model`` axis does not divide, and
+# MoE routing groups split across ranks
+# ---------------------------------------------------------------------------
+
+
+def seq_serve(world, arch, overrides, mesh_kw, params_np, batch_np, teacher,
+              max_len, shard_seq):
+    """The reduced ``arch`` (``overrides`` applied, among them its
+    participant granularity) served on the world of
+    ``MeshConfig(**mesh_kw)`` from ``params_np``: a prefill of
+    ``batch_np`` and one decode of each column of ``teacher``, served
+    after a second cache, of a length no axis of 2 divides (whole along
+    its sequence), was placed (a server serves the layout of the cache it
+    is given, not of the last it placed); every step's last logits, the
+    rank's cache leaves with their specs, the axes that split its
+    sequence and its coordinates (the test slices one process's cache by
+    them), the
+    routes the MoE's layers took (``pos`` and ``keep`` of this rank's
+    slots) and the collectives issued."""
+    from repro_torch.core.distributed import Server
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.reduced(configs.get_config(arch)).with_(**overrides)
+    mcfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    server = Server(cfg, mcfg, mesh=mesh, shard_seq=shard_seq, device="cpu")
+    params = server.shard_params(params_from_numpy(params_np, "cpu"))
+    B = teacher.shape[0]
+    whole = server.model.init_cache(B, max_len, "cpu")
+    spec = server.policy.cache_spec(whole, shard_seq=shard_seq, world=True)
+    cache = server.shard_cache(whole)
+    other = server.shard_cache(server.model.init_cache(B, 2 * max_len + 1,
+                                                       "cpu"))
+    assert other["seq_axes"]["k"] is None
+    batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+    collectives.reset_counts()
+    logits, cache = server.prefill(params, batch, cache)
+    steps = [logits[:, -1]]
+    for i in range(teacher.shape[1]):
+        logits, cache = server.decode(
+            params, torch.as_tensor(teacher[:, i:i + 1]), cache)
+        steps.append(logits[:, -1])
+    return {"steps": torch.stack(steps), "pos": cache["pos"],
+            "seq_axes": cache["seq_axes"],
+            "cache": {k: v for k, v in cache.items()
+                      if isinstance(v, torch.Tensor)},
+            "spec": {k: v for k, v in spec.items() if k != "pos"},
+            "coords": mesh.coords, "counts": dict(collectives.COUNTS),
+            "local": {k: tuple(v.shape) for k, v in params.get(
+                "layers", {}).get("attn", {}).items()}}
+
+
+def seq_serves_body(world, cases):
+    """:func:`seq_serve` of every case (``{name: its arguments}``), one
+    after another in one world."""
+    return {name: seq_serve(world, *args) for name, args in cases.items()}
+
+
+def kv_whole_grads(world, arch, overrides, mesh_kw, params_np, batch_np,
+                   drop_sum=False):
+    """The loss and every leaf's gradient (gathered by the state's specs,
+    rank 0) of a reduced ``arch`` on the world of ``MeshConfig(**mesh_kw)``
+    as a step computes them (``DistributedTrainer.grads``), with the local
+    shapes of the attention's weights. ``drop_sum``: a control with the
+    sum of the whole ``wk`` / ``wv``'s gradient over ``model`` left out
+    (``layers._kv_whole_in`` made the identity in this rank)."""
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import layers as L
+    from repro_torch.sharding import gather_tree
+
+    cfg = configs.reduced(configs.get_config(arch)).with_(**overrides)
+    mcfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    real = L._kv_whole_in
+    if drop_sum:
+        L._kv_whole_in = lambda w: w
+    try:
+        trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd",
+                                                      lr=0.1), mcfg,
+                                     mesh=mesh, device="cpu")
+        state = trainer.shard_state(
+            whole_state(trainer, params_from_numpy(params_np, "cpu")))
+        batch = {k: torch.as_tensor(v) for k, v in batch_np.items()}
+        loss, grads = trainer.grads(state, batch)
+    finally:
+        L._kv_whole_in = real
+    specs = trainer.state_spec(trainer.abstract_state()).params
+    whole = gather_tree(grads, specs, mesh)
+    return {"loss": loss, "grads": whole if world.rank == 0 else None,
+            "local": {k: tuple(v.shape[1:]) for k, v in
+                      state.params["layers"]["attn"].items()}}
+
+
+def seq_worlds_body(world, serves, grads):
+    """The serves of ``serves`` (:func:`seq_serve`) and the gradients of
+    ``grads`` (:func:`kv_whole_grads`), each ``{name: its arguments}``,
+    in one world."""
+    return {"serves": {n: seq_serve(world, *a) for n, a in serves.items()},
+            "grads": {n: kv_whole_grads(world, *a) for n, a in grads.items()}}
+
+
+def moe_rounds(world, arch, overrides, mesh_kw, params_np, batches, weights):
+    """MoDeST rounds of a reduced ``arch`` (``overrides`` applied) on the
+    world of ``MeshConfig(**mesh_kw)`` from ``params_np``: one round a
+    batch of ``batches`` (``(P, E, B, S)`` leaves, a ``mask`` among them
+    where given) with ``weights``, SGD at 0.1; each round's loss and the
+    gathered parameters after it (rank 0)."""
+    from repro_torch.core.distributed import DistributedTrainer
+    from repro_torch.engine.flat import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    cfg = configs.reduced(configs.get_config(arch)).with_(**overrides)
+    mcfg = MeshConfig(**mesh_kw)
+    mesh = make_mesh_from_config(mcfg, "cpu")
+    trainer = DistributedTrainer(cfg, TrainConfig(optimizer="sgd", lr=0.1),
+                                 mcfg, strategy="modest", mesh=mesh,
+                                 device="cpu")
+    state = trainer.shard_state(
+        whole_state(trainer, params_from_numpy(params_np, "cpu")))
+    step = trainer.jit_train_step()
+    losses, finals = [], []
+    collectives.reset_counts()
+    for b, w in zip(batches, weights):
+        state, m = step(state, {k: torch.as_tensor(v) for k, v in b.items()},
+                        torch.tensor(w, dtype=torch.float32))
+        losses.append(float(m["loss"]))
+        whole = trainer.gather_state(state).params     # every rank gathers
+        finals.append(whole if world.rank == 0 else None)
+    return {"losses": losses, "finals": finals,
+            "counts": dict(collectives.COUNTS)}
+
+
+def moe_groups_body(world, serves, rounds):
+    """The serves of ``serves`` (:func:`seq_serve`, the routes recorded)
+    and the rounds of ``rounds`` (:func:`moe_rounds`), each ``{name: its
+    arguments}``, in one world. Every call of ``models.moe.routing`` is
+    recorded: the ``pos`` and ``keep`` of this rank's slots (``keep``
+    nonzero), in call order."""
+    from repro_torch.models import moe
+
+    real = moe.routing
+    routes = []
+
+    def recording(p, cfg, xg, span=None):
+        r = real(p, cfg, xg, span)
+        routes.append({"pos": r["pos"].clone(), "keep": r["keep"].clone(),
+                       "every_keep": r.get("every_keep"),
+                       "span": None if span is None else tuple(
+                           span[1:])})
+        return r
+
+    moe.routing = recording
+    try:
+        out = {"serves": {}, "rounds": {}, "routes": {}}
+        for name, args in serves.items():
+            routes.clear()
+            out["serves"][name] = seq_serve(world, *args)
+            out["routes"][name] = list(routes)
+        for name, args in rounds.items():
+            out["rounds"][name] = moe_rounds(world, *args)
+    finally:
+        moe.routing = real
+    return out
